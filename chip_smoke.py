@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (src/repro_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the sources in this checkout, then runs
+three phases and fails (non-zero exit, no result line) on any error:
+
+  kernels  every kernel against its plain PyTorch version on the card, at
+           the small shapes of the CPU tests (zero buckets, ragged tails,
+           levels 1/7/127, 1/3/8 clients, with and without weights);
+  paper    compressed L2GD on the quickstart's logistic regression
+           (5 clients, d = 124, QSGD packed uplink, flat downlink, 500
+           steps), held against the port's own CPU run with the same key;
+  width    the trainer on the parameter tree of stablelm-1.6b at full
+           width and 4 of its 24 layers (d = 411,060,224 per client,
+           8 clients, a quadratic objective), once with the flat and once
+           with the packed downlink, with the launch counters reset
+           before and read after; then each kernel on that run's final
+           buffer: checked on its first and last 4096 buckets against the
+           plain version and timed against its memory bound.
+
+The last two lines of standard output are one JSON object describing
+the kernels and one JSON object naming the device.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
+PEAK_F32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+NORM_ULPS = 4                  # bucket-norm bound of tests/test_torch_qsgd.py
+WINDOW = 4096                  # buckets per window the plain version checks
+CUDA_SOURCE = "src/repro_torch/kernels/qsgd/csrc/qsgd.cu"
+REPLACES = {
+    "qsgd_pack": "src/repro/kernels/qsgd/kernel.py:187",
+    "qsgd_reduce": "src/repro/kernels/qsgd/ops.py:78",
+    "qsgd_fused": "src/repro/kernels/qsgd/kernel.py:132",
+    "qsgd_unpack": "src/repro/kernels/qsgd/kernel.py:238",
+}
+# stablelm-1.6b (repro/configs/stablelm_1_6b.py) at full width, 4 layers:
+# the leaf shapes of repro/models/model.py::init_params
+D_MODEL, D_FF, VOCAB, LAYERS = 2048, 5632, 100352, 4
+WIDTH_D = 411_060_224
+WIDTH_CLIENTS = 8
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def ulps(a, b):
+    import torch
+    a, b = a.float(), b.float()
+    spacing = torch.abs(torch.nextafter(a, torch.full_like(a, np.inf)) - a)
+    return float(torch.max(torch.abs(a - b) / spacing.clamp_min(1e-45)))
+
+
+# --------------------------------------------------------------------------
+# phase kernels: small shapes
+# --------------------------------------------------------------------------
+
+def phase_kernels_small(dev):
+    import torch
+    from repro_torch.kernels.qsgd import ref
+    from repro_torch.kernels.qsgd.kernel import (qsgd_fused, qsgd_pack,
+                                                 qsgd_unpack)
+    from repro_torch.kernels.qsgd.ops import qsgd_reduce
+    rng = np.random.default_rng(0)
+    shapes = {"zero-bucket": (4, 128), "ragged-tail": (3, 2048),
+              "lanes": (2, 384), "odd-bucket": (3, 100)}
+    worst = 0.0
+    for kind, (nb, b) in shapes.items():
+        x = rng.normal(size=(3, nb, b)).astype(np.float32)
+        if kind == "zero-bucket":
+            x[:, 1] = 0.0
+        if kind == "ragged-tail":
+            x.reshape(3, -1)[:, 5000:] = 0.0
+        seeds = rng.integers(0, 2 ** 32, size=(3, 2), dtype=np.uint64) \
+            .astype(np.uint32)
+        xd = torch.from_numpy(x).to(dev)
+        for levels in (1, 7, 127):
+            codes, norms = qsgd_pack(xd, seeds, levels=levels)
+            for i in range(3):
+                given, _ = ref.qsgd_pack_ref(xd[i], seeds[i], levels=levels,
+                                             norms=norms[i])
+                check(torch.equal(codes[i], given),
+                      f"pack codes {kind} levels {levels} client {i}")
+                _, plain_norms = ref.qsgd_pack_ref(xd[i], seeds[i],
+                                                   levels=levels)
+                worst = max(worst, ulps(plain_norms, norms[i]))
+            fused = qsgd_fused(xd[0].contiguous(), seeds[0], levels=levels)
+            check(torch.equal(fused, ref.qsgd_fused_ref(
+                xd[0], seeds[0], levels=levels, norms=norms[0])),
+                f"fused {kind} levels {levels}")
+            unpacked = qsgd_unpack(codes[0].contiguous(),
+                                   norms[0].contiguous(), levels=levels)
+            check(torch.equal(unpacked, ref.qsgd_unpack_ref(
+                codes[0], norms[0], levels=levels)), f"unpack {kind}")
+            check(torch.equal(unpacked, fused), f"unpack != fused {kind}")
+    check(worst <= NORM_ULPS, f"bucket norms {worst} ulps from the plain sum")
+    for n in (1, 3, 8):
+        codes = torch.from_numpy(rng.integers(-7, 8, size=(n, 6, 128))
+                                 .astype(np.int8)).to(dev)
+        norms = torch.from_numpy(rng.uniform(0.1, 5, size=(n, 6, 1))
+                                 .astype(np.float32)).to(dev)
+        for w in (None, torch.from_numpy(rng.uniform(0, 2, size=n)
+                                         .astype(np.float32)).to(dev)):
+            check(torch.equal(qsgd_reduce(codes, norms, w, levels=7),
+                              ref.qsgd_reduce_ref(codes, norms, w, levels=7)),
+                  f"reduce n={n} weights={w is not None}")
+    torch.cuda.synchronize()
+    log(f"phase kernels: small shapes ok (bucket norms within {worst:g} ulps "
+        "of the plain sum; codes, fused, unpack, reduce bit-exact)")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase paper: the quickstart configuration, GPU against the port on CPU
+# --------------------------------------------------------------------------
+
+def phase_paper(dev):
+    import torch
+    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
+    from repro_torch.data import logreg_loss_and_grad, make_logreg_data
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    n, steps = 5, 500
+    data = make_logreg_data(n_clients=n, heterogeneity=1.5, seed=0)
+
+    def grad_fn(p, b):
+        loss, g = logreg_loss_and_grad(p["w"], b[0], b[1], 0.01)
+        return loss, {"w": g}
+
+    def run_on(device):
+        X = torch.from_numpy(data.features).to(device)
+        Y = torch.from_numpy(data.labels).to(device)
+        comp = make_compressor("qsgd")
+        plan = make_plan(comp, {"w": torch.zeros(124)}, transport="packed")
+        t0 = time.perf_counter()
+        run = run_l2gd(prng.PRNGKey(0), {"w": torch.zeros(n, 124)}, grad_fn,
+                       L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n),
+                       lambda k: (X, Y), steps, client_comp=comp,
+                       master_comp=comp, plan=plan, device=device)
+        w = run.state.params["w"]
+        final = float(torch.mean(grad_fn({"w": w}, (X, Y))[0]))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return run, final, time.perf_counter() - t0
+
+    reset_launches()
+    gpu, gpu_loss, gpu_s = run_on(dev)
+    launches = dict(LAUNCHES)
+    cpu, cpu_loss, _ = run_on("cpu")
+    check(np.array_equal(gpu.xis, cpu.xis), "xi traces differ")
+    check(gpu.ledger == cpu.ledger, "ledgers differ")
+    check((gpu.n_local, gpu.n_agg_comm, gpu.n_agg_cached)
+          == (cpu.n_local, cpu.n_agg_comm, cpu.n_agg_cached),
+          "branch counts differ")
+    for name in ("qsgd_pack", "qsgd_reduce", "qsgd_fused"):
+        check(launches.get(name, 0) > 0, f"{name} never launched")
+    # the QSGD-run tolerances of tests/test_torch_l2gd.py: params within
+    # one downlink level, losses within 1e-3 relative
+    w_gpu = gpu.state.params["w"].cpu().numpy()
+    w_cpu = cpu.state.params["w"].numpy()
+    level = np.sqrt(np.sum(np.mean(w_cpu, 0) ** 2)) / 127
+    check(np.max(np.abs(w_gpu - w_cpu)) <= level, "params beyond one level")
+    check(abs(gpu_loss - cpu_loss) <= 1e-3 * abs(cpu_loss),
+          f"final loss {gpu_loss} vs CPU {cpu_loss}")
+    check(gpu_loss < gpu.losses[0][1], "the loss did not fall")
+    log(f"phase paper: final mean local loss {gpu_loss:.6f} (CPU "
+        f"{cpu_loss:.6f}, start {gpu.losses[0][1]:.6f}); bits/n "
+        f"{gpu.ledger.bits_per_client:.6e}; rounds {gpu.ledger.rounds}; "
+        f"max |w_gpu - w_cpu| {np.max(np.abs(w_gpu - w_cpu)):.3e}; "
+        f"{steps} steps in {gpu_s:.2f} s; launches {launches}")
+
+
+# --------------------------------------------------------------------------
+# phase width: the trainer at stablelm-1.6b width
+# --------------------------------------------------------------------------
+
+def width_tree(n, make):
+    """The stacked parameter tree, every leaf from ``make(shape)``."""
+    L, D, F = LAYERS, D_MODEL, D_FF
+    return {
+        "embed": {"table": make((n, VOCAB, D))},
+        "final_norm": {"scale": make((n, D))},
+        "layers": {
+            "attn": {k: make((n, L, D, D)) for k in ("wq", "wk", "wv", "wo")},
+            "ffn": {"w_gate": make((n, L, D, F)), "w_up": make((n, L, D, F)),
+                    "w_down": make((n, L, F, D))},
+            "ln1": {"scale": make((n, L, D))},
+            "ln2": {"scale": make((n, L, D))},
+        },
+    }
+
+
+def phase_width(dev):
+    import torch
+    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    n = WIDTH_CLIENTS
+    gen = torch.Generator(device=dev)
+
+    def seeded(seed, scale):
+        gen.manual_seed(seed)
+        return lambda shape: torch.randn(shape, generator=gen, device=dev) \
+            .mul_(scale)
+
+    targets = width_tree(n, seeded(1, 1.0))
+
+    def grad_fn(params, batch):
+        # f_i(w) = 0.5 ||w - a_i||^2 over every leaf (the quadratic fixture
+        # of tests/conftest.py); the norm avoids a squared temporary
+        losses = torch.zeros(n, device=dev)
+
+        def one(w, a):
+            g = w - a
+            losses.add_(torch.linalg.vector_norm(g.reshape(n, -1), dim=1)
+                        .square_().mul_(0.5))
+            return g
+
+        return losses, tree_map(one, params, batch)
+
+    comp = make_compressor("qsgd")
+    one_client = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
+    up = make_plan(comp, one_client, transport="packed")
+    check(up.round_bits() == 8 * WIDTH_D + 32 * (WIDTH_D // 2048),
+          "uplink message bits")
+    reset_launches()        # the main path starts here
+    for down_transport in ("flat", "packed"):
+        down = make_plan(comp, one_client, transport=down_transport)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run = run_l2gd(prng.PRNGKey(0), width_tree(n, seeded(0, 0.02)),
+                       grad_fn, L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n),
+                       lambda k: targets, 5, plan=(up, down),
+                       xi_trace=[0, 1, 1, 0, 1], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(list(run.xis) == [0, 1, 1, 0, 1], "forced xi trace")
+        check((run.n_local, run.n_agg_comm, run.n_agg_cached) == (2, 2, 1),
+              "branch counts")
+        check(run.ledger.rounds == 2 and run.ledger.uplink_bits_per_client
+              == 2 * 3_294_904_608, "ledger uplink bits")
+        for leaf in tree_leaves(run.state.params):
+            check(bool(torch.isfinite(leaf).all()), "non-finite params")
+        log(f"phase width ({down_transport} downlink): {n} clients x "
+            f"d={WIDTH_D}; {seconds / 5 * 1e3:.1f} ms per step (5 steps, "
+            f"first-call costs included); peak allocated "
+            f"{peak / 1e9:.2f} GB; losses "
+            f"{[round(v, 1) for _, v in run.losses]}")
+        if down_transport == "packed":
+            layout = flatbuf.layout_of(run.state.params, 2048, batch_dims=1)
+            buf = flatbuf.ravel(layout, run.state.params)
+        del run
+    launches = dict(LAUNCHES)   # the main path ends here
+    for name in REPLACES:
+        check(launches.get(name, 0) > 0, f"{name} never launched at width")
+    del targets
+    torch.cuda.empty_cache()
+    log(f"phase width: launches {launches}")
+    return flatbuf.bucketize(buf, 2048).contiguous(), launches
+
+
+# --------------------------------------------------------------------------
+# kernels at the width shapes: windows against the plain version, timing
+# --------------------------------------------------------------------------
+
+def time_ms(fn, reps, warmup=2):
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_width_kernels(x, launches, norm_ulps):
+    import torch
+    from repro_torch.kernels.qsgd import ref
+    from repro_torch.kernels.qsgd.kernel import (qsgd_fused, qsgd_pack,
+                                                 qsgd_unpack)
+    from repro_torch.kernels.qsgd.ops import qsgd_reduce
+
+    n, nb, b = x.shape
+    d = nb * b
+    levels = 127
+    seeds = np.stack([np.arange(n, dtype=np.uint32) * 2 + 1,
+                      np.arange(n, dtype=np.uint32) * 2 + 2], axis=1)
+    weights = torch.ones(n, device=x.device)
+    codes, norms = qsgd_pack(x, seeds, levels=levels)
+    fused = qsgd_fused(x[0], seeds[0], levels=levels)
+    unpacked = qsgd_unpack(codes[0], norms[0], levels=levels)
+    reduced = qsgd_reduce(codes, norms, weights, levels=levels)
+    torch.cuda.synchronize()
+    err = {k: 0.0 for k in REPLACES}
+    for r0 in (0, nb - WINDOW):
+        win = slice(r0, r0 + WINDOW)
+        for i in (0, n - 1):
+            given, plain_norms = ref.qsgd_pack_ref(
+                x[i, win], seeds[i], levels=levels, row_offset=r0,
+                norms=norms[i, win])
+            check(torch.equal(codes[i, win], given),
+                  f"pack codes, window at {r0}, client {i}")
+            _, plain_norms = ref.qsgd_pack_ref(x[i, win], seeds[i],
+                                               levels=levels, row_offset=r0)
+            norm_ulps = max(norm_ulps, ulps(plain_norms, norms[i, win]))
+            err["qsgd_pack"] = max(err["qsgd_pack"], float(
+                torch.max(torch.abs(plain_norms - norms[i, win]))))
+        check(torch.equal(fused[win], ref.qsgd_fused_ref(
+            x[0, win], seeds[0], levels=levels, row_offset=r0,
+            norms=norms[0, win])), f"fused, window at {r0}")
+        own = ref.qsgd_fused_ref(x[0, win], seeds[0], levels=levels,
+                                 row_offset=r0)
+        level = norms[0, win] / levels
+        check(bool(torch.all(torch.abs(own - fused[win]) <= level * 1.000001)),
+              "fused beyond one level of its plain version")
+        err["qsgd_fused"] = max(err["qsgd_fused"],
+                                float(torch.max(torch.abs(own - fused[win]))))
+        check(torch.equal(unpacked[win], ref.qsgd_unpack_ref(
+            codes[0, win], norms[0, win], levels=levels)), "unpack window")
+        check(torch.equal(reduced[win], ref.qsgd_reduce_ref(
+            codes[:, win], norms[:, win], weights, levels=levels)),
+            "reduce window")
+    check(norm_ulps <= NORM_ULPS, f"bucket norms {norm_ulps} ulps off")
+    log(f"phase width kernels: windows at rows 0 and {nb - WINDOW} ok "
+        f"(codes/fused/unpack/reduce bit-exact given the kernel's norms; "
+        f"norms within {norm_ulps:g} ulps)")
+
+    nbytes = {
+        "qsgd_pack": n * d * 4 + n * d + n * nb * 4,
+        "qsgd_reduce": n * d + n * nb * 4 + n * 4 + d * 4,
+        "qsgd_fused": d * 4 + d * 4,
+        "qsgd_unpack": d + nb * 4 + d * 4,
+    }
+    # float32 operations per element: pack/fused square+add (norm), abs,
+    # div, mul, floor, sub, compare, add, sign (+ the dequantize multiply
+    # in fused); unpack one multiply; reduce two multiplies and an add per
+    # client
+    nops = {"qsgd_pack": 10 * n * d, "qsgd_fused": 11 * d,
+            "qsgd_unpack": d, "qsgd_reduce": 3 * n * d}
+    kernel_fns = {
+        "qsgd_pack": lambda: qsgd_pack(x, seeds, levels=levels),
+        "qsgd_reduce": lambda: qsgd_reduce(codes, norms, weights,
+                                           levels=levels),
+        "qsgd_fused": lambda: qsgd_fused(x[0], seeds[0], levels=levels),
+        "qsgd_unpack": lambda: qsgd_unpack(codes[0], norms[0], levels=levels),
+    }
+    plain_fns = {
+        "qsgd_pack": lambda: [ref.qsgd_pack_ref(x[i], seeds[i], levels=levels)
+                              for i in range(n)],
+        "qsgd_reduce": lambda: ref.qsgd_reduce_ref(codes, norms, weights,
+                                                   levels=levels),
+        "qsgd_fused": lambda: ref.qsgd_fused_ref(x[0], seeds[0],
+                                                 levels=levels),
+        "qsgd_unpack": lambda: ref.qsgd_unpack_ref(codes[0], norms[0],
+                                                   levels=levels),
+    }
+    rows = []
+    for name in REPLACES:
+        ms = time_ms(kernel_fns[name], reps=25)
+        plain_ms = time_ms(plain_fns[name], reps=3, warmup=1)
+        bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        ops_ms = nops[name] / PEAK_F32_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": CUDA_SOURCE,
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        })
+        log(f"time {name}: {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms"
+            f", {nbytes[name] / 1e9:.3f} GB; {bytes_ms / ms:.0%} of the "
+            f"memory roofline); plain version {plain_ms:.1f} ms")
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build   # fails outside a checkout
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    log(smi[0])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+
+    worst = phase_kernels_small(dev)
+    phase_paper(dev)
+    x, launches = phase_width(dev)
+    rows = phase_width_kernels(x, launches, worst)
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""The protocol's threefry key schedule, reproduced bit-exactly on the host.
+
+Every random stream of compressed L2GD — the xi draws, the per-step
+compressor keys, the per-client uplink keys — is a threefry2x32 key
+derived from one protocol key (DESIGN.md §6 and §8).  The port keeps
+these streams integer-exact with the JAX reference instead of drawing
+from a ``torch.Generator``: a key is a numpy ``(2,)`` uint32 array (a batch
+of keys is ``(..., 2)``), and the schedule below reproduces, for
+``jax_threefry_partitionable=True`` (the default since jax 0.5):
+
+  * ``jax.random.PRNGKey(seed)``   -> :func:`PRNGKey`
+  * ``jax.random.split(key, n)``   -> :func:`split`
+  * ``jax.random.fold_in(key, i)`` -> :func:`fold_in`
+  * ``jax.random.bits`` (32-bit)   -> :func:`random_bits`
+  * ``jax.random.uniform`` (f32)   -> :func:`uniform`
+  * ``jax.random.bernoulli``       -> :func:`bernoulli`
+
+Keys are a few bytes, so the schedule runs in numpy ``uint32`` (which
+wraps natively) and never touches the device; the kernels receive the
+two words of ``flatbuf.seeds_of(key)`` as scalar arguments.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["PRNGKey", "threefry2x32", "split", "fold_in", "random_bits",
+           "uniform", "bernoulli"]
+
+_U32 = np.uint32
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = _U32(0x1BD11BDA)
+
+
+def _rotl(x, r: int):
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block (20 rounds) on broadcastable uint32
+    arrays: key words ``(k1, k2)``, counter words ``(x1, x2)``.  Returns
+    the two output words as uint32 arrays of the broadcast shape."""
+    k1, k2, x1, x2 = np.broadcast_arrays(*(np.asarray(a, _U32)
+                                           for a in (k1, k2, x1, x2)))
+    shape = k1.shape
+    # 1-d arrays throughout: uint32 array arithmetic wraps silently,
+    # numpy scalar arithmetic would warn on every wrap
+    k1, k2, x1, x2 = (a.reshape(-1) for a in (k1, k2, x1, x2))
+    ks = [k1, k2, k1 ^ k2 ^ _PARITY]
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
+    return x[0].reshape(shape), x[1].reshape(shape)
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """Raw key words of ``jax.random.PRNGKey(seed)`` for an int32 seed:
+    the high word is ``seed >> 32`` (0 for every int32 seed) and the low
+    word is the seed's bit pattern."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"seed {seed} is outside the int32 range the "
+                         "reference accepts without jax_enable_x64")
+    return np.array([0, seed & 0xFFFFFFFF], _U32)
+
+
+def _words(key):
+    key = np.asarray(key, _U32)
+    if key.shape[-1:] != (2,):
+        raise ValueError(f"a key is (..., 2) uint32 words, got {key.shape}")
+    return key[..., 0], key[..., 1]
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` -> (num, 2) uint32 keys."""
+    k1, k2 = _words(key)
+    lo = np.arange(int(num), dtype=_U32)
+    y1, y2 = threefry2x32(k1, k2, np.zeros_like(lo), lo)
+    return np.stack([y1, y2], axis=-1)
+
+
+def fold_in(key, data) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``.  ``data`` may be an int or an
+    integer array (values taken modulo 2^32, as the reference converts
+    them to uint32); an array gives one key per element, (..., 2)."""
+    k1, k2 = _words(key)
+    d = np.asarray(np.asarray(data, np.int64) & 0xFFFFFFFF, _U32)
+    y1, y2 = threefry2x32(k1, k2, np.zeros_like(d), d)
+    return np.stack([y1, y2], axis=-1)
+
+
+def random_bits(key, shape=()) -> np.ndarray:
+    """32-bit ``jax.random.bits(key, shape)`` in partitionable mode: the
+    64-bit iota of the shape, split into (hi, lo) counter words, hashed,
+    and the two output words XORed.  A batch of keys (..., 2) gives
+    bits of shape ``batch + shape``."""
+    k1, k2 = _words(key)
+    shape = tuple(int(s) for s in shape)
+    count = np.arange(int(np.prod(shape, dtype=np.int64)),
+                      dtype=np.uint64).reshape(shape)
+    hi = (count >> np.uint64(32)).astype(_U32)
+    lo = (count & np.uint64(0xFFFFFFFF)).astype(_U32)
+    kshape = k1.shape + (1,) * len(shape)
+    y1, y2 = threefry2x32(k1.reshape(kshape), k2.reshape(kshape), hi, lo)
+    return y1 ^ y2
+
+
+def uniform(key, shape=()) -> np.ndarray:
+    """float32 ``jax.random.uniform(key, shape)`` on [0, 1): the top 23
+    bits as the mantissa of a float in [1, 2), minus one."""
+    bits = random_bits(key, shape)
+    floats = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32)
+    return np.maximum(np.float32(0.0), floats - np.float32(1.0))
+
+
+def bernoulli(key, p, shape=()) -> np.ndarray:
+    """``jax.random.bernoulli(key, p)`` with ``p`` compared in float32,
+    as the reference compares the float32 ``hp.p``."""
+    return uniform(key, shape) < np.float32(p)
