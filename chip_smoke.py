@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, then runs
-three phases and fails (non-zero exit, no result line) on any error:
+these phases and fails (non-zero exit, no result line) on any error:
 
   kernels  every kernel against its plain PyTorch version on the card, at
-           the small shapes of the CPU tests (zero buckets, ragged tails,
-           levels 1/7/127, 1/3/8 clients, with and without weights);
+           the small shapes of the CPU tests (QSGD: zero buckets, ragged
+           tails, levels 1/7/127, 1/3/8 clients, with and without weights;
+           natural: ±0, subnormals, ±Inf, NaN, the exponent-254 carry,
+           1/3/8 clients, with and without weights, all bit-exact);
   paper    compressed L2GD on the quickstart's logistic regression
-           (5 clients, d = 124, QSGD packed uplink, flat downlink, 500
-           steps), held against the port's own CPU run with the same key;
+           (5 clients, d = 124, 500 steps), held against the port's own
+           CPU run with the same key: QSGD (packed uplink, flat downlink)
+           and natural (auto plans: flat uplink, flat downlink);
+  leafwise the same configuration (100 steps) with each of the seven
+           compressors of the paper pinned to the leafwise transport both
+           ways, GPU against CPU;
   width    the trainer on the parameter tree of stablelm-1.6b at full
            width and 4 of its 24 layers (d = 411,060,224 per client,
            8 clients, a quadratic objective), once with the flat and once
-           with the packed downlink, with the launch counters reset
-           before and read after; then each kernel on that run's final
-           buffer: checked on its first and last 4096 buckets against the
-           plain version and timed against its memory bound.
+           with the packed downlink, for QSGD and then for natural, each
+           codec's launch counters reset before and read after; then each
+           kernel on that run's final buffer: checked on its first and
+           last 4096 buckets against the plain version and timed against
+           its bound.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -36,6 +43,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# int32 instructions: 64 INT32 lanes per SM and clock (half the FP32
+# lanes, Hopper white paper) x 132 SMs x 1.98 GHz boost
+PEAK_I32_OPS_PER_S = 132 * 64 * 1.98e9
 NORM_ULPS = 4                  # bucket-norm bound of tests/test_torch_qsgd.py
 WINDOW = 4096                  # buckets per window the plain version checks
 CUDA_SOURCE = "src/repro_torch/kernels/qsgd/csrc/qsgd.cu"
@@ -45,6 +55,16 @@ REPLACES = {
     "qsgd_fused": "src/repro/kernels/qsgd/kernel.py:132",
     "qsgd_unpack": "src/repro/kernels/qsgd/kernel.py:238",
 }
+NATURAL_SOURCE = "src/repro_torch/kernels/natural/csrc/natural.cu"
+NATURAL_REPLACES = {
+    "natural_pack": "src/repro/kernels/natural/kernel.py:129",
+    "natural_reduce": "src/repro/kernels/natural/ops.py:86",
+    "natural_fused": "src/repro/kernels/natural/kernel.py:88",
+}
+LEAFWISE = ("identity", "natural", "qsgd", "terngrad", "bernoulli", "randk",
+            "topk")
+PAPER_LOSS_RTOL = 1e-3         # the paper phases' GPU-vs-CPU loss bound
+LEAFWISE_STEPS = 100           # per codec and device in the leafwise phase
 # stablelm-1.6b (repro/configs/stablelm_1_6b.py) at full width, 4 layers:
 # the leaf shapes of repro/models/model.py::init_params
 D_MODEL, D_FF, VOCAB, LAYERS = 2048, 5632, 100352, 4
@@ -127,6 +147,97 @@ def phase_kernels_small(dev):
     return worst
 
 
+def bits_equal(a, b):
+    """Bit-for-bit equality of two float32 tensors (NaN, -0.0 included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def bits_equal_but_nan(a, b):
+    """Bit-for-bit equality except that a NaN equals any NaN: a NaN made
+    by arithmetic (Inf - Inf) is 0x7FFFFFFF on the card and 0xFFC00000 on
+    an x86 CPU."""
+    import torch
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and bits_equal(a[~nan], b[~nan])
+
+
+def natural_buffer(rng, n, nb, b):
+    """(n, nb, b) float32 with a zero bucket, ±0, subnormals, ±Inf, NaN and
+    the largest finite values (whose bump carries to ±Inf)."""
+    x = rng.normal(size=(n, nb, b)).astype(np.float32)
+    x[:, 1] = 0.0
+    bits = x.reshape(n, -1).view(np.uint32)
+    bits[:, :7] = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40,
+                            -1e-42], np.float32).view(np.uint32)
+    bits[:, 8:16] = 0x7F7FFFFF
+    bits[:, 16:24] = 0xFF7FFFFF
+    bits[:, 24:56] = rng.integers(1, 0x7FFFFF, size=(n, 32)).astype(np.uint32)
+    bits[:, 40:56] |= 0x80000000
+    return x
+
+
+def phase_natural_kernels_small(dev):
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.core.codec import NaturalPayload
+    from repro_torch.kernels.bits import natural_merge, unpack_bits
+    from repro_torch.kernels.natural import ref
+    from repro_torch.kernels.natural.kernel import natural_fused, natural_pack
+    from repro_torch.kernels.natural.ops import natural_reduce
+    rng = np.random.default_rng(1)
+    for nb, b in ((6, 128), (3, 2048), (5, 384), (7, 8)):
+        x = natural_buffer(rng, 3, nb, b)
+        seeds = rng.integers(0, 2 ** 32, size=(3, 2), dtype=np.uint64) \
+            .astype(np.uint32)
+        xd = torch.from_numpy(x).to(dev)
+        exps, signs = natural_pack(xd, seeds)
+        for i in range(3):
+            e, sg = ref.natural_pack_ref(xd[i], seeds[i])
+            check(torch.equal(exps[i], e) and torch.equal(signs[i], sg),
+                  f"natural pack ({nb}, {b}) client {i}")
+        fused = natural_fused(xd[0].contiguous(), seeds[0])
+        check(bits_equal(fused, ref.natural_fused_ref(xd[0], seeds[0])),
+              f"natural fused ({nb}, {b})")
+        check(bits_equal(fused.cpu(), ref.natural_fused_ref(
+            torch.from_numpy(x[0]), seeds[0])), f"natural fused vs CPU {b}")
+        # the merge (plain PyTorch on both sides) on the card's payload
+        merged = natural_merge(exps, unpack_bits(signs, 1))
+        check(bits_equal(merged.cpu(), natural_merge(
+            exps.cpu(), unpack_bits(signs.cpu(), 1))), "natural_merge")
+        kept = ~torch.isnan(fused)     # NaN leaves the 9-bit wire as Inf
+        check(bits_equal(merged[0][kept], fused[kept]),
+              "merge(pack) != fused")
+        layout = flatbuf.layout_of({"w": torch.zeros(nb * b)}, b)
+        tree = flatbuf.unpack_tree(NaturalPayload(exps, signs, layout=layout))
+        cpu_tree = flatbuf.unpack_tree(NaturalPayload(
+            exps.cpu(), signs.cpu(), layout=layout))
+        check(bits_equal(tree["w"].cpu(), cpu_tree["w"]), "unpack_tree")
+    sign = natural_merge(torch.zeros(1, dtype=torch.uint8, device=dev),
+                         torch.ones(1, dtype=torch.uint8, device=dev))
+    check(int(sign.view(torch.int32).item()) & 0xFFFFFFFF == 0x80000000,
+          "(sign << 31) is not 0x80000000 on the card")
+    # (6, 128) takes the 16-element group kernel, (3, 8) the float4 one
+    for n, (nb, b) in ((n, s) for n in (1, 3, 8) for s in ((6, 128), (3, 8))):
+        exps = torch.from_numpy(rng.integers(0, 256, size=(n, nb, b))
+                                .astype(np.uint8)).to(dev)
+        signs = torch.from_numpy(rng.integers(0, 256, size=(n, nb, b // 8))
+                                 .astype(np.uint8)).to(dev)
+        for w in (None, torch.from_numpy(rng.uniform(0, 2, size=n)
+                                         .astype(np.float32)).to(dev)):
+            got = natural_reduce(exps, signs, w)
+            check(bits_equal(got, ref.natural_reduce_ref(exps, signs, w)),
+                  f"natural reduce n={n} b={b} weights={w is not None}")
+            check(bits_equal_but_nan(got.cpu(), ref.natural_reduce_ref(
+                exps.cpu(), signs.cpu(), None if w is None else w.cpu())),
+                f"natural reduce vs CPU n={n}")
+    torch.cuda.synchronize()
+    log("phase kernels: natural pack, fused, reduce bit-exact against their "
+        "plain versions on the card and on the CPU (±0, subnormals, ±Inf, "
+        "NaN, carries; 1/3/8 clients), merge and unpack_tree too")
+
+
 # --------------------------------------------------------------------------
 # phase paper: the quickstart configuration, GPU against the port on CPU
 # --------------------------------------------------------------------------
@@ -188,6 +299,101 @@ def phase_paper(dev):
         f"{steps} steps in {gpu_s:.2f} s; launches {launches}")
 
 
+def paper_run(device, comp, plan, steps=500):
+    """The quickstart's configuration on ``device``: (run, final mean local
+    loss, seconds)."""
+    import torch
+    from repro_torch.core import L2GDHyper, prng
+    from repro_torch.data import logreg_loss_and_grad, make_logreg_data
+    from repro_torch.fl import run_l2gd
+
+    n = 5
+    data = make_logreg_data(n_clients=n, heterogeneity=1.5, seed=0)
+    X = torch.from_numpy(data.features).to(device)
+    Y = torch.from_numpy(data.labels).to(device)
+
+    def grad_fn(p, b):
+        loss, g = logreg_loss_and_grad(p["w"], b[0], b[1], 0.01)
+        return loss, {"w": g}
+
+    t0 = time.perf_counter()
+    run = run_l2gd(prng.PRNGKey(0), {"w": torch.zeros(n, 124)}, grad_fn,
+                   L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n),
+                   lambda k: (X, Y), steps, client_comp=comp,
+                   master_comp=comp, plan=plan, device=device)
+    final = float(torch.mean(grad_fn(run.state.params, (X, Y))[0]))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return run, final, time.perf_counter() - t0
+
+
+def same_protocol(gpu, cpu, what):
+    check(np.array_equal(gpu.xis, cpu.xis), f"{what}: xi traces differ")
+    check(gpu.ledger == cpu.ledger, f"{what}: ledgers differ")
+    check((gpu.n_local, gpu.n_agg_comm, gpu.n_agg_cached)
+          == (cpu.n_local, cpu.n_agg_comm, cpu.n_agg_cached),
+          f"{what}: branch counts differ")
+
+
+def phase_paper_natural(dev):
+    """The quickstart's natural line: auto plans, so the uplink is the
+    flat engine (pack + reduce) and the downlink the fused kernel."""
+    from repro_torch.core import make_compressor
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    comp = make_compressor("natural")
+    reset_launches()
+    gpu, gpu_loss, gpu_s = paper_run(dev, comp, None)
+    launches = dict(LAUNCHES)
+    cpu, cpu_loss, _ = paper_run("cpu", comp, None)
+    same_protocol(gpu, cpu, "natural paper")
+    for name in NATURAL_REPLACES:
+        check(launches.get(name, 0) > 0, f"{name} never launched (paper)")
+    # natural runs: GPU and CPU logistic gradients differ in the last
+    # bits, which can move a value across a rounding boundary of the next
+    # compression: losses within PAPER_LOSS_RTOL
+    w_gpu = gpu.state.params["w"].cpu().numpy()
+    w_cpu = cpu.state.params["w"].numpy()
+    check(abs(gpu_loss - cpu_loss) <= PAPER_LOSS_RTOL * abs(cpu_loss),
+          f"natural final loss {gpu_loss} vs CPU {cpu_loss}")
+    check(gpu_loss < gpu.losses[0][1], "natural: the loss did not fall")
+    log(f"phase paper (natural): final mean local loss {gpu_loss:.6f} (CPU "
+        f"{cpu_loss:.6f}, start {gpu.losses[0][1]:.6f}); bits/n "
+        f"{gpu.ledger.bits_per_client:.6e}; rounds {gpu.ledger.rounds}; "
+        f"max |w_gpu - w_cpu| {np.max(np.abs(w_gpu - w_cpu)):.3e}; "
+        f"500 steps in {gpu_s:.2f} s; launches {launches}")
+
+
+def phase_leafwise(dev):
+    """Every compressor of the paper, leafwise both ways, GPU against CPU.
+    The leafwise codecs are plain PyTorch on the card (the reference has
+    no kernel for them): no hand-written kernel launches here."""
+    import torch
+    from repro_torch.core import make_compressor, make_plan
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    one = {"w": torch.zeros(124)}
+    summary = []
+    t0 = time.perf_counter()
+    for name in LEAFWISE:
+        comp = make_compressor(name)
+        plans = (make_plan(comp, one, transport="leafwise"),
+                 make_plan(comp, one, transport="leafwise"))
+        reset_launches()
+        gpu, gpu_loss, _ = paper_run(dev, comp, plans, LEAFWISE_STEPS)
+        check(not LAUNCHES, f"leafwise {name} launched {dict(LAUNCHES)}")
+        cpu, cpu_loss, _ = paper_run("cpu", comp, plans, LEAFWISE_STEPS)
+        same_protocol(gpu, cpu, f"leafwise {name}")
+        if np.isfinite(cpu_loss):
+            check(abs(gpu_loss - cpu_loss) <= PAPER_LOSS_RTOL * abs(cpu_loss),
+                  f"leafwise {name}: final loss {gpu_loss} vs CPU {cpu_loss}")
+        summary.append(f"{name} {gpu_loss:.6f}/{cpu_loss:.6f} "
+                       f"({gpu.ledger.bits_per_client:.4e} bits/n)")
+    log(f"phase leafwise: 7 codecs x {LEAFWISE_STEPS} steps on GPU and CPU in "
+        f"{time.perf_counter() - t0:.1f} s; xi traces, ledgers, branch "
+        f"counts equal; final loss GPU/CPU: " + "; ".join(summary))
+
+
 # --------------------------------------------------------------------------
 # phase width: the trainer at stablelm-1.6b width
 # --------------------------------------------------------------------------
@@ -208,15 +414,12 @@ def width_tree(n, make):
     }
 
 
-def phase_width(dev):
+def width_objective(dev, n):
+    """(seeded leaf maker, targets tree, grad_fn) of the width phases:
+    f_i(w) = 0.5 ||w - a_i||^2 over every leaf (the quadratic fixture of
+    tests/conftest.py), targets a_i ~ N(0, 1) from seed 1."""
     import torch
-    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
-    from repro_torch.core import flatbuf
-    from repro_torch.core.tree import tree_leaves, tree_map
-    from repro_torch.fl import run_l2gd
-    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
-
-    n = WIDTH_CLIENTS
+    from repro_torch.core.tree import tree_map
     gen = torch.Generator(device=dev)
 
     def seeded(seed, scale):
@@ -227,8 +430,7 @@ def phase_width(dev):
     targets = width_tree(n, seeded(1, 1.0))
 
     def grad_fn(params, batch):
-        # f_i(w) = 0.5 ||w - a_i||^2 over every leaf (the quadratic fixture
-        # of tests/conftest.py); the norm avoids a squared temporary
+        # the norm avoids a squared temporary
         losses = torch.zeros(n, device=dev)
 
         def one(w, a):
@@ -239,6 +441,19 @@ def phase_width(dev):
 
         return losses, tree_map(one, params, batch)
 
+    return seeded, targets, grad_fn
+
+
+def phase_width(dev):
+    import torch
+    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    n = WIDTH_CLIENTS
+    seeded, targets, grad_fn = width_objective(dev, n)
     comp = make_compressor("qsgd")
     one_client = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
     up = make_plan(comp, one_client, transport="packed")
@@ -403,6 +618,142 @@ def phase_width_kernels(x, launches, norm_ulps):
     return rows
 
 
+def phase_width_natural(dev):
+    """The width trainer with natural compression: packed uplink (pack +
+    reduce), flat then packed downlink (fused, then pack + merge)."""
+    import torch
+    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    n = WIDTH_CLIENTS
+    seeded, targets, grad_fn = width_objective(dev, n)
+    comp = make_compressor("natural")
+    one_client = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
+    up = make_plan(comp, one_client, transport="packed")
+    check(up.round_bits() == 9 * WIDTH_D == 3_699_542_016,
+          "natural uplink message bits")
+    steps_ms, peaks = {}, {}
+    reset_launches()        # the natural main path starts here
+    for down_transport in ("flat", "packed"):
+        down = make_plan(comp, one_client, transport=down_transport)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run = run_l2gd(prng.PRNGKey(0), width_tree(n, seeded(0, 0.02)),
+                       grad_fn, L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n),
+                       lambda k: targets, 5, plan=(up, down),
+                       xi_trace=[0, 1, 1, 0, 1], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peaks[down_transport] = torch.cuda.max_memory_allocated(dev)
+        steps_ms[down_transport] = seconds / 5 * 1e3
+        check(list(run.xis) == [0, 1, 1, 0, 1], "forced xi trace")
+        check((run.n_local, run.n_agg_comm, run.n_agg_cached) == (2, 2, 1),
+              "branch counts")
+        check(run.ledger.rounds == 2 and run.ledger.uplink_bits_per_client
+              == 2 * 3_699_542_016, "natural ledger uplink bits")
+        for leaf in tree_leaves(run.state.params):
+            check(bool(torch.isfinite(leaf).all()), "non-finite params")
+        log(f"phase width natural ({down_transport} downlink): {n} clients "
+            f"x d={WIDTH_D}; {steps_ms[down_transport]:.1f} ms per step (5 "
+            f"steps, first-call costs included); peak allocated "
+            f"{peaks[down_transport] / 1e9:.2f} GB; losses "
+            f"{[round(v, 1) for _, v in run.losses]}")
+        if down_transport == "packed":
+            layout = flatbuf.layout_of(run.state.params, 128, batch_dims=1)
+            buf = flatbuf.ravel(layout, run.state.params)
+        del run
+    launches = dict(LAUNCHES)   # the natural main path ends here
+    for name in NATURAL_REPLACES:
+        check(launches.get(name, 0) > 0, f"{name} never launched at width")
+    del targets
+    torch.cuda.empty_cache()
+    log(f"phase width natural: launches {launches}")
+    return flatbuf.bucketize(buf, 128).contiguous(), launches
+
+
+def phase_width_kernels_natural(x, launches):
+    import torch
+    from repro_torch.kernels.natural import ref
+    from repro_torch.kernels.natural.kernel import natural_fused, natural_pack
+    from repro_torch.kernels.natural.ops import natural_reduce
+
+    n, nb, b = x.shape
+    d = nb * b
+    seeds = np.stack([np.arange(n, dtype=np.uint32) * 2 + 1,
+                      np.arange(n, dtype=np.uint32) * 2 + 2], axis=1)
+    weights = torch.ones(n, device=x.device)
+    exps, signs = natural_pack(x, seeds)
+    fused = natural_fused(x[0], seeds[0])
+    reduced = natural_reduce(exps, signs, weights)
+    torch.cuda.synchronize()
+    for r0 in (0, nb - WINDOW):
+        win = slice(r0, r0 + WINDOW)
+        for i in (0, n - 1):
+            e, sg = ref.natural_pack_ref(x[i, win], seeds[i], row_offset=r0)
+            check(torch.equal(exps[i, win], e) and torch.equal(signs[i, win],
+                                                               sg),
+                  f"natural pack, window at {r0}, client {i}")
+        check(bits_equal(fused[win], ref.natural_fused_ref(
+            x[0, win], seeds[0], row_offset=r0)),
+            f"natural fused, window at {r0}")
+        check(bits_equal(reduced[win], ref.natural_reduce_ref(
+            exps[:, win], signs[:, win], weights)),
+            f"natural reduce, window at {r0}")
+    log(f"phase width kernels natural: windows at rows 0 and {nb - WINDOW} "
+        "bit-exact (pack codes and signs, fused, reduce)")
+
+    nbytes = {
+        "natural_pack": n * d * 4 + n * d + n * d // 8,
+        "natural_reduce": n * d + n * d // 8 + n * 4 + d * 4,
+        "natural_fused": d * 4 + d * 4,
+    }
+    # int32 operations per element: the counter hash (index multiply-add,
+    # xor, fmix32: 3 shifts, 3 xors, 2 multiplies) 11, the rounding (mask,
+    # shift, compare, exponent test, select, and, add) 8, and pack's code
+    # and sign extraction 4; the reduce's merge (2 shifts, or, mask) 4 and
+    # one float multiply and add per client
+    nops = {"natural_pack": 23 * n * d, "natural_fused": 19 * d,
+            "natural_reduce": 6 * n * d}
+    kernel_fns = {
+        "natural_pack": lambda: natural_pack(x, seeds),
+        "natural_reduce": lambda: natural_reduce(exps, signs, weights),
+        "natural_fused": lambda: natural_fused(x[0], seeds[0]),
+    }
+    plain_fns = {
+        "natural_pack": lambda: [ref.natural_pack_ref(x[i], seeds[i])
+                                 for i in range(n)],
+        "natural_reduce": lambda: ref.natural_reduce_ref(exps, signs,
+                                                         weights),
+        "natural_fused": lambda: ref.natural_fused_ref(x[0], seeds[0]),
+    }
+    rows = []
+    for name in NATURAL_REPLACES:
+        ms = time_ms(kernel_fns[name], reps=25)
+        # one call: the plain pack takes about a second at this size
+        plain_ms = time_ms(plain_fns[name], reps=1, warmup=0)
+        bytes_ms = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        ops_ms = nops[name] / PEAK_I32_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": NATURAL_SOURCE,
+            "replaces": NATURAL_REPLACES[name],
+            "launches": launches.get(name, 0), "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        })
+        log(f"time {name}: {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms"
+            f", {nbytes[name] / 1e9:.3f} GB = {bytes_ms:.3f} ms, "
+            f"{nops[name] / 1e9:.1f} G int32 ops = {ops_ms:.3f} ms; "
+            f"{max(bytes_ms, ops_ms) / ms:.0%} of the roofline); plain "
+            f"version {plain_ms:.1f} ms")
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -425,9 +776,17 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     worst = phase_kernels_small(dev)
+    phase_natural_kernels_small(dev)
     phase_paper(dev)
+    phase_paper_natural(dev)
+    phase_leafwise(dev)
     x, launches = phase_width(dev)
     rows = phase_width_kernels(x, launches, worst)
+    del x
+    torch.cuda.empty_cache()
+    x, launches = phase_width_natural(dev)
+    rows += phase_width_kernels_natural(x, launches)
+    del x
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,16 @@ of ``repro.core.aggregation`` (Algorithm 1's master/worker exchange):
 
 Flat-engine uplinks encode all n clients in one batched pack launch and
 the master forms the mean with the one-pass fused decode->reduce, O(d)
-server state (DESIGN.md §10).  The key schedule is the reference's:
-``k_clients, k_master = split(key)``, client i uses
-``split(k_clients, n)[i]``.
+server state (DESIGN.md §10).  Leafwise uplinks apply the plan to the
+stacked tree with the n client keys at once: one codec call per leaf,
+each client drawing from its own key.  The key schedule is the
+reference's: ``k_clients, k_master = split(key)``, client i uses
+``split(k_clients, n)[i]``, and a leafwise plan splits that key over the
+leaves.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -21,13 +26,18 @@ from repro_torch.core.codec import as_plan
 from repro_torch.core.tree import tree_leaves, tree_map
 
 __all__ = ["compressed_average", "masked_client_mean",
-           "stacked_finite_mask", "weighted_client_sum", "client_mean"]
+           "stacked_finite_mask", "weighted_client_sum", "client_mean",
+           "all_finite"]
 
 
 def client_mean(a: torch.Tensor) -> torch.Tensor:
     """Mean over the leading client axis as the reference's ``jnp.mean``
     compiles: clients added in index order 0..n-1, the sum multiplied by
-    the float32 reciprocal of n (XLA's form of a division by a constant)."""
+    the float32 reciprocal of n (XLA's form of a division by a constant).
+    No clients give NaN, as 0 * inf does there."""
+    if a.shape[0] == 0:
+        return torch.full(a.shape[1:], float("nan"), dtype=a.dtype,
+                          device=a.device)
     acc = a[0].clone()
     for i in range(1, a.shape[0]):
         acc += a[i]
@@ -58,8 +68,16 @@ def stacked_finite_mask(tree_stacked) -> torch.Tensor:
                     device=leaves[0].device)
     for a in leaves:
         ok = ok & torch.isfinite(a.to(torch.float32)) \
-            .reshape(a.shape[0], -1).all(dim=1)
+            .reshape(a.shape[0], math.prod(a.shape[1:])).all(dim=1)
     return ok.to(torch.float32)
+
+
+def all_finite(fin: torch.Tensor) -> torch.Tensor:
+    """0-d bool on ``fin``'s device: every client's 0/1 finite flag is 1
+    (True for no clients, as the reference's ``jnp.bool_(True)``)."""
+    if fin.shape[0] == 0:
+        return torch.ones((), dtype=torch.bool, device=fin.device)
+    return torch.min(fin) > 0
 
 
 def weighted_client_sum(tree_stacked, weights: torch.Tensor):
@@ -91,14 +109,12 @@ def compressed_average(key, params_stacked, client_comp, master_comp, *,
         payload = up_plan.encode(client_keys, params_stacked)
         ybar = flatbuf.reduce_payload_mean(payload, mask)
     else:
-        # leafwise uplink: identity, the one leafwise codec of this
-        # slice, is elementwise and keyless, so it applies to the stacked
-        # leaves at once.  Non-finite clients leave the mean; the plain
-        # mean is selected when all are finite
-        compressed = tree_map(lambda a: up_plan.codec.apply(None, a),
-                              params_stacked)
+        # leafwise uplink: the n clients' codecs in one call per leaf.
+        # Non-finite clients leave the mean; the plain mean is selected
+        # when all are finite, so that path stays the reference's
+        compressed = up_plan.apply(client_keys, params_stacked)
         fin = stacked_finite_mask(compressed)
-        all_ok = torch.min(fin) > 0
+        all_ok = all_finite(fin)
         w = fin if mask is None else mask.reshape(-1).to(torch.float32) * fin
         denom = torch.sum(w)
         safe = torch.where(denom > 0, denom, torch.ones_like(denom))

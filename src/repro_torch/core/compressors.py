@@ -1,14 +1,32 @@
-"""Compressors (the paper's §IV-A) — the counterpart of
-``repro.core.compressors`` for this slice of the port: :class:`Identity`
-and :class:`QSGD`.
+"""Compressors (the paper's §IV-A, Table I) — the counterpart of
+``repro.core.compressors``: identity, qsgd, natural, terngrad, bernoulli,
+rand-k (all unbiased) and top-k (biased).
 
-Each compressor is a Codec: ``encode(key, x) -> payload``,
-``decode(payload) -> x`` and ``apply(key, x)``.  Identity implements all
-three per leaf (its dense payload is what the leafwise transport
-carries).  QSGD runs through the flat-buffer engine
-(:mod:`repro_torch.core.flatbuf`, one fused kernel per tree); its
-per-leaf codec and the other compressors of the reference — natural,
-terngrad, bernoulli, rand-k, top-k — are later slices (ROADMAP.md).
+Each compressor is a Codec:
+
+  * ``encode(key, x) -> payload`` flattens ``x`` to float32 and records
+    its shape and dtype on the payload (:mod:`repro_torch.core.codec`);
+  * ``decode(payload) -> x`` reshapes back;
+  * ``apply(key, x)`` equals ``decode(encode(key, x))``; the elementwise
+    codecs (identity, natural, bernoulli) take a fast path that skips the
+    payload.
+
+``key`` is two uint32 words; keys (n, 2) with an ``x`` of leading axis n
+compress n clients' arrays in one call, each with its own key (the
+reference's vmap).  The randomness is the reference's: threefry draws of
+``jax.random.uniform`` / ``bernoulli`` / ``permutation`` over the same
+shapes, made on the tensor's device (:mod:`repro_torch.core.prng`).
+Float rounding follows XLA:CPU's: a division by a constant (``x / q``,
+``norm / levels``) is a multiply by the float32 reciprocal, a division by
+a runtime value stays an IEEE division.
+
+Natural compression rounds in the bits domain and passes a value through
+unchanged only where its exponent field is 255; subnormals round (the
+reference's jitted jnp compares ``x == 0`` with denormals-are-zero and
+passes them through — ``repro_torch/kernels/natural/ref.py``).
+
+QSGD and natural also run whole trees through the flat-buffer engine
+(:mod:`repro_torch.core.flatbuf`, one kernel launch per tree).
 """
 from __future__ import annotations
 
@@ -18,35 +36,77 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core.codec import DensePayload
+from repro_torch.core import flatbuf, prng
+from repro_torch.core.codec import (BernoulliPayload, DensePayload,
+                                    NaturalPayload, QSGDPayload,
+                                    SparsePayload, TernPayload, index_bits,
+                                    spec_tensor)
+from repro_torch.kernels.bits import (bits_float, float_bits, natural_merge,
+                                      natural_split, pack_bits, unpack_bits)
+from repro_torch.kernels.qsgd.ref import qsgd_unpack_ref, quantize_with_noise
 
-__all__ = ["Compressor", "Identity", "QSGD", "make_compressor"]
-
-_LATER = {"natural", "terngrad", "bernoulli", "randk", "topk"}
+__all__ = ["Compressor", "Identity", "QSGD", "Natural", "TernGrad",
+           "Bernoulli", "RandK", "TopK", "make_compressor"]
 
 
 def _nelem(shape) -> int:
     return int(np.prod(shape)) if len(shape) else 1
 
 
+def _batch_dims(key) -> int:
+    """Leading axes of ``x`` that a key batch (..., 2) covers."""
+    return np.asarray(key).ndim - 1
+
+
+def _pad_last(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    pad = (-t.shape[-1]) % multiple
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros(tuple(t.shape[:-1]) + (pad,))], dim=-1)
+
+
+def _reciprocal(c: float) -> float:
+    """float32(1 / float32(c)): XLA's constant for ``x / c``."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _sparse_k(fraction: float, d: int) -> int:
+    return max(int(round(fraction * d)), 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Compressor:
-    """Base class / Codec protocol."""
+    """Base class / Codec protocol.  Subclasses implement
+    ``_encode_flat(key, x)`` / ``_decode_flat(payload)`` on float32
+    (..., d) buffers and ``_flat_spec(d)``, the payload of meta tensors
+    shaped as ``_encode_flat``'s output (for ``round_bits``);
+    elementwise codecs also implement ``_apply_flat``."""
 
     name: str = dataclasses.field(default="base", init=False)
+    elementwise: bool = dataclasses.field(default=False, init=False)
 
+    # -- public API ---------------------------------------------------------
     def encode(self, key, x: torch.Tensor):
-        raise NotImplementedError(
-            f"per-leaf {self.name!r} encode is slice 2 of the port "
-            "(ROADMAP.md); use the flat or packed transport")
+        nb = _batch_dims(key)
+        batch, shape = tuple(x.shape[:nb]), tuple(x.shape[nb:])
+        flat = x.reshape(batch + (_nelem(shape),)).to(torch.float32)
+        p = self._encode_flat(key, flat)
+        return dataclasses.replace(p, shape=shape, dtype=x.dtype)
 
     def decode(self, payload) -> torch.Tensor:
-        raise NotImplementedError(
-            f"per-leaf {self.name!r} decode is slice 2 of the port "
-            "(ROADMAP.md); use the flat or packed transport")
+        y = self._decode_flat(payload)
+        return y.reshape(tuple(y.shape[:-1]) + tuple(payload.shape)) \
+            .to(payload.dtype)
 
     def apply(self, key, x: torch.Tensor) -> torch.Tensor:
+        if self.elementwise:
+            return self._apply_flat(key, x.to(torch.float32)).to(x.dtype)
         return self.decode(self.encode(key, x))
+
+    def payload_spec(self, shape):
+        """The payload of one array of ``shape``, as meta tensors."""
+        return dataclasses.replace(self._flat_spec(_nelem(shape)),
+                                   shape=tuple(shape))
 
     def omega(self, shape) -> float:
         """Variance factor omega (Assumption 1)."""
@@ -57,22 +117,38 @@ class Compressor:
         tables; the ledger charges ``CompressionPlan.round_bits()``)."""
         raise NotImplementedError
 
+    # -- subclass hooks -----------------------------------------------------
+    def _encode_flat(self, key, x):
+        raise NotImplementedError
+
+    def _decode_flat(self, payload):
+        raise NotImplementedError
+
+    def _apply_flat(self, key, x):
+        raise NotImplementedError
+
+    def _flat_spec(self, d: int):
+        raise NotImplementedError
+
 
 @dataclasses.dataclass(frozen=True)
 class Identity(Compressor):
     """No compression: omega = 0, 32 bits/element (DensePayload)."""
 
     name: str = dataclasses.field(default="identity", init=False)
+    elementwise: bool = dataclasses.field(default=True, init=False)
 
-    def encode(self, key, x):
-        return DensePayload(values=x.reshape(-1).to(torch.float32),
-                            shape=tuple(x.shape), dtype=x.dtype)
+    def _apply_flat(self, key, x):
+        return x
 
-    def decode(self, payload):
-        return payload.values.reshape(payload.shape).to(payload.dtype)
+    def _encode_flat(self, key, x):
+        return DensePayload(values=x)
 
-    def apply(self, key, x):
-        return x.to(torch.float32).to(x.dtype)
+    def _decode_flat(self, p):
+        return p.values
+
+    def _flat_spec(self, d):
+        return DensePayload(spec_tensor((d,)))
 
     def omega(self, shape) -> float:
         return 0.0
@@ -84,12 +160,45 @@ class Identity(Compressor):
 @dataclasses.dataclass(frozen=True)
 class QSGD(Compressor):
     """QSGD / random dithering [Alistarh et al. 2017] with ``levels``
-    levels per bucket of ``bucket`` elements; its wire message is
-    :class:`~repro_torch.core.codec.QSGDPayload`."""
+    levels per bucket of ``bucket`` elements: C(x) = ||x|| sign(x) xi / s
+    with xi a stochastic rounding of s|x| / ||x||.  Its wire message is
+    :class:`~repro_torch.core.codec.QSGDPayload` (int8 codes while
+    ``levels <= 127``, int16 beyond)."""
 
     levels: int = 127
     bucket: int = 2048
     name: str = dataclasses.field(default="qsgd", init=False)
+
+    def _code_dtype(self):
+        return torch.int8 if self.levels <= 127 else torch.int16
+
+    def _encode_flat(self, key, x):
+        batch, d = tuple(x.shape[:-1]), x.shape[-1]
+        if d == 0:
+            return QSGDPayload(
+                torch.zeros(batch + (0,), dtype=self._code_dtype(),
+                            device=x.device),
+                torch.zeros(batch + (0, 1), device=x.device),
+                levels=self.levels)
+        xp = flatbuf.bucketize(x, self.bucket)
+        noise = prng.tensor_uniform(key, xp.shape[len(batch):], x.device)
+        codes, norm = quantize_with_noise(xp, noise, self.levels)
+        return QSGDPayload(flatbuf.unbucketize(codes.to(self._code_dtype()),
+                                               d),
+                           norm, levels=self.levels)
+
+    def _decode_flat(self, p):
+        d = p.codes.shape[-1]
+        if d == 0:
+            return torch.zeros(p.codes.shape, device=p.codes.device)
+        codes2d = flatbuf.bucketize(p.codes.to(torch.float32), self.bucket)
+        return flatbuf.unbucketize(qsgd_unpack_ref(codes2d, p.norms,
+                                                   levels=p.levels), d)
+
+    def _flat_spec(self, d):
+        nb = -(-d // self.bucket)
+        return QSGDPayload(spec_tensor((d,), self._code_dtype()),
+                           spec_tensor((nb, 1)), levels=self.levels)
 
     def omega(self, shape) -> float:
         d = min(self.bucket, _nelem(shape))
@@ -104,16 +213,246 @@ class QSGD(Compressor):
         return n * math.log2(2 * self.levels + 1) + 32.0 * n_buckets
 
 
-_REGISTRY = {"identity": Identity, "qsgd": QSGD}
+@dataclasses.dataclass(frozen=True)
+class Natural(Compressor):
+    """Natural compression [Horvath et al. 2019]: stochastic rounding of
+    the magnitude to a power of two, the exponent bumped with probability
+    mantissa / 2^23 (exactly unbiased).  omega = 1/8, 9 bits/element:
+    :class:`~repro_torch.core.codec.NaturalPayload`."""
+
+    name: str = dataclasses.field(default="natural", init=False)
+    elementwise: bool = dataclasses.field(default=True, init=False)
+
+    def _apply_flat(self, key, x):
+        bits = float_bits(x)
+        rbits = prng.tensor_bits(key, x.shape[_batch_dims(key):], x.device)
+        special = (bits & 0x7F800000) == 0x7F800000
+        # u < mantissa / 2^23 with u = (rbits >> 9) * 2^-23, both exact
+        up = ((rbits >> 9) < (bits & 0x7FFFFF)) & ~special
+        out = (bits & 0xFF800000) + (up.to(torch.int64) << 23)
+        return bits_float(torch.where(special, bits, out))
+
+    def _encode_flat(self, key, x):
+        exps, signs = natural_split(self._apply_flat(key, x))
+        return NaturalPayload(exps, pack_bits(_pad_last(signs, 8), 1))
+
+    def _decode_flat(self, p):
+        d = p.exps.shape[-1]
+        return natural_merge(p.exps, unpack_bits(p.signs, 1)[..., :d])
+
+    def _flat_spec(self, d):
+        return NaturalPayload(spec_tensor((d,), torch.uint8),
+                              spec_tensor((-(-d // 8),), torch.uint8))
+
+    def omega(self, shape) -> float:
+        return 0.125
+
+    def wire_bits(self, shape) -> float:
+        return 9.0 * _nelem(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class TernGrad(Compressor):
+    """TernGrad [Wen et al. 2017]: C(x) = ||x||_inf sign(x) b with b ~
+    Bernoulli(|x| / ||x||_inf) per coordinate, per bucket.  Wire message:
+    :class:`~repro_torch.core.codec.TernPayload`."""
+
+    bucket: int = 2048
+    name: str = dataclasses.field(default="terngrad", init=False)
+
+    def _encode_flat(self, key, x):
+        batch, d = tuple(x.shape[:-1]), x.shape[-1]
+        if d == 0:
+            return TernPayload(
+                torch.zeros(batch + (0,), dtype=torch.uint8, device=x.device),
+                torch.zeros(batch + (0, 1), device=x.device),
+                bucket=self.bucket)
+        xp = flatbuf.bucketize(x, self.bucket)
+        mx = torch.amax(torch.abs(xp), dim=-1, keepdim=True)
+        safe = torch.where(mx == 0.0, torch.ones_like(mx), mx)
+        u = prng.tensor_uniform(key, xp.shape[len(batch):], x.device)
+        tern = (u < torch.abs(xp) / safe).to(torch.float32) * torch.sign(xp)
+        enc = flatbuf.unbucketize(
+            torch.where(tern < 0, torch.full_like(tern, 2.0), tern), d) \
+            .to(torch.uint8)
+        return TernPayload(pack_bits(_pad_last(enc, 4), 2), mx,
+                           bucket=self.bucket)
+
+    def _decode_flat(self, p):
+        d = _nelem(p.shape)
+        batch = tuple(p.codes.shape[:-1])
+        if d == 0:
+            return torch.zeros(batch + (0,), device=p.codes.device)
+        enc = unpack_bits(p.codes, 2)[..., :d].to(torch.float32)
+        tern = torch.where(enc == 2.0, torch.full_like(enc, -1.0), enc)
+        y2d = flatbuf.bucketize(tern, p.bucket) * p.scales
+        return flatbuf.unbucketize(y2d, d)
+
+    def _flat_spec(self, d):
+        return TernPayload(spec_tensor((-(-d // 4),), torch.uint8),
+                           spec_tensor((-(-d // self.bucket), 1)),
+                           bucket=self.bucket)
+
+    def omega(self, shape) -> float:
+        d = min(self.bucket, _nelem(shape))
+        return max(math.sqrt(d) - 1.0, 0.0)
+
+    def wire_bits(self, shape) -> float:
+        n = _nelem(shape)
+        if n == 0:
+            return 0.0
+        n_buckets = math.ceil(n / self.bucket)
+        return n * math.log2(3.0) + 32.0 * n_buckets
+
+
+@dataclasses.dataclass(frozen=True)
+class Bernoulli(Compressor):
+    """Bernoulli sparsifier [Khirirat et al. 2018]: C(x)_j = x_j b_j / q,
+    b_j ~ Bern(q); omega = (1 - q) / q.  Wire message:
+    :class:`~repro_torch.core.codec.BernoulliPayload`."""
+
+    q: float = 0.25
+    name: str = dataclasses.field(default="bernoulli", init=False)
+    elementwise: bool = dataclasses.field(default=True, init=False)
+
+    def _draw(self, key, x):
+        return prng.tensor_bernoulli(key, self.q, x.shape[_batch_dims(key):],
+                                     x.device)
+
+    def _scaled(self, b, x):
+        return torch.where(b, x * _reciprocal(self.q), torch.zeros_like(x))
+
+    def _apply_flat(self, key, x):
+        return self._scaled(self._draw(key, x), x)
+
+    def _encode_flat(self, key, x):
+        b = self._draw(key, x)
+        return BernoulliPayload(pack_bits(_pad_last(b.to(torch.uint8), 8), 1),
+                                self._scaled(b, x), q=self.q)
+
+    def _decode_flat(self, p):
+        return p.values
+
+    def _flat_spec(self, d):
+        return BernoulliPayload(spec_tensor((-(-d // 8),), torch.uint8),
+                                spec_tensor((d,)), q=self.q)
+
+    def omega(self, shape) -> float:
+        return (1.0 - self.q) / self.q
+
+    def wire_bits(self, shape) -> float:
+        n = _nelem(shape)
+        if n == 0:
+            return 0.0
+        return self.q * n * (32.0 + index_bits(n))
+
+
+def _sparse_decode(p):
+    d = _nelem(p.shape)
+    out = torch.zeros(tuple(p.values.shape[:-1]) + (d,),
+                      device=p.values.device)
+    return out.scatter_(-1, p.indices.to(torch.int64), p.values)
+
+
+def _sparse_spec(fraction, d):
+    k = 0 if d == 0 else _sparse_k(fraction, d)
+    return SparsePayload(spec_tensor((k,), torch.int32), spec_tensor((k,)))
+
+
+def _sparse_empty(x):
+    batch = tuple(x.shape[:-1])
+    return SparsePayload(
+        torch.zeros(batch + (0,), dtype=torch.int32, device=x.device),
+        torch.zeros(batch + (0,), device=x.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """rand-k sparsifier: a uniformly random k-subset (the first k of
+    ``jax.random.permutation``), scaled by d/k; omega = d/k - 1.  Wire
+    message: :class:`~repro_torch.core.codec.SparsePayload`."""
+
+    fraction: float = 0.1
+    name: str = dataclasses.field(default="randk", init=False)
+
+    def _encode_flat(self, key, x):
+        d = x.shape[-1]
+        if d == 0:
+            return _sparse_empty(x)
+        k = _sparse_k(self.fraction, d)
+        idx = prng.permutation(key, d, x.device)[..., :k]
+        # x[idx] * (d / k): a multiply by the float32 of the double d / k
+        values = torch.gather(x, -1, idx) * float(np.float32(d / k))
+        return SparsePayload(idx.to(torch.int32), values)
+
+    def _decode_flat(self, p):
+        return _sparse_decode(p)
+
+    def _flat_spec(self, d):
+        return _sparse_spec(self.fraction, d)
+
+    def omega(self, shape) -> float:
+        d = _nelem(shape)
+        return d / _sparse_k(self.fraction, d) - 1.0
+
+    def wire_bits(self, shape) -> float:
+        d = _nelem(shape)
+        if d == 0:
+            return 0.0
+        return _sparse_k(self.fraction, d) * (32.0 + index_bits(d))
+
+
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Top-k sparsifier [Aji & Heafield 2017] — BIASED (the paper's
+    proof-of-concept).  Ties go to the lower index, as ``lax.top_k``
+    breaks them: a stable descending sort, not ``torch.topk``.  Wire
+    message: :class:`~repro_torch.core.codec.SparsePayload`."""
+
+    fraction: float = 0.1
+    name: str = dataclasses.field(default="topk", init=False)
+
+    def _encode_flat(self, key, x):
+        d = x.shape[-1]
+        if d == 0:
+            return _sparse_empty(x)
+        k = _sparse_k(self.fraction, d)
+        idx = torch.sort(torch.abs(x), dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+        return SparsePayload(idx.to(torch.int32), torch.gather(x, -1, idx))
+
+    def _decode_flat(self, p):
+        return _sparse_decode(p)
+
+    def _flat_spec(self, d):
+        return _sparse_spec(self.fraction, d)
+
+    def omega(self, shape) -> float:
+        # not an unbiasedness-variance factor: the contraction parameter
+        d = _nelem(shape)
+        return 1.0 - _sparse_k(self.fraction, d) / d
+
+    def wire_bits(self, shape) -> float:
+        d = _nelem(shape)
+        if d == 0:
+            return 0.0
+        return _sparse_k(self.fraction, d) * (32.0 + index_bits(d))
+
+
+_REGISTRY = {
+    "identity": Identity,
+    "qsgd": QSGD,
+    "natural": Natural,
+    "terngrad": TernGrad,
+    "bernoulli": Bernoulli,
+    "randk": RandK,
+    "topk": TopK,
+}
 
 
 def make_compressor(name: str, **kwargs) -> Compressor:
     """Factory: ``make_compressor('qsgd', levels=15)``."""
-    if name in _LATER:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet; see ROADMAP.md for "
-            "the slice that brings it")
     if name not in _REGISTRY:
         raise ValueError(f"unknown compressor {name!r}; have "
-                         f"{sorted(_REGISTRY) + sorted(_LATER)}")
+                         f"{sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

@@ -1,5 +1,5 @@
 """Flat-buffer compression engine — the counterpart of
-``repro.core.flatbuf`` for the QSGD codec.
+``repro.core.flatbuf`` for the QSGD and natural codecs.
 
 The whole parameter tree is raveled into ONE contiguous float32 buffer
 with static leaf offsets (:class:`FlatLayout`), bucketized once and
@@ -13,8 +13,14 @@ raveled buffer is (n, d).
   bucketize / unbucketize       — the one pad/bucket/reshape rule
   seeds_of                      — key words -> the kernels' two seed words
   flat_tree_apply               — fused whole-tree C(x) (flat transport)
-  pack_tree / unpack_tree       — whole-tree QSGD wire payloads, bit-exact
-                                  against flat_tree_apply
+  pack_tree / unpack_tree       — whole-tree wire payloads (QSGDPayload,
+                                  NaturalPayload), bit-exact against
+                                  flat_tree_apply
+  pack_tree_qsgd / pack_tree_natural
+                                — codec-specific encoders
+  narrow_tree_qsgd / widen_tree_qsgd
+                                — the sub-byte QSGD wire and its inverse
+  payload_spec                  — a payload of meta tensors (round_bits)
   payload_finite_mask / sanitize_payload / reduce_payload_acc /
   reduce_payload_mean           — the server's one-pass masked mean of a
                                   stacked payload batch, O(d) state
@@ -23,32 +29,39 @@ raveled buffer is (n, d).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.codec import QSGDPayload
+from repro_torch.core.codec import (NarrowQSGDPayload, NaturalPayload,
+                                    QSGDPayload, spec_tensor)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.kernels.bits import natural_merge, pack_bits, unpack_bits
+from repro_torch.kernels.natural.kernel import natural_fused, natural_pack
+from repro_torch.kernels.natural.ops import natural_reduce
 from repro_torch.kernels.qsgd.kernel import (check_levels, qsgd_fused,
                                              qsgd_pack, qsgd_unpack)
 from repro_torch.kernels.qsgd.ops import qsgd_reduce
 
 __all__ = [
     "FlatLayout", "layout_of", "ravel", "unravel", "bucketize",
-    "unbucketize", "seeds_of", "supports_flat", "flat_tree_apply",
-    "pack_tree", "pack_tree_qsgd", "unpack_tree", "payload_finite_mask",
-    "sanitize_payload", "reduce_payload_acc", "reduce_payload_mean",
+    "unbucketize", "seeds_of", "supports_flat", "supports_fused_reduce",
+    "flat_tree_apply", "pack_tree", "pack_tree_qsgd", "pack_tree_natural",
+    "unpack_tree", "narrow_tree_qsgd", "widen_tree_qsgd", "payload_spec",
+    "payload_finite_mask", "sanitize_payload", "reduce_payload_acc",
+    "reduce_payload_mean",
 ]
 
-_LANE = 128          # sub-bucket models pad to the next multiple of this
+_LANE = 128          # natural buckets; sub-bucket models pad to this
 _GOLDEN = np.uint32(0x9E3779B9)
 
 
 def supports_flat(comp) -> bool:
-    """True for compressors with a flat-engine kernel in this slice."""
-    return getattr(comp, "name", None) == "qsgd"
+    """True for compressors with a flat-engine kernel."""
+    return getattr(comp, "name", None) in ("qsgd", "natural")
 
 
 # --------------------------------------------------------------------------
@@ -101,12 +114,14 @@ def _batch_shape(layout: FlatLayout, leaves) -> tuple:
     return tuple(leaf.shape[:leaf.dim() - len(shape)])
 
 
-def ravel(layout: FlatLayout, tree) -> torch.Tensor:
+def ravel(layout: FlatLayout, tree, *, device=None) -> torch.Tensor:
     """Concatenate all leaves into one (..., d) float32 buffer (``...`` is
-    the batch shape).  A single-leaf tree is a reshape, not a copy."""
+    the batch shape).  A single-leaf tree is a reshape, not a copy.  A
+    tree without leaves has no device of its own: its (0,) buffer goes
+    to ``device`` (default: torch's default device)."""
     leaves = tree_flatten(tree)[0]
     if not leaves:
-        return torch.zeros((0,), dtype=torch.float32)
+        return torch.zeros((0,), dtype=torch.float32, device=device)
     batch = _batch_shape(layout, leaves)
     flat = [leaf.reshape(batch + (-1,)).to(torch.float32) for leaf in leaves]
     if len(flat) == 1:
@@ -186,7 +201,10 @@ def flat_tree_apply(comp, key, tree, *, bucket: int = None):
     bucket = _clamp_bucket(bucket, layout.d)
     layout = layout_of(tree, bucket)
     x2d = bucketize(ravel(layout, tree), bucket).contiguous()
-    y2d = qsgd_fused(x2d, seeds_of(key), levels=comp.levels)
+    if comp.name == "qsgd":
+        y2d = qsgd_fused(x2d, seeds_of(key), levels=comp.levels)
+    else:
+        y2d = natural_fused(x2d, seeds_of(key))
     return unravel(layout, unbucketize(y2d, layout.d))
 
 
@@ -197,90 +215,217 @@ def pack_tree(comp, key, tree, *, bucket: int = None):
     if not supports_flat(comp):
         raise ValueError(f"no flat engine for compressor {comp!r}")
     bucket = int(bucket or _engine_bucket(comp))
-    return pack_tree_qsgd(key, tree, levels=comp.levels, bucket=bucket)[0]
+    if comp.name == "qsgd":
+        return pack_tree_qsgd(key, tree, levels=comp.levels,
+                              bucket=bucket)[0]
+    return pack_tree_natural(key, tree, bucket=bucket)[0]
+
+
+def _stacked_input(key, tree, bucket: int):
+    """(seed words (..., 2), one-model layout at the clamped bucket, the
+    bucketized (..., n_buckets, bucket) buffer, device) of the tree a key
+    or a batch of keys encodes; the buffer is None for an empty model."""
+    keys = np.asarray(key, np.uint32)
+    batch_dims = keys.ndim - 1
+    leaves = tree_flatten(tree)[0]
+    device = leaves[0].device if leaves else torch.device("cpu")
+    layout = layout_of(tree, bucket, batch_dims=batch_dims)
+    if layout.d == 0:
+        return keys, layout, None, device
+    bucket = _clamp_bucket(bucket, layout.d)
+    layout = layout_of(tree, bucket, batch_dims=batch_dims)
+    x2d = bucketize(ravel(layout, tree), bucket).contiguous()
+    return keys, layout, x2d, device
 
 
 def pack_tree_qsgd(key, tree, *, levels: int = 127, bucket: int = 2048):
     """QSGD payload of one model (``key`` (2,)) or of a stacked tree
     (``key`` (n, 2)).  Returns (payload, one-model layout)."""
     check_levels(levels)
-    keys = np.asarray(key, np.uint32)
-    batch_dims = keys.ndim - 1
-    layout = layout_of(tree, bucket, batch_dims=batch_dims)
-    leaves = tree_flatten(tree)[0]
-    device = leaves[0].device if leaves else torch.device("cpu")
-    if layout.d == 0:
+    keys, layout, x2d, device = _stacked_input(key, tree, bucket)
+    if x2d is None:
         batch = keys.shape[:-1]
         payload = QSGDPayload(
             torch.zeros(batch + (0, bucket), dtype=torch.int8, device=device),
             torch.zeros(batch + (0, 1), dtype=torch.float32, device=device),
             levels=levels, layout=layout)
         return payload, layout
-    bucket = _clamp_bucket(bucket, layout.d)
-    layout = layout_of(tree, bucket, batch_dims=batch_dims)
-    x2d = bucketize(ravel(layout, tree), bucket).contiguous()
     codes, norms = qsgd_pack(x2d, seeds_of(keys), levels=levels)
     return QSGDPayload(codes, norms, levels=levels, layout=layout), layout
 
 
-def unpack_tree(payload: QSGDPayload):
-    """Dequantize a payload (one model, or a stacked batch) back to its
-    tree — bit-exact vs :func:`flat_tree_apply` under the same key."""
+def pack_tree_natural(key, tree, *, bucket: int = _LANE):
+    """Natural payload (uint8 exponent codes + packed sign bitmap, 9
+    bits per element) of one model (``key`` (2,)) or of a stacked tree
+    (``key`` (n, 2)), from ONE pack launch.  Returns (payload, one-model
+    layout)."""
+    keys, layout, x2d, device = _stacked_input(key, tree, bucket)
+    if x2d is None:
+        batch = keys.shape[:-1]
+        payload = NaturalPayload(
+            torch.zeros(batch + (0, bucket), dtype=torch.uint8, device=device),
+            torch.zeros(batch + (0, bucket // 8), dtype=torch.uint8,
+                        device=device), layout=layout)
+        return payload, layout
+    exps, signs = natural_pack(x2d, seeds_of(keys))
+    return NaturalPayload(exps, signs, layout=layout), layout
+
+
+def unpack_tree(payload):
+    """Dequantize a flat-engine payload (one model, or a stacked batch)
+    back to its tree — bit-exact vs :func:`flat_tree_apply` under the
+    same key.  Natural payloads merge in plain PyTorch (the reference has
+    no kernel for it either)."""
+    if isinstance(payload, NarrowQSGDPayload):
+        payload = widen_tree_qsgd(payload)
     layout = payload.layout
     if layout is None:
         raise ValueError("payload carries no FlatLayout; it was not "
                          "produced by the flat engine (pack_tree)")
-    codes = payload.codes
-    batch = tuple(codes.shape[:-2])
+    wire = _wire(payload)
+    batch = tuple(wire.shape[:-2])
     if layout.d == 0:
-        return unravel(layout, torch.zeros(batch + (0,), device=codes.device))
+        return unravel(layout, torch.zeros(batch + (0,), device=wire.device))
+    if isinstance(payload, NaturalPayload):
+        y = natural_merge(payload.exps, unpack_bits(payload.signs, 1))
+        return unravel(layout, unbucketize(y, layout.d))
+    codes = payload.codes
     b = codes.shape[-1]
     y2d = qsgd_unpack(codes.reshape(-1, b), payload.norms.reshape(-1, 1),
                       levels=payload.levels)
     return unravel(layout, unbucketize(y2d.reshape(codes.shape), layout.d))
 
 
+def _wire(payload) -> torch.Tensor:
+    """The per-element wire tensor of a flat-engine payload."""
+    return payload.exps if isinstance(payload, NaturalPayload) \
+        else payload.codes
+
+
+def _narrow_width(levels: int) -> int:
+    """Smallest field width holding sign + magnitude <= levels: 2 bits
+    at levels 1, 4 bits at levels <= 7."""
+    if levels <= 1:
+        return 2
+    if levels <= 7:
+        return 4
+    raise ValueError(
+        f"levels={levels} has no sub-byte pack (magnitude needs "
+        f"{max(int(np.ceil(np.log2(levels + 1))), 1)} bits + sign); use "
+        "levels <= 7 or keep the int8 QSGDPayload")
+
+
+def narrow_tree_qsgd(payload: QSGDPayload) -> NarrowQSGDPayload:
+    """Repack a flat-engine QSGD payload with ``levels <= 7`` into
+    ``width``-bit sign-magnitude fields, 8 / width per byte — lossless:
+    :func:`widen_tree_qsgd` restores the int8 codes bit for bit."""
+    width = _narrow_width(payload.levels)
+    codes = payload.codes
+    mag = torch.abs(codes.to(torch.int32)).to(torch.uint8)
+    sign = (codes < 0).to(torch.uint8)
+    fields = (sign << (width - 1)) | mag
+    return NarrowQSGDPayload(pack_bits(fields, width), payload.norms,
+                             levels=payload.levels, width=width,
+                             layout=payload.layout, shape=payload.shape,
+                             dtype=payload.dtype)
+
+
+def widen_tree_qsgd(payload: NarrowQSGDPayload) -> QSGDPayload:
+    """Inverse of :func:`narrow_tree_qsgd`: the exact int8 codes."""
+    width = payload.width
+    fields = unpack_bits(payload.codes, width)
+    mag = (fields & ((1 << (width - 1)) - 1)).to(torch.int8)
+    negative = (fields >> (width - 1)) > 0
+    codes = torch.where(negative, -mag, mag)
+    return QSGDPayload(codes, payload.norms, levels=payload.levels,
+                       layout=payload.layout, shape=payload.shape,
+                       dtype=payload.dtype)
+
+
+def payload_spec(comp, d: int, *, bucket: int = None, narrow: bool = False):
+    """The flat-engine payload of a d-element model, as meta tensors of
+    the shapes :func:`pack_tree` gives (``nbits`` reads them)."""
+    b = _clamp_bucket(int(bucket or _engine_bucket(comp)), d)
+    n_buckets = -(-d // b)
+    if comp.name == "natural":
+        return NaturalPayload(spec_tensor((n_buckets, b), torch.uint8),
+                              spec_tensor((n_buckets, b // 8), torch.uint8))
+    norms = spec_tensor((n_buckets, 1))
+    if narrow:
+        width = _narrow_width(comp.levels)
+        return NarrowQSGDPayload(
+            spec_tensor((n_buckets, b * width // 8), torch.uint8), norms,
+            levels=comp.levels, width=width)
+    return QSGDPayload(spec_tensor((n_buckets, b), torch.int8), norms,
+                       levels=comp.levels)
+
+
 # --------------------------------------------------------------------------
 # the server side: one-pass masked mean of a stacked payload batch
 # --------------------------------------------------------------------------
 
-def payload_finite_mask(payload: QSGDPayload) -> torch.Tensor:
+def supports_fused_reduce(payload) -> bool:
+    """True for stacked flat-engine payloads the one-pass server reduce
+    consumes directly (narrow QSGD payloads widen first)."""
+    return isinstance(payload,
+                      (QSGDPayload, NaturalPayload, NarrowQSGDPayload)) \
+        and payload.layout is not None
+
+
+def payload_finite_mask(payload) -> torch.Tensor:
     """(n,) 0/1 float32 over a stacked payload batch: 1 where client i's
-    message decodes entirely finite (all its bucket norms are finite)."""
-    norms = payload.norms
-    return torch.isfinite(norms).reshape(norms.shape[0], -1).all(dim=1) \
+    message decodes entirely finite — all its QSGD bucket norms finite,
+    or no natural exponent code 255 (±Inf)."""
+    if isinstance(payload, NaturalPayload):
+        ok = payload.exps != 255
+    else:
+        ok = torch.isfinite(payload.norms)
+    return ok.reshape(ok.shape[0], math.prod(ok.shape[1:])).all(dim=1) \
         .to(torch.float32)
 
 
-def sanitize_payload(payload: QSGDPayload, finite_mask: torch.Tensor):
-    """Zero the norms of non-finite clients: NaN * 0 weight is still NaN,
-    so a zero reduce weight alone cannot keep a poisoned payload out.
-    For all-finite payloads the result is bit-identical to the input."""
+def sanitize_payload(payload, finite_mask: torch.Tensor):
+    """Zero the scale-carrying wire tensors of non-finite clients (QSGD
+    norms -> 0, natural exponent codes -> 0, which decode to ±0): NaN * 0
+    weight is still NaN, so a zero reduce weight alone cannot keep a
+    poisoned payload out.  For all-finite payloads the result is
+    bit-identical to the input."""
+    if isinstance(payload, NaturalPayload):
+        m = finite_mask.reshape((-1,) + (1,) * (payload.exps.dim() - 1))
+        return dataclasses.replace(payload, exps=torch.where(
+            m > 0, payload.exps, torch.zeros_like(payload.exps)))
     m = finite_mask.reshape((-1,) + (1,) * (payload.norms.dim() - 1))
     norms = torch.where(m > 0, payload.norms, torch.zeros_like(payload.norms))
     return dataclasses.replace(payload, norms=norms)
 
 
-def reduce_payload_acc(payload: QSGDPayload, weights) -> torch.Tensor:
+def reduce_payload_acc(payload, weights) -> torch.Tensor:
     """The raw (n_buckets, bucket) accumulator ``sum_i w_i *
-    decode(payload_i)`` of a stacked batch (``weights`` (n,) or None)."""
+    decode(payload_i)`` of a stacked batch (``weights`` (n,) or None);
+    narrow QSGD payloads widen to their exact int8 codes first."""
+    if isinstance(payload, NarrowQSGDPayload):
+        payload = widen_tree_qsgd(payload)
+    if isinstance(payload, NaturalPayload):
+        return natural_reduce(payload.exps, payload.signs, weights)
     return qsgd_reduce(payload.codes, payload.norms, weights,
                        levels=payload.levels)
 
 
-def reduce_payload_mean(payload: QSGDPayload, mask=None):
+def reduce_payload_mean(payload, mask=None):
     """The (optionally mask-weighted) MEAN tree of a stacked payload
     batch in ONE pass (DESIGN.md §10).  Clients whose message decodes
     non-finite leave both the numerator and the denominator; if none is
     left the denominator clamps to 1 and the mean is the zeros tree."""
-    if not isinstance(payload, QSGDPayload) or payload.layout is None:
+    if not supports_fused_reduce(payload):
         raise ValueError(
             f"no fused reduce for payload {type(payload).__name__}; "
-            "expected a stacked flat-engine QSGDPayload carrying its "
-            "FlatLayout")
+            "expected a stacked flat-engine QSGDPayload/NaturalPayload "
+            "carrying its FlatLayout")
     layout = payload.layout
     if layout.d == 0:
-        return unravel(layout, torch.zeros((0,), device=payload.codes.device))
+        return unravel(layout, torch.zeros((0,), device=_wire(payload).device))
+    if isinstance(payload, NarrowQSGDPayload):
+        payload = widen_tree_qsgd(payload)
     fin = payload_finite_mask(payload)
     weights = fin if mask is None else \
         mask.reshape(-1).to(torch.float32) * fin

@@ -18,13 +18,28 @@ of keys is ``(..., 2)``), and the schedule below reproduces, for
 Keys are a few bytes, so the schedule runs in numpy ``uint32`` (which
 wraps natively) and never touches the device; the kernels receive the
 two words of ``flatbuf.seeds_of(key)`` as scalar arguments.
+
+Array-sized draws — the noise of the leafwise codecs — are made on the
+device of the tensor they perturb, from the same keys:
+
+  * ``jax.random.bits`` (32-bit)   -> :func:`tensor_bits`
+  * ``jax.random.uniform`` (f32)   -> :func:`tensor_uniform`
+  * ``jax.random.bernoulli``       -> :func:`tensor_bernoulli`
+  * ``jax.random.permutation(key, d)`` -> :func:`permutation`
+
+They hold uint32 words in int64 tensors masked to 32 bits (torch's CPU
+``uint32`` lacks ``+`` and ``>>``), one code path for CPU and CUDA.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 __all__ = ["PRNGKey", "threefry2x32", "split", "fold_in", "random_bits",
-           "uniform", "bernoulli"]
+           "uniform", "bernoulli", "tensor_bits", "tensor_uniform",
+           "tensor_bernoulli", "permutation"]
 
 _U32 = np.uint32
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -75,10 +90,11 @@ def _words(key):
 
 
 def split(key, num: int = 2) -> np.ndarray:
-    """``jax.random.split(key, num)`` -> (num, 2) uint32 keys."""
+    """``jax.random.split(key, num)`` -> (num, 2) uint32 keys; a batch of
+    keys (..., 2) gives (..., num, 2), the reference's vmap of split."""
     k1, k2 = _words(key)
     lo = np.arange(int(num), dtype=_U32)
-    y1, y2 = threefry2x32(k1, k2, np.zeros_like(lo), lo)
+    y1, y2 = threefry2x32(k1[..., None], k2[..., None], np.zeros_like(lo), lo)
     return np.stack([y1, y2], axis=-1)
 
 
@@ -120,3 +136,74 @@ def bernoulli(key, p, shape=()) -> np.ndarray:
     """``jax.random.bernoulli(key, p)`` with ``p`` compared in float32,
     as the reference compares the float32 ``hp.p``."""
     return uniform(key, shape) < np.float32(p)
+
+
+# --------------------------------------------------------------------------
+# array-sized draws on the device
+# --------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+
+
+def _rotl_tensor(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def _threefry_tensor(k1, k2, x1, x2):
+    """:func:`threefry2x32` on broadcastable int64 tensors of uint32 words."""
+    ks = [k1, k2, k1 ^ k2 ^ int(_PARITY)]
+    x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK
+            x[1] = _rotl_tensor(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x[0], x[1]
+
+
+def tensor_bits(key, shape, device=None) -> torch.Tensor:
+    """:func:`random_bits` computed on ``device``: uint32 values (int64
+    tensor) of shape ``batch + shape`` for keys (..., 2)."""
+    keys = np.asarray(key, _U32)
+    _words(keys)
+    batch = keys.shape[:-1]
+    shape = tuple(int(s) for s in shape)
+    count = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    words = torch.from_numpy(keys.astype(np.int64)).to(device) \
+        .reshape(batch + (1, 2))
+    y1, y2 = _threefry_tensor(words[..., 0], words[..., 1], count >> 32,
+                              count & _MASK)
+    return (y1 ^ y2).reshape(batch + shape)
+
+
+def tensor_uniform(key, shape, device=None) -> torch.Tensor:
+    """:func:`uniform` on ``device``: the top 23 bits times 2^-23, which
+    is the reference's mantissa trick minus one, exactly."""
+    return (tensor_bits(key, shape, device) >> 9).to(torch.float32) \
+        * (1.0 / (1 << 23))
+
+
+def tensor_bernoulli(key, p, shape, device=None) -> torch.Tensor:
+    """:func:`bernoulli` on ``device`` (``p`` compared in float32)."""
+    return tensor_uniform(key, shape, device) < float(np.float32(p))
+
+
+def permutation(key, d: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, d)`` for an int ``d`` (int64 tensor;
+    keys (..., 2) give (..., d)): ``ceil(3 ln d / ln(2^32 - 1))`` rounds,
+    each ``key, subkey = split(key)`` and a STABLE sort of the indices by
+    32-bit ``random_bits(subkey, (d,))``, as ``lax.sort_key_val`` does."""
+    keys = np.asarray(key, _U32)
+    d = int(d)
+    rounds = int(np.ceil(3 * np.log(max(1, d))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(d, dtype=torch.int64, device=device) \
+        .expand(keys.shape[:-1] + (d,))
+    for _ in range(rounds):
+        pair = split(keys)
+        keys, sub = pair[..., 0, :], pair[..., 1, :]
+        order = torch.sort(tensor_bits(sub, (d,), device), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

@@ -25,7 +25,8 @@ _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build"
 
 #: library name -> CUDA source, relative to repro_torch/kernels
-SOURCES = {"qsgd": "qsgd/csrc/qsgd.cu"}
+SOURCES = {"qsgd": "qsgd/csrc/qsgd.cu",
+           "natural": "natural/csrc/natural.cu"}
 
 # --fmad=false: the kernels' parity contract forbids contracting a
 # multiply and an add into one FMA (DESIGN.md §6 rounding order)

@@ -17,10 +17,14 @@ path went through the kernels (``chip_smoke.py`` resets and reads them).
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "use_kernel", "resolve_device"]
+from repro_torch.kernels import build
+
+__all__ = ["LAUNCHES", "reset_launches", "use_kernel", "resolve_device",
+           "launch"]
 
 #: kernel name -> number of launches since the last reset
 LAUNCHES: collections.Counter = collections.Counter()
@@ -56,3 +60,21 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the plain PyTorch versions")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def launch(library: str, name: str, argtypes: tuple, device: torch.device,
+           *args) -> None:
+    """Call kernel ``name`` of ``library`` (a ``build.SOURCES`` key) on
+    PyTorch's current stream of ``device``; raise if its launch was
+    refused, count it otherwise.  ``argtypes`` is the ctypes signature
+    of the C entry point, the trailing stream included."""
+    fn = getattr(build.library(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1

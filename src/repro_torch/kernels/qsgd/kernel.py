@@ -17,8 +17,8 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, use_kernel
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.qsgd.ref import (qsgd_fused_ref, qsgd_pack_ref,
                                           qsgd_unpack_ref)
 
@@ -34,24 +34,10 @@ _SIGNATURES = {
 }
 
 
-def kernel_fn(name: str):
-    """The ctypes entry point of one kernel, signature declared."""
-    fn = getattr(build.library("qsgd"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def launch(name: str, device: torch.device, *args) -> None:
-    """Launch on PyTorch's current stream of ``device``; raise if the
-    launch was refused, count it otherwise."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = kernel_fn(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    """Launch one kernel of ``csrc/qsgd.cu`` (counted and checked by
+    :func:`repro_torch.kernels.dispatch.launch`)."""
+    dispatch.launch("qsgd", name, _SIGNATURES[name], device, *args)
 
 
 def check_levels(levels: int) -> None:

@@ -26,18 +26,21 @@ import torch
 from repro_torch.kernels.rng import counter_uniform_2d
 
 __all__ = ["qsgd_fused_ref", "qsgd_pack_ref", "qsgd_unpack_ref",
-           "qsgd_reduce_ref"]
+           "qsgd_reduce_ref", "quantize_with_noise", "level_scale"]
 
 
-def _level_scale(norms, levels: int):
+def level_scale(norms, levels: int):
     # the reference divides by the constant s as XLA compiles it: a
     # multiply by the float32 reciprocal of s, not an IEEE division
     return norms * float(np.float32(1.0 / levels))
 
 
-def _quantize_ref(x2d, noise, levels: int, norms=None):
+def quantize_with_noise(x2d, noise, levels: int, norms=None):
+    """(sign(x) * q as float32, bucket norms (..., nb, 1)) for buckets
+    along the last axis, given the dither ``noise`` — shared with the
+    leafwise QSGD codec, which draws its noise from threefry."""
     x = x2d.to(torch.float32)
-    norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True)) \
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True)) \
         if norms is None else norms
     safe = torch.where(norm == 0.0, torch.ones_like(norm), norm)
     scaled = torch.abs(x) / safe * float(levels)
@@ -55,22 +58,22 @@ def qsgd_fused_ref(x2d, seeds, *, levels: int = 127, row_offset: int = 0,
                    norms=None):
     """Quantize-dequantize one (n_buckets, bucket) buffer with the
     counter noise of ``seeds``."""
-    codes, norm = _quantize_ref(x2d, _noise(x2d, seeds, row_offset), levels,
-                                norms)
-    out = codes * _level_scale(norm, levels)
+    codes, norm = quantize_with_noise(x2d, _noise(x2d, seeds, row_offset),
+                                      levels, norms)
+    out = codes * level_scale(norm, levels)
     return torch.where(norm == 0.0, torch.zeros_like(out), out)
 
 
 def qsgd_pack_ref(x2d, seeds, *, levels: int = 127, row_offset: int = 0,
                   norms=None):
     """One buffer's wire payload: (codes int8 (nb, b), norms f32 (nb, 1))."""
-    codes, norm = _quantize_ref(x2d, _noise(x2d, seeds, row_offset), levels,
-                                norms)
+    codes, norm = quantize_with_noise(x2d, _noise(x2d, seeds, row_offset),
+                                      levels, norms)
     return codes.to(torch.int8), norm
 
 
 def qsgd_unpack_ref(codes, norms, *, levels: int = 127):
-    return codes.to(torch.float32) * _level_scale(norms, levels)
+    return codes.to(torch.float32) * level_scale(norms, levels)
 
 
 def qsgd_reduce_ref(codes, norms, weights=None, *, levels: int = 127):
@@ -80,7 +83,7 @@ def qsgd_reduce_ref(codes, norms, weights=None, *, levels: int = 127):
     acc = torch.zeros(codes.shape[1:], dtype=torch.float32,
                       device=codes.device)
     for i in range(codes.shape[0]):
-        y = codes[i].to(torch.float32) * _level_scale(norms[i], levels)
+        y = codes[i].to(torch.float32) * level_scale(norms[i], levels)
         if weights is not None:
             y = y * weights[i]
         acc = acc + y

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["GOLDEN", "fmix32", "counter_bits", "bits_to_uniform",
-           "counter_uniform_2d"]
+           "counter_bits_2d", "counter_uniform_2d"]
 
 GOLDEN = 0x9E3779B9          # 2^32 / golden ratio; odd -> bijective mul
 _M1, _M2 = 0x85EBCA6B, 0xC2B2AE35  # murmur3 fmix32 constants
@@ -58,9 +58,10 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def counter_uniform_2d(seeds, shape, *, row_offset: int = 0,
-                       device=None) -> torch.Tensor:
-    """[0, 1) uniforms for a (rows, cols) window of the bucketed buffer.
+def counter_bits_2d(seeds, shape, *, row_offset: int = 0,
+                    device=None) -> torch.Tensor:
+    """uint32 counter hashes (as int64) for a (rows, cols) window of the
+    bucketed buffer.
 
     ``seeds`` is a pair of uint32 words; ``row_offset`` is the window's
     first global row.  Element (r, c) uses flat index
@@ -71,4 +72,12 @@ def counter_uniform_2d(seeds, shape, *, row_offset: int = 0,
     c = torch.arange(cols, dtype=torch.int64, device=device)
     idx = ((r * cols) & _MASK)[:, None] + c[None, :]
     s0, s1 = (int(w) for w in seeds)
-    return bits_to_uniform(counter_bits(idx, s0, s1))
+    return counter_bits(idx, s0, s1)
+
+
+def counter_uniform_2d(seeds, shape, *, row_offset: int = 0,
+                       device=None) -> torch.Tensor:
+    """[0, 1) uniforms of :func:`counter_bits_2d`."""
+    return bits_to_uniform(counter_bits_2d(seeds, shape,
+                                           row_offset=row_offset,
+                                           device=device))
