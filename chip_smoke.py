@@ -25,7 +25,25 @@ these phases and fails (non-zero exit, no result line) on any error:
            codec's launch counters reset before and read after; then each
            kernel on that run's final buffer: checked on its first and
            last 4096 buckets against the plain version and timed against
-           its bound.
+           its bound;
+  flash    the flash-attention kernel against its plain version on the
+           card at the small shapes of the CPU tests (causal and not,
+           windows 32 / 64, D = 64 / 128 / 256, ragged S = 200 / T = 333,
+           rows that see no key, GQA H = 8 / Kv = 2, every tile, f32 and
+           bf16, a strided qkv view), and a backward through it raises;
+  prefill  stablelm-1.6b at full width and depth (24 layers, f32, random
+           weights from a seeded generator) on B = 2 sequences of 4096
+           tokens of the token stream: build_prefill_step and forward with
+           attn_impl="flash" (24 kernel launches each), then forward with
+           dense attention, logits held against each other;
+  serve    two requests: 64 prompt tokens teacher-forced through
+           build_serve_step into the KV caches, then 16 greedy tokens;
+           decode logits held against forward's, the greedy tokens
+           against forward's argmax on the extended sequences;
+  flash width  the kernel at the prefill shapes against its bound, its
+           plain version and scaled_dot_product_attention; then once at
+           the prefill_32k length, checked on the last 256 query rows of
+           two heads.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -55,6 +73,15 @@ REPLACES = {
     "qsgd_fused": "src/repro/kernels/qsgd/kernel.py:132",
     "qsgd_unpack": "src/repro/kernels/qsgd/kernel.py:238",
 }
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:71"
+FLASH_TOL = 2e-5               # f32 bound of tests/test_kernels.py:124
+PREFILL_B, PREFILL_S = 2, 4096  # the train_4k sequence length
+LONG_S = 32768                 # the prefill_32k sequence length
+LONG_ROWS = 256                # query rows checked at 32k (two heads)
+LOGIT_RTOL = 1e-5              # flash vs dense logits, x max |logit|
+DECODE_TOL = 2e-4              # tests/test_models_smoke.py:112
+PROMPT, GENERATE = 64, 16
 NATURAL_SOURCE = "src/repro_torch/kernels/natural/csrc/natural.cu"
 NATURAL_REPLACES = {
     "natural_pack": "src/repro/kernels/natural/kernel.py:129",
@@ -754,6 +781,372 @@ def phase_width_kernels_natural(x, launches):
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase flash: the flash-attention kernel at the CPU tests' shapes
+# --------------------------------------------------------------------------
+
+def bf16_ulps(got, want):
+    """|got - want| in units of the bf16 spacing at the larger of the two
+    magnitudes (8 significand bits), floored at FLASH_TOL: both versions
+    round one float32 value, and near zero (an output that cancels) the
+    float32 values' own difference, bounded by FLASH_TOL, exceeds the bf16
+    spacing.  Returns (worst units, |want| there)."""
+    import torch
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), exp - 8)
+    units = (torch.abs(got - want) / torch.clamp(ulp, min=FLASH_TOL)) \
+        .reshape(-1)
+    at = int(torch.argmax(units))
+    return float(units[at]), float(want.reshape(-1)[at].abs())
+
+
+FLASH_CASES = [   # B, S, T, H, Kv, D, causal, window
+    (1, 128, 128, 2, 2, 64, True, None),
+    (2, 64, 64, 1, 1, 128, False, None),
+    (1, 256, 256, 2, 2, 64, True, 64),      # query tiles start past it
+    (1, 128, 128, 1, 1, 256, True, 32),
+    (1, 128, 128, 2, 2, 128, True, None),
+    (1, 200, 333, 2, 2, 64, False, None),   # ragged S and T
+    (1, 200, 64, 2, 2, 64, False, 32),      # rows that see no key
+    (1, 200, 64, 2, 2, 64, True, 32),
+    (2, 128, 128, 8, 2, 64, True, None),    # GQA
+    (2, 96, 96, 8, 2, 256, False, 40),
+]
+
+
+def phase_flash_small(dev):
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev)
+    worst, worst_ulps, n = 0.0, 0.0, 0
+    for B, S, T, H, Kv, D, causal, window in FLASH_CASES:
+        gen.manual_seed(S * 1000 + D)
+        q = torch.randn((B, S, H, D), generator=gen, device=dev)
+        k = torch.randn((B, T, Kv, D), generator=gen, device=dev)
+        v = torch.randn((B, T, Kv, D), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+            plain = fk._plain(qd, kd, vd, causal, window)
+            got = fk.flash_attention(qd, kd, vd, causal=causal,
+                                     window=window)
+            torch.cuda.synchronize()
+            what = (f"flash B{B} S{S} T{T} H{H}/{Kv} D{D} causal "
+                    f"{causal} window {window} {dtype}")
+            check(got.dtype == dtype and got.shape == q.shape, what)
+            if dtype == torch.float32:
+                err = float(torch.max(torch.abs(got - plain)))
+                check(err <= FLASH_TOL, f"{what}: max |d| {err:.3g}")
+                worst = max(worst, err)
+            else:
+                u, at = bf16_ulps(got, plain)
+                check(u <= 1.0, f"{what}: {u:.2f} bf16 ulps at |y| "
+                      f"{at:.3g}")
+                worst_ulps = max(worst_ulps, u)
+            n += 1
+    # the qkv_fused layout hands the kernel strided views of one product
+    qkv = torch.randn((2, 96, 12 * 64), generator=gen, device=dev)
+    q, k, v = (qkv[..., i * 256:(i + 1) * 256].reshape(2, 96, 4, 64)
+               for i in range(3))
+    err = float(torch.max(torch.abs(fk.flash_attention(q, k, v)
+                                    - fk._plain(q, k, v, True, None))))
+    check(err <= FLASH_TOL, f"flash on strided views: {err:.3g}")
+    q = q.contiguous().requires_grad_()
+    try:
+        fk.flash_attention(q, k, v).sum().backward()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a backward through the CUDA op did not raise")
+    log(f"phase flash: {n} kernel calls against the plain version on the "
+        f"card (f32 max |d| {worst:.3g} <= {FLASH_TOL:g}; bf16 within "
+        f"{worst_ulps:.2f} ulp, or {FLASH_TOL:g} where the ulp is finer); "
+        "strided views ok; backward raises")
+
+
+# --------------------------------------------------------------------------
+# phases prefill and serve: stablelm-1.6b at full width and depth
+# --------------------------------------------------------------------------
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler: (wall ms, {"flash" | "gemm" |
+    "other": device ms}, kernel count).  The device ms are the kernels'
+    own times (one stream, so they do not overlap); wall ms minus their
+    sum is the card's idle time.  Empty when the profiler sees no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind, count = {"flash": 0.0, "gemm": 0.0, "other": 0.0}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        name = e.key.lower()
+        kind = "flash" if "flash_fwd" in name else \
+            "gemm" if "gemm" in name or "gemv" in name else "other"
+        by_kind[kind] += us / 1e3
+        count += e.count
+    return wall_ms, by_kind, count
+
+
+def profile_line(what, wall_ms, by_kind, count):
+    busy = sum(by_kind.values())
+    if not count:
+        return f"profile {what}: the profiler saw no device activity"
+    return (f"profile {what}: wall {wall_ms:.2f} ms, {count} kernels, device "
+            f"busy {busy:.2f} ms (idle share {1 - busy / wall_ms:.1%}): " +
+            ", ".join(f"{k} {v:.2f} ms" for k, v in by_kind.items()))
+
+
+def top2_gap(logits):
+    import torch
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_prefill(dev):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import forward, init_params, param_count
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), attn_impl="flash")
+    params, init_s = timed(lambda: init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    check(param_count(params) == 1_438_746_624, "stablelm parameter count")
+    tokens = torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=PREFILL_B,
+        seq=PREFILL_S).batch_at(0)[0]).long().to(dev)
+    batch = {"tokens": tokens}
+    prefill = build_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()            # the prefill main path starts here
+    last, first_s = timed(lambda: prefill(params, batch))
+    launches = dict(LAUNCHES)   # and ends here
+    check(launches == {"flash_attention": cfg.n_layers},
+          f"prefill step launches {launches}")
+    check(last.shape == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()), "prefill logits")
+    _, prefill_s = timed(lambda: prefill(params, batch))
+    log(profile_line("prefill step", *device_profile(
+        lambda: prefill(params, batch))))
+    # forward keeps the last layer's attention operands: the kernel is
+    # held to its plain version on the model's own activations
+    op, seen = flash_ops.flash_attention_op, []
+
+    def keep_last(q, k, v, **kw):
+        out = op(q, k, v, **kw)
+        seen[:] = [(q, k, v, kw, out)]
+        return out
+
+    flash_ops.flash_attention_op = keep_last
+    reset_launches()
+    try:
+        with torch.no_grad():
+            flash, flash_s = timed(lambda: forward(params, cfg, batch)[0])
+    finally:
+        flash_ops.flash_attention_op = op
+    check(LAUNCHES["flash_attention"] == cfg.n_layers,
+          f"forward launches {dict(LAUNCHES)}")
+    flash_peak = torch.cuda.max_memory_allocated(dev)
+    q, k, v, kw, out = seen.pop()
+    plain = fk._plain(q, k, v, kw["causal"], kw["window"])
+    layer_err = float(torch.max(torch.abs(out - plain)))
+    layer_bound = FLASH_TOL * max(1.0, float(plain.abs().max()))
+    check(layer_err <= layer_bound, f"layer {cfg.n_layers - 1} flash vs "
+          f"plain on its own q, k, v: {layer_err:.3g} > {layer_bound:.3g}")
+    del q, k, v, out, plain
+    # the step unembeds one position (a matrix-vector product), forward
+    # all of them: equal up to the products' summation order
+    step_err = float(torch.max(torch.abs(flash[:, -1] - last)))
+    check(step_err <= 1e-5 * float(last.abs().max()),
+          f"prefill step vs forward's last position: {step_err:.3g}")
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with torch.no_grad():
+        dense, dense_s = timed(lambda: forward(params, dense_cfg, batch)[0])
+    check(not LAUNCHES, f"dense forward launched {dict(LAUNCHES)}")
+    dense_peak = torch.cuda.max_memory_allocated(dev)
+    scale = float(dense.abs().max())
+    err = float(torch.max(torch.abs(flash - dense)))
+    bound = LOGIT_RTOL * scale
+    check(bool(torch.isfinite(flash).all()), "non-finite flash logits")
+    check(err <= bound, f"flash vs dense logits: {err:.3g} > {bound:.3g}")
+    clear = top2_gap(dense) > bound
+    same = torch.argmax(flash, -1) == torch.argmax(dense, -1)
+    check(bool(same[clear].all()), "argmax differs where the gap is clear")
+    del dense
+    log(f"phase prefill: stablelm-1.6b, {cfg.n_layers} layers, "
+        f"{param_count(params):,} params (init {init_s:.2f} s); B={PREFILL_B}"
+        f" S={PREFILL_S}: prefill step {first_s:.3f} s first, "
+        f"{prefill_s:.3f} s second; forward flash {flash_s:.3f} s (peak "
+        f"{flash_peak / 1e9:.2f} GB), dense {dense_s:.3f} s (peak "
+        f"{dense_peak / 1e9:.2f} GB); logits flash vs dense max |d| "
+        f"{err:.3g} = {err / scale:.3g} x max |logit| {scale:.3f} (bound "
+        f"{LOGIT_RTOL:g} x); layer {cfg.n_layers - 1} kernel vs plain on "
+        f"its own activations max |d| {layer_err:.3g} (<= {layer_bound:.3g})"
+        f"; step vs forward max |d| {step_err:.3g}; argmax "
+        f"equal at {int(clear.sum())} of {clear.numel()} positions with a "
+        f"clear top-2 gap ({float(same.float().mean()):.4f} of all); "
+        f"launches {launches}")
+    return cfg, params, tokens, launches
+
+
+def phase_serve(dev, cfg, params, tokens):
+    import torch
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import forward, init_caches
+
+    prompt = tokens[:, :PROMPT]
+    serve = build_serve_step(cfg)
+    caches = init_caches(cfg, PREFILL_B, PROMPT + GENERATE, device=dev)
+    reset_launches()            # the serve main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prompt_logits = []
+    for i in range(PROMPT):
+        logits, caches = serve(params, caches, i,
+                               {"tokens": prompt[:, i:i + 1]})
+        prompt_logits.append(logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    generated = [torch.argmax(prompt_logits[-1], -1)]
+    gen_logits = []
+    for i in range(PROMPT, PROMPT + GENERATE - 1):
+        logits, caches = serve(params, caches, i,
+                               {"tokens": generated[-1][:, None]})
+        gen_logits.append(logits)
+        generated.append(torch.argmax(logits, -1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(not LAUNCHES, f"decode launched {dict(LAUNCHES)}")  # dense only
+    log(profile_line("decode step", *device_profile(lambda: serve(
+        params, caches, PROMPT + GENERATE - 1,
+        {"tokens": generated[-1][:, None]}))))
+    generated = torch.stack(generated, 1)
+    with torch.no_grad():
+        full, _ = forward(params, cfg, {"tokens": torch.cat(
+            [prompt, generated[:, :-1]], 1)})
+    decoded = torch.stack(prompt_logits + gen_logits, 1)
+    err = float(torch.max(torch.abs(decoded - full)))
+    check(err <= DECODE_TOL, f"decode vs forward logits {err:.3g}")
+    # each greedy token is forward's argmax where the top-2 gap is clear
+    fwd = full[:, PROMPT - 1:]
+    clear = top2_gap(fwd) > 2 * DECODE_TOL
+    check(bool((torch.argmax(fwd, -1) == generated)[clear].all()),
+          "greedy tokens differ from forward's argmax")
+    log(f"phase serve: {PREFILL_B} requests x {PROMPT} prompt tokens "
+        f"({(t1 - t0) / PROMPT * 1e3:.2f} ms per teacher-forced step) + "
+        f"{GENERATE} greedy tokens ({(t2 - t1) / (GENERATE - 1) * 1e3:.2f} ms "
+        f"per decode step); decode vs forward logits max |d| {err:.3g} "
+        f"(<= {DECODE_TOL:g}); tokens {generated[0, :8].tolist()}...")
+
+
+# --------------------------------------------------------------------------
+# flash at the prefill shapes and at 32k: time, bound, plain, library
+# --------------------------------------------------------------------------
+
+def flash_bound_ms(B, H, S, D):
+    """Causal (S = T): 4 D flops per visible pair over the f32 peak,
+    against q, k, v and the output read / written once."""
+    pairs = B * H * S * (S + 1) // 2
+    ops_ms = 4 * D * pairs / PEAK_F32_OPS_PER_S * 1e3
+    bytes_ms = 4 * B * S * H * D * 4 / PEAK_BYTES_PER_S * 1e3
+    return pairs, ops_ms, bytes_ms
+
+
+def phase_flash_width(dev, launches):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S, H, D = PREFILL_B, PREFILL_S, 32, 64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               for _ in range(3))
+    out = flash_attention_op(q, k, v)
+    plain = fk._plain(q, k, v, True, None)
+    err = float(torch.max(torch.abs(out - plain)))
+    check(err <= FLASH_TOL, f"flash at the prefill shapes: {err:.3g}")
+    del plain
+    ms = time_ms(lambda: flash_attention_op(q, k, v), reps=10)
+    plain_ms = time_ms(lambda: fk._plain(q, k, v, True, None), reps=3,
+                       warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = float(torch.max(torch.abs(lib.transpose(1, 2) - out)))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10)
+    pairs, ops_ms, bytes_ms = flash_bound_ms(B, H, S, D)
+    log(f"time flash_attention (B={B} S=T={S} H={H} D={D} causal f32): "
+        f"{ms:.3f} ms (bound {ops_ms:.3f} ms: {pairs:,} pairs, "
+        f"{4 * D * pairs / 1e9:.1f} GFLOP; bytes {bytes_ms:.3f} ms; "
+        f"{ops_ms / ms:.0%} of the f32 roofline); plain version "
+        f"{plain_ms:.1f} ms; scaled_dot_product_attention {library_ms:.3f} ms"
+        f" (max |d| {lib_err:.3g} from the kernel); kernel vs plain max "
+        f"|d| {err:.3g}")
+    row = {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+           "replaces": FLASH_REPLACES,
+           "launches": launches.get("flash_attention", 0),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "library_ms": library_ms}
+    del q, k, v, qt, kt, vt, out, lib
+    torch.cuda.empty_cache()
+
+    # prefill_32k: one sequence of 32768 tokens
+    q, k, v = (torch.randn((1, LONG_S, H, D), generator=gen, device=dev)
+               for _ in range(3))
+    out = flash_attention_op(q, k, v)
+    long_ms = time_ms(lambda: flash_attention_op(q, k, v), reps=3, warmup=0)
+    rows = slice(LONG_S - LONG_ROWS, LONG_S)
+    long_err = 0.0
+    for h in (0, H - 1):
+        want = flash_attention_ref(
+            q[:, rows, h:h + 1].transpose(1, 2), k[:, :, h:h + 1]
+            .transpose(1, 2), v[:, :, h:h + 1].transpose(1, 2), causal=True,
+            q_offset=LONG_S - LONG_ROWS).transpose(1, 2)
+        long_err = max(long_err, float(torch.max(torch.abs(
+            out[:, rows, h:h + 1] - want))))
+    check(long_err <= FLASH_TOL, f"flash at 32k: {long_err:.3g}")
+    check(bool(torch.isfinite(out).all()), "non-finite flash output at 32k")
+    pairs, ops_ms, bytes_ms = flash_bound_ms(1, H, LONG_S, D)
+    log(f"time flash_attention (B=1 S=T={LONG_S} H={H} D={D} causal f32): "
+        f"{long_ms:.2f} ms (bound {ops_ms:.2f} ms: {pairs:,} pairs, "
+        f"{4 * D * pairs / 1e12:.2f} TFLOP; {ops_ms / long_ms:.0%} of the "
+        f"f32 roofline); last {LONG_ROWS} query rows of heads 0 and {H - 1} "
+        f"vs the plain version max |d| {long_err:.3g}")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -769,6 +1162,10 @@ def main():
     log(smi[0])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # full float32 in the model's matrix products (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -787,6 +1184,13 @@ def main():
     x, launches = phase_width_natural(dev)
     rows += phase_width_kernels_natural(x, launches)
     del x
+    torch.cuda.empty_cache()
+    phase_flash_small(dev)
+    cfg, params, tokens, launches = phase_prefill(dev)
+    phase_serve(dev, cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    rows.append(phase_flash_width(dev, launches))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

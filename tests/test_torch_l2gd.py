@@ -292,6 +292,8 @@ def test_port_loads_no_jax_and_no_reference():
         from repro_torch.core import L2GDHyper, make_compressor, prng
         from repro_torch.data import logreg_loss_and_grad, make_logreg_data
         from repro_torch.fl import run_l2gd
+        import repro_torch.configs, repro_torch.data.tokens, repro_torch.launch.steps
+        import repro_torch.models, repro_torch.kernels.flash_attention.ops
         data = make_logreg_data(n_clients=3, m_per_client=20, seed=0)
         X, Y = torch.from_numpy(data.features), torch.from_numpy(data.labels)
         def grad_fn(p, b):
