@@ -43,7 +43,21 @@ these phases and fails (non-zero exit, no result line) on any error:
   flash width  the kernel at the prefill shapes against its bound, its
            plain version and scaled_dot_product_attention; then once at
            the prefill_32k length, checked on the last 256 query rows of
-           two heads.
+           two heads;
+  selective_scan  the scan kernel against its plain version on the card
+           at the CPU tests' shapes and hymba's E = 1600 (ragged L and E,
+           N = 4 / 8 / 16, f32 and bf16), and a backward through it raises;
+  mamba    falcon-mamba-7b (64 Mamba layers) and then hymba-1.5b (32
+           hybrid layers: sliding-window dense attention beside Mamba) at
+           full width and depth, f32, random weights from a seeded
+           generator, one after the other: build_prefill_step on B = 2
+           sequences of 4096 tokens (one scan launch per layer), a
+           torch.profiler breakdown, forward with the last layer's scan
+           held against the plain version on its own inputs; then the
+           serve phase above through the Mamba (and ring KV) caches,
+           which runs no kernel;
+  scan width  the kernel at both prefill shapes (E = 8192 and 1600)
+           against its bound and its plain version.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -97,6 +111,23 @@ LEAFWISE_STEPS = 100           # per codec and device in the leafwise phase
 D_MODEL, D_FF, VOCAB, LAYERS = 2048, 5632, 100352, 4
 WIDTH_D = 411_060_224
 WIDTH_CLIENTS = 8
+SCAN_SOURCE = "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/selective_scan/kernel.py:60"
+# the kernel and its plain version round every product and sum alike and
+# call the same expf, so the state agrees; y differs in the order of the
+# N-term sum: bound 16 float32 ulps of max |y|
+SCAN_ULPS = 16
+SCAN_CASES = [   # B, L, E, N: tests/test_kernels.py's sweep, hymba's E
+    (1, 16, 8, 4), (2, 64, 32, 16), (1, 100, 48, 16), (3, 33, 16, 8),
+    (2, 37, 24, 8), (1, 257, 1600, 16),
+]
+# the exp of every state update runs on the special-function units: 16
+# results per SM and clock for compute capability 9.0 (CUDA C++
+# programming guide, arithmetic instruction throughput) x 132 SMs x
+# 1.98 GHz boost
+PEAK_SFU_OPS_PER_S = 132 * 16 * 1.98e9
+MAMBA_PARAMS = {"falcon-mamba-7b": 7_006_326_784,
+                "hymba-1.5b": 1_352_246_400}
 
 
 def log(msg):
@@ -785,17 +816,18 @@ def phase_width_kernels_natural(x, launches):
 # phase flash: the flash-attention kernel at the CPU tests' shapes
 # --------------------------------------------------------------------------
 
-def bf16_ulps(got, want):
+def bf16_ulps(got, want, floor=FLASH_TOL):
     """|got - want| in units of the bf16 spacing at the larger of the two
-    magnitudes (8 significand bits), floored at FLASH_TOL: both versions
-    round one float32 value, and near zero (an output that cancels) the
-    float32 values' own difference, bounded by FLASH_TOL, exceeds the bf16
-    spacing.  Returns (worst units, |want| there)."""
+    magnitudes (8 significand bits), floored at ``floor``, the float32
+    bound: both versions round one float32 value, and near zero (an
+    output that cancels) the float32 values' own difference, bounded by
+    ``floor``, exceeds the bf16 spacing.  Returns (worst units, |want|
+    there)."""
     import torch
     got, want = got.float(), want.float()
     _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
     ulp = torch.ldexp(torch.ones_like(got), exp - 8)
-    units = (torch.abs(got - want) / torch.clamp(ulp, min=FLASH_TOL)) \
+    units = (torch.abs(got - want) / torch.clamp(ulp, min=floor)) \
         .reshape(-1)
     at = int(torch.argmax(units))
     return float(units[at]), float(want.reshape(-1)[at].abs())
@@ -878,11 +910,11 @@ def timed(fn):
 
 
 def device_profile(fn):
-    """Run ``fn`` once under torch.profiler: (wall ms, {"flash" | "gemm" |
-    "other": device ms}, kernel count).  The device ms are the kernels'
-    own times (one stream, so they do not overlap); wall ms minus their
-    sum is the card's idle time.  Empty when the profiler sees no device
-    activity."""
+    """Run ``fn`` once under torch.profiler: (wall ms, {"flash" |
+    "selective_scan" | "gemm" | "other": device ms}, kernel count).  The
+    device ms are the kernels' own times (one stream, so they do not
+    overlap); wall ms minus their sum is the card's idle time.  Empty when
+    the profiler sees no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -892,13 +924,15 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind, count = {"flash": 0.0, "gemm": 0.0, "other": 0.0}, 0
+    by_kind = {"flash": 0.0, "selective_scan": 0.0, "gemm": 0.0, "other": 0.0}
+    count = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.self_device_time_total
         name = e.key.lower()
         kind = "flash" if "flash_fwd" in name else \
+            "selective_scan" if "scan_kernel<" in name else \
             "gemm" if "gemm" in name or "gemv" in name else "other"
         by_kind[kind] += us / 1e3
         count += e.count
@@ -911,7 +945,7 @@ def profile_line(what, wall_ms, by_kind, count):
         return f"profile {what}: the profiler saw no device activity"
     return (f"profile {what}: wall {wall_ms:.2f} ms, {count} kernels, device "
             f"busy {busy:.2f} ms (idle share {1 - busy / wall_ms:.1%}): " +
-            ", ".join(f"{k} {v:.2f} ms" for k, v in by_kind.items()))
+            ", ".join(f"{k} {v:.2f} ms" for k, v in by_kind.items() if v))
 
 
 def top2_gap(logits):
@@ -1042,8 +1076,8 @@ def phase_serve(dev, cfg, params, tokens):
         generated.append(torch.argmax(logits, -1))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    check(not LAUNCHES, f"decode launched {dict(LAUNCHES)}")  # dense only
-    log(profile_line("decode step", *device_profile(lambda: serve(
+    check(not LAUNCHES, f"{cfg.name} decode launched {dict(LAUNCHES)}")
+    log(profile_line(f"{cfg.name} decode step", *device_profile(lambda: serve(
         params, caches, PROMPT + GENERATE - 1,
         {"tokens": generated[-1][:, None]}))))
     generated = torch.stack(generated, 1)
@@ -1052,17 +1086,20 @@ def phase_serve(dev, cfg, params, tokens):
             [prompt, generated[:, :-1]], 1)})
     decoded = torch.stack(prompt_logits + gen_logits, 1)
     err = float(torch.max(torch.abs(decoded - full)))
-    check(err <= DECODE_TOL, f"decode vs forward logits {err:.3g}")
+    check(err <= DECODE_TOL, f"{cfg.name} decode vs forward logits {err:.3g}")
     # each greedy token is forward's argmax where the top-2 gap is clear
     fwd = full[:, PROMPT - 1:]
     clear = top2_gap(fwd) > 2 * DECODE_TOL
     check(bool((torch.argmax(fwd, -1) == generated)[clear].all()),
-          "greedy tokens differ from forward's argmax")
-    log(f"phase serve: {PREFILL_B} requests x {PROMPT} prompt tokens "
+          f"{cfg.name}: greedy tokens differ from forward's argmax")
+    log(f"phase serve ({cfg.name}): {PREFILL_B} requests x {PROMPT} prompt "
+        f"tokens "
         f"({(t1 - t0) / PROMPT * 1e3:.2f} ms per teacher-forced step) + "
         f"{GENERATE} greedy tokens ({(t2 - t1) / (GENERATE - 1) * 1e3:.2f} ms "
         f"per decode step); decode vs forward logits max |d| {err:.3g} "
-        f"(<= {DECODE_TOL:g}); tokens {generated[0, :8].tolist()}...")
+        f"(<= {DECODE_TOL:g}; at the prompt positions "
+        f"{float(torch.max(torch.abs(decoded - full)[:, :PROMPT])):.3g}); "
+        f"tokens {generated[0, :8].tolist()}...")
 
 
 # --------------------------------------------------------------------------
@@ -1147,6 +1184,216 @@ def phase_flash_width(dev, launches):
     return row
 
 
+# --------------------------------------------------------------------------
+# phase selective_scan: the scan kernel at the CPU tests' shapes
+# --------------------------------------------------------------------------
+
+def scan_inputs(gen, B, L, E, N, dev):
+    """Drawn as tests/test_kernels.py draws them: dt = softplus(normal) *
+    0.2, B, C and x normal, A = -|normal|."""
+    import torch
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn((B, L, E), generator=gen, device=dev)) * 0.2
+    Bm, Cm = (torch.randn((B, L, N), generator=gen, device=dev)
+              for _ in range(2))
+    x = torch.randn((B, L, E), generator=gen, device=dev)
+    A = -torch.randn((E, N), generator=gen, device=dev).abs()
+    return dt, Bm, Cm, x, A
+
+
+def ulp_of(v):
+    """The float32 spacing at |v| (a Python float)."""
+    return float(np.spacing(np.float32(abs(v))))
+
+
+def scan_bound(want):
+    """SCAN_ULPS float32 ulps of max |want|."""
+    return SCAN_ULPS * ulp_of(float(want.float().abs().max()))
+
+
+def phase_scan_small(dev):
+    import torch
+    from repro_torch.kernels.selective_scan.kernel import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    gen = torch.Generator(device=dev)
+    worst, worst_bf16, n = 0.0, 0.0, 0
+    for B, L, E, N in SCAN_CASES:
+        gen.manual_seed(L * 1000 + E)
+        dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = [t.to(dtype) for t in (dt, Bm, Cm, x)]
+            plain = selective_scan_ref(*ins, A)
+            got = selective_scan(*ins, A)
+            torch.cuda.synchronize()
+            what = f"selective_scan B{B} L{L} E{E} N{N} {dtype}"
+            check(got.dtype == dtype and got.shape == x.shape, what)
+            bound = scan_bound(plain)
+            if dtype == torch.float32:
+                err = float(torch.max(torch.abs(got - plain)))
+                check(err <= bound, f"{what}: max |d| {err:.3g} > {bound:.3g}")
+                worst = max(worst, err / ulp_of(float(plain.abs().max())))
+            else:
+                u, at = bf16_ulps(got, plain, floor=bound)
+                check(u <= 1.0, f"{what}: {u:.2f} bf16 ulps at |y| {at:.3g}")
+                worst_bf16 = max(worst_bf16, u)
+            n += 1
+    x = torch.randn((1, 8, 4), device=dev).requires_grad_()
+    try:
+        selective_scan(x, torch.ones((1, 8, 2), device=dev),
+                       torch.ones((1, 8, 2), device=dev), x,
+                       -torch.ones((4, 2), device=dev)).sum().backward()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a backward through the scan op did not raise")
+    log(f"phase selective_scan: {n} kernel calls against the plain version "
+        f"on the card (f32 within {worst:.2f} ulps of max |y|, bound "
+        f"{SCAN_ULPS}; bf16 within {worst_bf16:.2f} bf16 ulp); backward "
+        "raises")
+
+
+# --------------------------------------------------------------------------
+# phases mamba prefill and serve: falcon-mamba-7b and hymba-1.5b at full
+# width and depth
+# --------------------------------------------------------------------------
+
+def phase_mamba_prefill(dev, arch):
+    """The prefill step and forward of a Mamba or hybrid model; the last
+    layer's scan held against the plain version on its own inputs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import forward, init_params, param_count
+
+    cfg = get_config(arch)
+    params, init_s = timed(lambda: init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    check(param_count(params) == MAMBA_PARAMS[arch], f"{arch} parameters")
+    tokens = torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=PREFILL_B,
+        seq=PREFILL_S).batch_at(0)[0]).long().to(dev)
+    batch = {"tokens": tokens}
+    prefill = build_prefill_step(cfg)
+    reset_launches()            # the prefill main path starts here
+    last, first_s = timed(lambda: prefill(params, batch))
+    launches = dict(LAUNCHES)   # and ends here
+    check(launches == {"selective_scan": cfg.n_layers},
+          f"{arch} prefill step launches {launches}")
+    check(last.shape == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()), f"{arch} prefill logits")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, prefill_s = timed(lambda: prefill(params, batch))
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    log(profile_line(f"{arch} prefill step", *device_profile(
+        lambda: prefill(params, batch))))
+    # forward keeps the last layer's scan operands: the kernel is held to
+    # its plain version on the model's own activations
+    op, seen = scan_ops.selective_scan_op, []
+
+    def keep_last(*args):
+        out = op(*args)
+        seen[:] = [(args, out)]
+        return out
+
+    scan_ops.selective_scan_op = keep_last
+    reset_launches()
+    try:
+        with torch.no_grad():
+            logits, fwd_s = timed(lambda: forward(params, cfg, batch)[0])
+    finally:
+        scan_ops.selective_scan_op = op
+    check(dict(LAUNCHES) == {"selective_scan": cfg.n_layers},
+          f"{arch} forward launches {dict(LAUNCHES)}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    args, out = seen.pop()
+    plain, plain_s = timed(lambda: selective_scan_ref(*args))
+    layer_err = float(torch.max(torch.abs(out - plain)))
+    layer_bound = scan_bound(plain)
+    check(layer_err <= layer_bound, f"{arch} layer {cfg.n_layers - 1} scan "
+          f"vs plain on its own inputs: {layer_err:.3g} > {layer_bound:.3g}")
+    layer_ulps = layer_err / ulp_of(float(plain.abs().max()))
+    del args, out, plain
+    # the step unembeds one position, forward all of them
+    step_err = float(torch.max(torch.abs(logits[:, -1] - last)))
+    check(step_err <= 1e-5 * float(last.abs().max()),
+          f"{arch} prefill step vs forward's last position: {step_err:.3g}")
+    scale = float(logits.abs().max())
+    del logits
+    torch.cuda.empty_cache()
+    log(f"phase prefill ({arch}): {cfg.n_layers} layers, "
+        f"{param_count(params):,} params (init {init_s:.2f} s); B={PREFILL_B}"
+        f" S={PREFILL_S}: prefill step {first_s:.3f} s first, "
+        f"{prefill_s:.3f} s second (peak {step_peak / 1e9:.2f} GB); forward "
+        f"{fwd_s:.3f} s, max |logit| {scale:.3f}; layer {cfg.n_layers - 1} "
+        f"kernel vs plain on its own inputs max |d| {layer_err:.3g} = "
+        f"{layer_ulps:.2f} ulps of max |y| (bound {SCAN_ULPS}; plain version "
+        f"{plain_s:.2f} s); step vs forward max |d| {step_err:.3g}; launches "
+        f"{launches}")
+    return cfg, params, tokens, launches
+
+
+# --------------------------------------------------------------------------
+# selective_scan at the prefill shapes: time, bound, plain
+# --------------------------------------------------------------------------
+
+def scan_bound_ms(B, L, E, N, esize):
+    """(bytes ms, exp ms, f32 ms): dt, x, y and Bm, Cm read or written
+    once (A too); one exp per state update on the special-function units;
+    six float32 operations per update (dt*A, dx*B, decay*h, + drive,
+    h*C, + acc) on the CUDA cores."""
+    updates = B * L * E * N
+    nbytes = 3 * B * L * E * esize + 2 * B * L * N * esize + E * N * 4
+    return (nbytes / PEAK_BYTES_PER_S * 1e3,
+            updates / PEAK_SFU_OPS_PER_S * 1e3,
+            6 * updates / PEAK_F32_OPS_PER_S * 1e3)
+
+
+def phase_scan_width(dev, launches):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan.ops import selective_scan_op
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    row = None
+    for arch in MAMBA_PARAMS:
+        B, L = PREFILL_B, PREFILL_S
+        E, N = get_config(arch).d_inner, get_config(arch).ssm_state
+        dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
+        out = selective_scan_op(dt, Bm, Cm, x, A)
+        ms = time_ms(lambda: selective_scan_op(dt, Bm, Cm, x, A), reps=25)
+        plain, plain_s = timed(lambda: selective_scan_ref(dt, Bm, Cm, x, A))
+        err = float(torch.max(torch.abs(out - plain)))
+        bound = scan_bound(plain)
+        check(err <= bound, f"selective_scan at {arch}'s shape: {err:.3g} > "
+              f"{bound:.3g}")
+        check(bool(torch.isfinite(out).all()), "non-finite scan output")
+        bytes_ms, exp_ms, f32_ms = scan_bound_ms(B, L, E, N, 4)
+        ops_ms = max(exp_ms, f32_ms)
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"time selective_scan ({arch}: B={B} L={L} E={E} N={N} f32): "
+            f"{ms:.3f} ms (bound {bound_ms:.3f} ms: bytes {bytes_ms:.3f}, "
+            f"exps {exp_ms:.3f}, f32 {f32_ms:.3f}; {bound_ms / ms:.0%} of "
+            f"the roofline; {B * E // 32} warps); plain version "
+            f"{plain_s * 1e3:.1f} ms; kernel vs plain max |d| {err:.3g} = "
+            f"{err / ulp_of(float(plain.abs().max())):.2f} ulps of max |y|")
+        if row is None:     # the row's numbers: the falcon prefill shape
+            row = {"name": "selective_scan", "route": "cuda",
+                   "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
+                   "launches": launches.get("selective_scan", 0),
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+                   "bound_ms": bound_ms,
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes",
+                   "library_ms": None}
+        del dt, Bm, Cm, x, A, out, plain
+        torch.cuda.empty_cache()
+    return row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1191,6 +1438,15 @@ def main():
     del params
     torch.cuda.empty_cache()
     rows.append(phase_flash_width(dev, launches))
+    phase_scan_small(dev)
+    prefill_launches = {}
+    for arch in MAMBA_PARAMS:
+        cfg, params, tokens, prefill_launches[arch] = \
+            phase_mamba_prefill(dev, arch)
+        phase_serve(dev, cfg, params, tokens)
+        del params
+        torch.cuda.empty_cache()
+    rows.append(phase_scan_width(dev, prefill_launches["falcon-mamba-7b"]))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

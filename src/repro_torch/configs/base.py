@@ -168,8 +168,6 @@ UNPORTED = {
     "moonshot-v1-16b-a3b": "the MoE slice",
     "granite-moe-1b-a400m": "the MoE slice",
     "deepseek-v2-lite-16b": "the MLA and MoE slice",
-    "falcon-mamba-7b": "the Mamba slice",
-    "hymba-1.5b": "the Mamba slice (hybrid mixer)",
     "mistral-large-123b": "the multi-device launch slice (123B parameters "
                           "do not fit one card)",
     "internvl2-26b": "the vision-frontend slice",

@@ -1,9 +1,10 @@
 """Parameter trees: nested ``dict`` / ``list`` / ``tuple`` containers of
 tensors, the port's stand-in for JAX pytrees.
 
-Leaves are visited in ``jax.tree_util`` order — dict keys sorted, lists
-and tuples in position order — so a tree raveled here has the same leaf
-offsets as the same tree raveled by the JAX package.
+Leaves are visited in ``jax.tree_util`` order — dict keys sorted, lists,
+tuples and NamedTuples (a decode cache) in position order — so a tree
+raveled here has the same leaf offsets as the same tree raveled by the
+JAX package.
 """
 from __future__ import annotations
 
@@ -22,8 +23,11 @@ def tree_flatten(tree) -> tuple:
                 ("dict", tuple(keys), tuple(d for _, d in parts)))
     if isinstance(tree, (list, tuple)):
         parts = [tree_flatten(x) for x in tree]
+        # a NamedTuple keeps its class, to be rebuilt as one
+        kind = type(tree) if hasattr(tree, "_fields") \
+            else type(tree).__name__
         return ([leaf for ls, _ in parts for leaf in ls],
-                (type(tree).__name__, None, tuple(d for _, d in parts)))
+                (kind, None, tuple(d for _, d in parts)))
     return [tree], None
 
 
@@ -40,7 +44,9 @@ def _build(treedef, it):
     kids = [_build(c, it) for c in children]
     if kind == "dict":
         return dict(zip(keys, kids))
-    return tuple(kids) if kind == "tuple" else kids
+    if kind == "tuple":
+        return tuple(kids)
+    return kind(*kids) if isinstance(kind, type) else kids
 
 
 def tree_unflatten(treedef, leaves) -> Any:

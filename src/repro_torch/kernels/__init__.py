@@ -1,1 +1,2 @@
-"""The port's kernels: counter RNG, device dispatch, build, QSGD."""
+"""The port's kernels: counter RNG, device dispatch, build; QSGD, natural,
+flash attention and the selective scan."""

@@ -1,5 +1,7 @@
-"""Models of the port: the dense GQA decoder family (configs
-``stablelm-1.6b`` and ``gemma3-1b``) with its KV-cache decode path."""
+"""Models of the port: the dense GQA decoders (``stablelm-1.6b``,
+``gemma3-1b``), the attention-free Mamba decoder (``falcon-mamba-7b``)
+and the hybrid attention-and-Mamba decoder (``hymba-1.5b``), with their
+KV-cache and Mamba-state decode paths."""
 from repro_torch.models.model import (decode_step, forward, hidden,
                                       init_caches, init_params, layer_kinds,
                                       loss_fn, param_count)

@@ -1,13 +1,15 @@
-"""Config-driven decoder for the dense GQA family — the counterpart of
-``repro.models.model`` for ``mixer="gqa"`` and ``ffn="dense"``.
+"""Config-driven decoder for the dense GQA, Mamba and hybrid families —
+the counterpart of ``repro.models.model`` for ``mixer`` in {"gqa",
+"mamba", "hybrid"} and ``ffn`` in {"dense", "none"}.
 
 The parameter tree is the reference's: a dict with a leading layer axis
 on every leaf of ``params["layers"]``, the same keys.  The forward pass
 loops over the layers in Python (the reference scans; ``remat`` has no
 effect on a forward pass).  With ``attn_impl="flash"`` and no sliding
-window every layer runs the flash-attention kernel and no (S, S) mask is
-built.  Other mixers, MoE, frontends and the encoder-decoder raise and
-name the slice of the port that brings them.
+window every attention layer runs the flash-attention kernel and no
+(S, S) mask is built; every Mamba layer's scan runs the selective-scan
+kernel on the card (``models/mamba.py``).  MLA, MoE, frontends and the
+encoder-decoder raise and name the slice of the port that brings them.
 
 Public API:
   init_params(generator, cfg, device)    -> params
@@ -15,7 +17,8 @@ Public API:
   hidden(params, cfg, batch)             -> final-norm hidden states
   loss_fn(params, cfg, batch)            -> (loss, metrics)
   layer_kinds(cfg)                       -> per-layer static descriptors
-  init_caches(cfg, batch, capacity)      -> decode cache list
+  init_caches(cfg, batch, capacity)      -> decode cache list (KV caches,
+                                            Mamba caches, or both a layer)
   decode_step(params, cfg, caches, index, batch) -> (logits, caches)
 """
 from __future__ import annotations
@@ -29,6 +32,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
+from repro_torch.models import mamba as mb
 
 __all__ = ["init_params", "forward", "hidden", "loss_fn", "layer_kinds",
            "init_caches", "decode_step", "param_count"]
@@ -38,11 +42,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.mixer != "gqa":
+    if cfg.mixer not in ("gqa", "mamba", "hybrid"):
         raise NotImplementedError(
             f"mixer {cfg.mixer!r} is not ported yet: MLA comes with the MoE "
-            "slice, Mamba and hybrid with the Mamba slice")
-    if cfg.ffn != "dense" or cfg.first_dense_layers:
+            "slice")
+    if cfg.ffn not in ("dense", "none") or cfg.first_dense_layers:
         raise NotImplementedError(
             f"ffn {cfg.ffn!r} is not ported yet: it comes with the MoE slice")
     if cfg.is_encdec or cfg.frontend is not None:
@@ -80,16 +84,40 @@ def layer_kinds(cfg: ArchConfig):
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _init_layer(generator, cfg: ArchConfig, dtype, device) -> dict:
-    return {
-        "ln1": blocks.init_rmsnorm(cfg.d_model, dtype, device),
-        "attn": attn.init_gqa(generator, cfg.d_model, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.hd, dtype, device=device,
-                              qk_norm=cfg.qk_norm, layout=cfg.attn_layout),
-        "ffn": blocks.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
-                               device=device, fused=cfg.mlp_fused),
-        "ln2": blocks.init_rmsnorm(cfg.d_model, dtype, device),
-    }
+def _init_mixer(generator, cfg: ArchConfig, dtype, device) -> dict:
+    """gqa: attention; mamba: the Mamba mixer; hybrid: attention (without
+    qk-norm, as the reference's) beside Mamba, each with an output norm."""
+    p = {}
+    if cfg.mixer != "mamba":
+        p["attn"] = attn.init_gqa(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            dtype, device=device, qk_norm=cfg.qk_norm and cfg.mixer == "gqa",
+            layout=cfg.attn_layout)
+    if cfg.mixer != "gqa":
+        p["mixer" if cfg.mixer == "mamba" else "mamba"] = mb.init_mamba(
+            generator, cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+            cfg.ssm_conv, dtype=dtype, device=device)
+    if cfg.mixer == "hybrid":
+        p["norm_attn"] = blocks.init_rmsnorm(cfg.d_model, dtype, device)
+        p["norm_mamba"] = blocks.init_rmsnorm(cfg.d_model, dtype, device)
+    return p
+
+
+def _init_ffn(generator, cfg: ArchConfig, kind: str, dtype, device) -> dict:
+    if kind == "dense":
+        return {"ffn": blocks.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                       dtype, device=device,
+                                       fused=cfg.mlp_fused),
+                "ln2": blocks.init_rmsnorm(cfg.d_model, dtype, device)}
+    return {}  # none (Mamba blocks carry their own gated expansion)
+
+
+def _init_layer(generator, cfg: ArchConfig, kind: LayerKind, dtype,
+                device) -> dict:
+    p = {"ln1": blocks.init_rmsnorm(cfg.d_model, dtype, device)}
+    p.update(_init_mixer(generator, cfg, dtype, device))
+    p.update(_init_ffn(generator, cfg, kind.ffn, dtype, device))
+    return p
 
 
 def _stack(trees: list) -> dict:
@@ -114,8 +142,8 @@ def init_params(generator, cfg: ArchConfig, device=None) -> dict:
         "embed": blocks.init_embedding(generator, cfg.vocab_size,
                                        cfg.d_model, dtype, device=device),
         "final_norm": blocks.init_rmsnorm(cfg.d_model, dtype, device),
-        "layers": _stack([_init_layer(generator, cfg, dtype, device)
-                          for _ in range(cfg.n_layers)]),
+        "layers": _stack([_init_layer(generator, cfg, kind, dtype, device)
+                          for kind in layer_kinds(cfg)]),
     }
 
 
@@ -141,7 +169,39 @@ def _layer(stacked: dict, i: int) -> dict:
             for key, val in stacked.items()}
 
 
-def _apply_ffn(cfg: ArchConfig, lp: dict, x):
+def _attention(cfg: ArchConfig, p: dict, x, positions, **kw):
+    """The GQA half of a gqa or hybrid layer (the reference's hybrid
+    attention takes no qk-norm)."""
+    return attn.gqa_attention(
+        p, x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.hd, theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm and cfg.mixer == "gqa", **kw)
+
+
+def _fuse(lp: dict, a, m):
+    """The hybrid's mean of the normalized attention and Mamba outputs."""
+    return 0.5 * (blocks.rmsnorm(lp["norm_attn"], a)
+                  + blocks.rmsnorm(lp["norm_mamba"], m))
+
+
+def _apply_mixer(cfg: ArchConfig, lp: dict, x, positions, mask, impl):
+    """The full-sequence mixer of one layer (the reference's
+    ``_apply_mixer_train``)."""
+    if cfg.mixer == "mamba":
+        return mb.mamba_forward(lp["mixer"], x, d_state=cfg.ssm_state,
+                                chunk=cfg.scan_chunk)
+    a, _ = _attention(cfg, lp["attn"], x, positions, impl=impl,
+                      mask_override=mask)
+    if cfg.mixer == "gqa":
+        return a
+    return _fuse(lp, a, mb.mamba_forward(lp["mamba"], x,
+                                         d_state=cfg.ssm_state,
+                                         chunk=cfg.scan_chunk))
+
+
+def _apply_ffn(cfg: ArchConfig, lp: dict, x, kind: str):
+    if kind == "none":
+        return x
     h = blocks.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     return x + blocks.mlp(lp["ffn"], h, cfg.activation)
 
@@ -157,8 +217,8 @@ def hidden(params, cfg: ArchConfig, batch):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     impl = _attn_impl_train(cfg)
-    global_mask = local_mask = None        # flash builds no mask
-    if impl == "dense":
+    global_mask = local_mask = None     # flash and Mamba build no mask
+    if impl == "dense" and cfg.mixer != "mamba":
         global_mask = local_mask = attn.causal_mask(S, S, device=x.device)
         if cfg.sliding_window is not None:
             local_mask = attn.causal_mask(S, S, cfg.sliding_window,
@@ -166,12 +226,10 @@ def hidden(params, cfg: ArchConfig, batch):
     for i, kind in enumerate(layer_kinds(cfg)):
         lp = _layer(params["layers"], i)
         h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        out, _ = attn.gqa_attention(
-            lp["attn"], h, positions, n_heads=cfg.n_heads,
-            n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, impl=impl,
-            mask_override=global_mask if kind.is_global else local_mask)
-        x = _apply_ffn(cfg, lp, x + out)
+        x = x + _apply_mixer(cfg, lp, h, positions,
+                             global_mask if kind.is_global else local_mask,
+                             impl)
+        x = _apply_ffn(cfg, lp, x, kind.ffn)
     return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -184,7 +242,7 @@ def forward(params, cfg: ArchConfig, batch):
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Next-token cross-entropy (+ the aux loss, zero for dense FFNs)."""
+    """Next-token cross-entropy (+ the aux loss, zero without MoE)."""
     logits, aux = forward(params, cfg, batch)
     tokens = batch["tokens"]
     loss = blocks.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
@@ -197,8 +255,9 @@ def loss_fn(params, cfg: ArchConfig, batch):
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
-    """One KV cache per layer.  Windowed layers get ring buffers of size
-    min(window, capacity)."""
+    """One cache per layer: a KV cache (gqa), a ``MambaCache`` (mamba), or
+    {"attn": KV cache, "mamba": MambaCache} (hybrid).  Windowed layers
+    get ring buffers of size min(window, capacity)."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
@@ -206,9 +265,37 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
     for kind in layer_kinds(cfg):
         ring = (not kind.is_global) and cfg.sliding_window is not None
         cap = min(cfg.sliding_window, capacity) if ring else capacity
-        caches.append(attn.init_kv_cache(batch, cap, cfg.n_kv_heads, cfg.hd,
-                                         dtype, device))
+        if cfg.mixer == "gqa":
+            caches.append(attn.init_kv_cache(batch, cap, cfg.n_kv_heads,
+                                             cfg.hd, dtype, device))
+        elif cfg.mixer == "mamba":
+            caches.append(mb.init_mamba_cache(batch, cfg.d_inner,
+                                              cfg.ssm_state, cfg.ssm_conv,
+                                              dtype, device))
+        else:
+            caches.append({
+                "attn": attn.init_kv_cache(batch, cap, cfg.n_kv_heads,
+                                           cfg.hd, dtype, device),
+                "mamba": mb.init_mamba_cache(batch, cfg.d_inner,
+                                             cfg.ssm_state, cfg.ssm_conv,
+                                             dtype, device)})
     return caches
+
+
+def _decode_mixer(cfg: ArchConfig, lp: dict, cache, x, pos, index: int,
+                  kind: LayerKind):
+    if cfg.mixer == "mamba":
+        return mb.mamba_decode_step(lp["mixer"], x, cache,
+                                    d_state=cfg.ssm_state)
+    ring = (not kind.is_global) and cfg.sliding_window is not None
+    kv = cache if cfg.mixer == "gqa" else cache["attn"]
+    a, kv = _attention(cfg, lp["attn"], x, pos, cache=kv, cache_index=index,
+                       ring=ring)
+    if cfg.mixer == "gqa":
+        return a, kv
+    m, ssm = mb.mamba_decode_step(lp["mamba"], x, cache["mamba"],
+                                  d_state=cfg.ssm_state)
+    return _fuse(lp, a, m), {"attn": kv, "mamba": ssm}
 
 
 def decode_step(params, cfg: ArchConfig, caches, index, batch):
@@ -224,11 +311,8 @@ def decode_step(params, cfg: ArchConfig, caches, index, batch):
     for i, kind in enumerate(layer_kinds(cfg)):
         lp = _layer(params["layers"], i)
         h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        out, caches[i] = attn.gqa_attention(
-            lp["attn"], h, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.hd, theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-            cache=caches[i], cache_index=index,
-            ring=(not kind.is_global) and cfg.sliding_window is not None)
-        x = _apply_ffn(cfg, lp, x + out)
+        out, caches[i] = _decode_mixer(cfg, lp, caches[i], h, pos, index,
+                                       kind)
+        x = _apply_ffn(cfg, lp, x + out, kind.ffn)
     x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return blocks.unembed(params["embed"], x), caches

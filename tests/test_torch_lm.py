@@ -56,7 +56,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-ARCHS = ("stablelm-1.6b", "gemma3-1b")
+# the ported archs; the dense GQA ones are exercised here, falcon-mamba-7b
+# and hymba-1.5b in tests/test_torch_mamba.py
+ARCHS = ("stablelm-1.6b", "gemma3-1b", "falcon-mamba-7b", "hymba-1.5b")
+GQA_ARCHS = ARCHS[:2]
 BLOCK_TOL = 1e-6
 LOGIT_TOL = 2e-5
 DECODE_TOL = 2e-4
@@ -262,7 +265,7 @@ def _tokens(cfg, B=2, S=10, seed=1):
         0, cfg.vocab_size, size=(B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", GQA_ARCHS)
 def test_init_params_tree_equals_reference(arch):
     cfg, jcfg = _reduced(arch)
     _, tp = _carried(jcfg)
@@ -290,7 +293,7 @@ def test_full_stablelm_param_count_on_meta():
     assert jparam_count(shapes) == STABLELM_PARAMS
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", GQA_ARCHS)
 @pytest.mark.parametrize("impl", ["dense", "flash"])
 def test_forward_and_loss_match_reference(arch, impl):
     cfg, jcfg = _reduced(arch, attn_impl=impl)
@@ -326,7 +329,7 @@ def test_flash_and_dense_forward_agree():
             assert _max_err(dense, flash) < LOGIT_TOL
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", GQA_ARCHS)
 def test_decode_matches_reference_and_own_forward(arch):
     """Ten teacher-forced tokens through the KV caches: against the
     reference's decode_step, and against the port's own forward at the

@@ -1,0 +1,197 @@
+"""Parity of the port's selective scan with the JAX reference: the plain
+PyTorch version (which the CUDA kernel is held to on the card) against
+the reference's jitted ``selective_scan_ref``, its Pallas kernel in
+interpret mode through ``selective_scan_op``, and the Mamba mixer's
+chunked scan; the CPU route of the wrapper and of the op; the wrapper's
+checks; the kernel source in the build.
+
+Inputs are drawn with numpy as tests/test_kernels.py draws them with
+jax.random: dt = softplus(normal) * 0.2, B, C and x normal, A = -|normal|.
+
+Tolerances: float32 ``rtol = 1e-4, atol = 1e-5``, the reference's own
+bound between its kernel and its oracle (tests/test_kernels.py); the
+plain version agrees with the jitted oracle far closer (each test states
+the measured bound: torch's and XLA's exp differ in the last bit, and
+the difference carries along the recurrence).  bf16: the reference's
+5e-2.
+"""
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.kernels.selective_scan.ops import \
+    selective_scan_op as jscan_op
+from repro.kernels.selective_scan.ref import \
+    selective_scan_ref as jscan_ref
+from repro.models.mamba import selective_scan_chunked as jscan_chunked
+from repro_torch.kernels import build
+from repro_torch.kernels.selective_scan import kernel as sk
+from repro_torch.kernels.selective_scan.kernel import (MAX_STATE,
+                                                       selective_scan)
+from repro_torch.kernels.selective_scan.ops import selective_scan_op
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+RTOL, ATOL = 1e-4, 1e-5
+BF16_TOL = 5e-2
+#: the plain version against the jitted oracle, relative to max(1, max|y|):
+#: at most 3.1e-7, measured with jax 0.9.0 and torch 2.13 on the CPU
+PLAIN_TOL = 1e-6
+
+_jref = jax.jit(jscan_ref)
+
+# the reference's sweep (tests/test_kernels.py) with its tiles, and the
+# mixer's ragged shape (tests/test_models_smoke.py)
+SWEEP = [
+    (1, 16, 8, 4, 8, 8), (2, 64, 32, 16, 16, 16), (1, 100, 48, 16, 32, 16),
+    (3, 33, 16, 8, 16, 8), (2, 37, 24, 8, 16, 8),
+]
+
+
+def _inputs(B, L, E, N, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    dt = np.logaddexp(rng.normal(size=(B, L, E)), 0.0) * 0.2
+    Bm = rng.normal(size=(B, L, N))
+    Cm = rng.normal(size=(B, L, N))
+    x = rng.normal(size=(B, L, E))
+    A = -np.abs(rng.normal(size=(E, N)))
+    return (dt.astype(dtype), Bm.astype(dtype), Cm.astype(dtype),
+            x.astype(dtype), A.astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.max(np.abs(got - want))
+                 / max(1.0, float(np.max(np.abs(want)))))
+
+
+@pytest.mark.parametrize("B,L,E,N,chunk,eblk", SWEEP)
+def test_plain_matches_jitted_reference(B, L, E, N, chunk, eblk):
+    ins = _inputs(B, L, E, N, seed=L)
+    want = np.asarray(_jref(*ins))
+    got = selective_scan_ref(*_t(*ins)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert _rel(got, want) < PLAIN_TOL
+
+
+@pytest.mark.parametrize("B,L,E,N,chunk,eblk", SWEEP[:4])
+def test_plain_matches_pallas_interpret(B, L, E, N, chunk, eblk):
+    ins = _inputs(B, L, E, N, seed=L + 1)
+    want = np.asarray(jscan_op(*ins, chunk=chunk, e_blk=eblk,
+                               interpret=True))
+    got = selective_scan_op(*_t(*ins)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert _rel(got, want) < PLAIN_TOL
+
+
+def test_bf16_matches_pallas_interpret():
+    """bf16 inputs, float32 A: the plain version against the Pallas kernel
+    (interpret mode) at the reference's bf16 bound, and against the
+    float32 result of the same bf16 values within one bf16 rounding."""
+    B, L, E, N = 1, 32, 16, 8
+    ins = _inputs(B, L, E, N, seed=5)
+    jins = [jnp.asarray(a).astype(jnp.bfloat16) for a in ins[:4]]
+    want = np.asarray(jscan_op(*jins, ins[4], chunk=16, e_blk=16,
+                               interpret=True).astype(jnp.float32))
+    tins = [torch.from_numpy(np.array(a.astype(jnp.float32)))
+            .to(torch.bfloat16) for a in jins]
+    got = selective_scan_op(*tins, torch.from_numpy(ins[4]))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    f32 = selective_scan_ref(*[t.float() for t in tins],
+                             torch.from_numpy(ins[4]))
+    assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+def test_plain_matches_reference_chunked_scan():
+    """The Mamba mixer's chunked associative scan (the reference's
+    training path) at the ragged shape of tests/test_models_smoke.py."""
+    B, L, E, N = 2, 37, 24, 8
+    ins = _inputs(B, L, E, N, seed=9)
+    want, _ = jax.jit(jscan_chunked, static_argnames="chunk")(
+        *ins, np.zeros((B, E, N), np.float32), chunk=8)
+    got = selective_scan_ref(*_t(*ins)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert _rel(got, want) < PLAIN_TOL
+
+
+def test_cpu_route_takes_the_plain_version():
+    ins = _t(*_inputs(2, 20, 12, 16, seed=3))
+    want = selective_scan_ref(*ins)
+    assert torch.equal(selective_scan(*ins), want)
+    assert torch.equal(selective_scan_op(*ins), want)
+    # the op hands the kernel contiguous operands: B and C as column
+    # slices of one projection, as the Mamba mixer makes them
+    dbc = torch.cat([ins[1], ins[2]], dim=-1)
+    got = selective_scan_op(ins[0], dbc[..., :16], dbc[..., 16:], ins[3],
+                            ins[4])
+    assert torch.equal(got, want)
+    assert selective_scan(*[t[:, :0] for t in ins[:4]], ins[4]).shape \
+        == (2, 0, 12)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "A_dtype", "shape",
+                                 "A_shape", "state", "strided"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    dt, Bm, Cm, x, A = _t(*_inputs(1, 8, 4, 2))
+    if bad == "dtype":
+        dt, Bm, Cm, x = (t.half() for t in (dt, Bm, Cm, x))
+    elif bad == "mixed":
+        dt = dt.to(torch.bfloat16)
+    elif bad == "A_dtype":
+        A = A.double()
+    elif bad == "shape":
+        dt = dt[:, :7]
+    elif bad == "A_shape":
+        A = A[:3]
+    elif bad == "state":
+        Bm = Cm = torch.zeros((1, 8, MAX_STATE + 1))
+        A = torch.zeros((4, MAX_STATE + 1))
+    else:
+        x = torch.zeros((1, 8, 8))[..., ::2]
+    with pytest.raises(ValueError):
+        selective_scan(dt, Bm, Cm, x, A)
+
+
+def test_other_devices_raise():
+    dt, Bm, Cm, x, A = (t.to("meta") for t in _t(*_inputs(1, 8, 4, 2)))
+    with pytest.raises(ValueError, match="device"):
+        selective_scan(dt, Bm, Cm, x, A)
+
+
+def test_cpu_route_gradient_matches_the_reference():
+    """The CPU route keeps autograd (the CUDA op has no backward, as the
+    reference's Pallas kernel)."""
+    ins = _inputs(1, 12, 6, 4, seed=11)
+    tins = [t.requires_grad_() for t in _t(*ins[:4])] + _t(ins[4])
+    selective_scan(*tins).sum().backward()
+    want = jax.grad(lambda *a: jnp.sum(jscan_ref(*a)), argnums=(0, 1, 2, 3))(
+        *ins)
+    for t, g in zip(tins[:4], want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_build_names_the_kernel_source():
+    src = pathlib.Path(build.__file__).parent / build.SOURCES["selective_scan"]
+    assert src.name == "selective_scan.cu" and src.exists()
+    text = src.read_text()
+    assert re.search(r'extern "C" int selective_scan\(', text)
+    assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+    assert "--fmad=false" in build.NVCC_FLAGS
+    # the accurate expf: no fast exp, no fast-math build
+    assert "expf(" in text and "__expf(" not in text
+    assert not any("fast_math" in f for f in build.NVCC_FLAGS)
+    assert f"kMaxState = {MAX_STATE};" in text
+    # the ctypes signature: six pointers, five ints, the stream
+    assert len(sk._SIGNATURE) == 12
