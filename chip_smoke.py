@@ -17,7 +17,9 @@ these phases and fails (non-zero exit, no result line) on any error:
            and natural (auto plans: flat uplink, flat downlink);
   leafwise the same configuration (100 steps) with each of the seven
            compressors of the paper pinned to the leafwise transport both
-           ways, GPU against CPU;
+           ways, GPU against CPU: qsgd and natural launch their
+           explicit-noise kernel twice a fresh round, the other five
+           nothing;
   width    the trainer on the parameter tree of stablelm-1.6b at full
            width and 4 of its 24 layers (d = 411,060,224 per client,
            8 clients, a quadratic objective), once with the flat and once
@@ -57,7 +59,24 @@ these phases and fails (non-zero exit, no result line) on any error:
            serve phase above through the Mamba (and ring KV) caches,
            which runs no kernel;
   scan width  the kernel at both prefill shapes (E = 8192 and 1600)
-           against its bound and its plain version.
+           against its bound and its plain version;
+  dequantize  the two explicit-noise kernels of the leafwise codecs
+           (qsgd_dequantized, natural_compress_2d) against their plain
+           versions on the card and on the CPU at the CPU tests' shapes
+           (levels 1/7/127/255, zero buckets, ±0, subnormals, ±Inf, NaN,
+           carries; float32 and bfloat16);
+  train    stablelm-1.6b at full width and depth (24 layers, f32, remat
+           on, dense attention, random weights from seeded generators),
+           2 clients x one 4096-token sequence of the token stream:
+           build_train_step with leafwise natural, then leafwise QSGD,
+           both ways, forced xi [0, 1, 1, 0, 1]: exactly 44 launches of
+           the codec's kernel (2 fresh rounds x 11 leaves x 2 links) and
+           no other, finite losses, peak memory <= 70 GB, the bits
+           ledger; torch.profiler breakdowns of one local and one fresh
+           aggregation step;
+  train width  each codec's kernel on that run's largest leaf (2 x
+           276,824,064 elements) against its plain version and its
+           bound, and the threefry draw that feeds it.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -106,6 +125,23 @@ LEAFWISE = ("identity", "natural", "qsgd", "terngrad", "bernoulli", "randk",
             "topk")
 PAPER_LOSS_RTOL = 1e-3         # the paper phases' GPU-vs-CPU loss bound
 LEAFWISE_STEPS = 100           # per codec and device in the leafwise phase
+# the kernel each leafwise codec runs (the others run none)
+LEAFWISE_KERNELS = {"qsgd": "qsgd_dequantized",
+                    "natural": "natural_compress_2d"}
+DEQUANT_REPLACES = {
+    "qsgd_dequantized": "src/repro/kernels/qsgd/kernel.py:94",
+    "natural_compress_2d": "src/repro/kernels/natural/kernel.py:51",
+}
+DEQUANT_SOURCES = {"qsgd_dequantized": CUDA_SOURCE,
+                   "natural_compress_2d": NATURAL_SOURCE}
+# phase train: stablelm-1.6b at full width and depth, 2 clients, one
+# sequence of the train_4k length each (its batch of 256 cut to 1 a
+# client), the forced xi trace of the width phases
+TRAIN_CLIENTS, TRAIN_B, TRAIN_S = 2, 1, 4096
+TRAIN_XI = [0, 1, 1, 0, 1]
+TRAIN_PEAK = 70e9              # the memory limit of PERF.md section 2
+STABLELM_PARAMS = 1_438_746_624
+STABLELM_LEAVES = 11
 # stablelm-1.6b (repro/configs/stablelm_1_6b.py) at full width, 4 layers:
 # the leaf shapes of repro/models/model.py::init_params
 D_MODEL, D_FF, VOCAB, LAYERS = 2048, 5632, 100352, 4
@@ -424,8 +460,9 @@ def phase_paper_natural(dev):
 
 def phase_leafwise(dev):
     """Every compressor of the paper, leafwise both ways, GPU against CPU.
-    The leafwise codecs are plain PyTorch on the card (the reference has
-    no kernel for them): no hand-written kernel launches here."""
+    Leafwise QSGD and natural run the explicit-noise kernels (one launch
+    per leaf and link of a fresh round); the other five codecs are plain
+    PyTorch (the reference has no kernel for them) and launch nothing."""
     import torch
     from repro_torch.core import make_compressor, make_plan
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
@@ -439,9 +476,13 @@ def phase_leafwise(dev):
                  make_plan(comp, one, transport="leafwise"))
         reset_launches()
         gpu, gpu_loss, _ = paper_run(dev, comp, plans, LEAFWISE_STEPS)
-        check(not LAUNCHES, f"leafwise {name} launched {dict(LAUNCHES)}")
+        launches = dict(LAUNCHES)
         cpu, cpu_loss, _ = paper_run("cpu", comp, plans, LEAFWISE_STEPS)
         same_protocol(gpu, cpu, f"leafwise {name}")
+        # one leaf, two links: two launches a fresh round
+        want = {} if name not in LEAFWISE_KERNELS else \
+            {LEAFWISE_KERNELS[name]: 2 * gpu.n_agg_comm}
+        check(launches == want, f"leafwise {name} launched {launches}")
         if np.isfinite(cpu_loss):
             check(abs(gpu_loss - cpu_loss) <= PAPER_LOSS_RTOL * abs(cpu_loss),
                   f"leafwise {name}: final loss {gpu_loss} vs CPU {cpu_loss}")
@@ -1394,6 +1435,316 @@ def phase_scan_width(dev, launches):
     return row
 
 
+# --------------------------------------------------------------------------
+# the explicit-noise kernels of the leafwise codecs: small shapes
+# --------------------------------------------------------------------------
+
+def same_bits(a, b):
+    """Bit-for-bit equality of two float32 or bfloat16 tensors, except
+    that a NaN equals any NaN (the bfloat16 narrowing of a NaN may change
+    its payload)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].contiguous().view(view), b[~nan].contiguous().view(view))
+
+
+def phase_dequantize_small(dev):
+    """Both kernels against their plain versions at the CPU tests'
+    shapes: QSGD bit-exact given the kernel's norms (the sign of every
+    zero included), norms within NORM_ULPS of the plain sum, levels 1 / 7
+    / 127 / 255, zero buckets, float32 and bfloat16; natural bit-exact on
+    ±0, subnormals, ±Inf, NaN and the exponent-254 carry, both types."""
+    import torch
+    from repro_torch.kernels.natural.kernel import natural_compress_2d
+    from repro_torch.kernels.natural.ref import natural_compress_2d_ref
+    from repro_torch.kernels.qsgd.kernel import qsgd_dequantized
+    from repro_torch.kernels.qsgd.ref import (dequantize_with_noise,
+                                              qsgd_dequantized_ref)
+    rng = np.random.default_rng(6)
+    worst, calls = 0.0, 0
+    for nb, b in ((4, 128), (3, 2048), (2, 384), (3, 100), (5, 7)):
+        x = rng.normal(size=(nb, b)).astype(np.float32)
+        x[1] = 0.0
+        u = rng.random((nb, b), dtype=np.float32)
+        ud = torch.from_numpy(u).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = torch.from_numpy(x).to(dev).to(dtype)
+            for levels in (1, 7, 127, 255):
+                norms = torch.empty((nb, 1), device=dev)
+                got = qsgd_dequantized(xd, ud, levels=levels,
+                                       norms_out=norms)
+                want = qsgd_dequantized_ref(xd, ud, levels, norms=norms)
+                what = f"qsgd_dequantized ({nb}, {b}) {dtype} levels {levels}"
+                check(got.dtype == dtype and same_bits(got, want), what)
+                check(float(norms[1]) == 0.0 and not got[1].any(),
+                      f"{what}: zero bucket")
+                _, plain = dequantize_with_noise(xd, ud, levels)
+                worst = max(worst, ulps(plain, norms))
+                cpu = qsgd_dequantized_ref(xd.cpu(), ud.cpu(), levels,
+                                           norms=norms.cpu())
+                check(same_bits(got.cpu(), cpu), f"{what}: vs the CPU")
+                calls += 1
+    check(worst <= NORM_ULPS, f"bucket norms {worst} ulps from the plain sum")
+    for shape in ((3, 6, 128), (3, 2048), (7, 8), (5, 3)):
+        x = natural_buffer(rng, 1, 4, 2048).reshape(-1)[:np.prod(shape)] \
+            .reshape(shape)
+        u = rng.random(shape, dtype=np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = torch.from_numpy(x).to(dev).to(dtype)
+            ud = torch.from_numpy(u).to(dev)
+            got = natural_compress_2d(xd, ud)
+            what = f"natural_compress_2d {shape} {dtype}"
+            check(got.dtype == dtype and same_bits(
+                got, natural_compress_2d_ref(xd, ud)), what)
+            check(same_bits(got.cpu(), natural_compress_2d_ref(
+                xd.cpu(), ud.cpu())), f"{what}: vs the CPU")
+            calls += 1
+    torch.cuda.synchronize()
+    log(f"phase dequantize: {calls} kernel calls against the plain versions "
+        f"on the card and on the CPU: qsgd_dequantized bit-exact given its "
+        f"norms (norms within {worst:g} ulps of the plain sum, bound "
+        f"{NORM_ULPS}), natural_compress_2d bit-exact (±0, subnormals, ±Inf, "
+        "NaN, carries; float32 and bfloat16)")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phase train: stablelm-1.6b at full width and depth through the leafwise
+# train step
+# --------------------------------------------------------------------------
+
+def train_profile(fn):
+    """Run ``fn`` once under torch.profiler: (wall ms, {"gemm" |
+    "attention" | "draw" | "kernel" | "elementwise": device ms}, kernel
+    count).  "gemm" is every matrix product (the attention's included),
+    "attention" its softmax, "kernel" the hand-written kernels; "draw" is
+    the threefry draws' device time, bracketed by CUDA events around each
+    draw (one stream: nothing else runs in between), and comes out of the
+    elementwise kernels, which are the rest.  The device ms do not
+    overlap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import prng
+    draw, spans = prng._draw, []
+
+    def timed_draw(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = draw(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    prng._draw = timed_draw
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        prng._draw = draw
+    by_kind = {"gemm": 0.0, "attention": 0.0, "draw": 0.0, "kernel": 0.0,
+               "elementwise": 0.0}
+    count = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = "kernel" if ("qsgd_dequantized" in name
+                            or "natural_noise" in name) else \
+            "gemm" if "gemm" in name or "gemv" in name else \
+            "attention" if "softmax" in name else "elementwise"
+        by_kind[kind] += e.self_device_time_total / 1e3
+        count += e.count
+    by_kind["draw"] = min(sum(s.elapsed_time(e) for s, e in spans),
+                          by_kind["elementwise"])
+    by_kind["elementwise"] -= by_kind["draw"]
+    return wall_ms, by_kind, count
+
+
+def train_line(what, wall_ms, by_kind, count):
+    busy = sum(by_kind.values())
+    if not count:
+        return f"profile {what}: the profiler saw no device activity"
+    return (f"profile {what}: wall {wall_ms:.1f} ms, {count} kernels, device "
+            f"busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.1%}): " +
+            ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind.items()))
+
+
+def phase_train(dev, name):
+    """stablelm-1.6b at 24 layers and full width, 2 clients x one 4096-token
+    sequence, f32, remat on, dense attention: build_train_step with
+    leafwise ``name`` compression both ways, forced xi TRAIN_XI.  Every
+    leaf's codec runs the kernel: 2 fresh rounds x 11 leaves x 2 links =
+    44 launches and no other kernel.  Then one local and one fresh
+    aggregation step under the profiler.  Returns the trained stacked
+    params and the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import L2GDHyper, init_state, make_compressor
+    from repro_torch.core import make_plan, prng
+    from repro_torch.core.rollout import window_streams
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import TokenStream
+    from repro_torch.fl.ledger import BitsLedger
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_train_step, param_shapes
+    from repro_torch.launch.train import init_stacked_params
+    from repro_torch.models import param_count
+
+    cfg = get_config("stablelm-1.6b")
+    check(cfg.remat and cfg.attn_impl == "dense" and cfg.n_layers == 24,
+          "the train phase's configuration")
+    n = TRAIN_CLIENTS
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_s = timed(lambda: init_stacked_params(cfg, n, 0, dev))
+    check(param_count(params) == n * STABLELM_PARAMS, "parameter count")
+    check(len(tree_leaves(params)) == STABLELM_LEAVES, "leaf count")
+    stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
+                         seq=TRAIN_S)
+    batches = [{"tokens": torch.from_numpy(stream.batch_at(k)).to(dev)}
+               for k in range(len(TRAIN_XI) + 2)]
+    comp = make_compressor(name)
+    hp = L2GDHyper(eta=0.1, lam=0.5, p=0.2, n=n)    # the train CLI's
+    step = build_train_step(cfg, hp, comp, comp)
+    plan = make_plan(comp, param_shapes(cfg), transport="leafwise")
+    bits = plan.round_bits()
+    xis, keys = window_streams(prng.PRNGKey(0), hp.p, 0, len(TRAIN_XI) + 2,
+                               TRAIN_XI + [0, 1])
+    state = init_state(params)
+    del params
+    ledger = BitsLedger(n)
+    reset_launches()            # the train main path starts here
+    times, losses, branches = [], [], []
+    for k, xi in enumerate(TRAIN_XI):
+        (state, metrics), seconds = timed(
+            lambda: step(state, batches[k], xi, keys[k]))
+        times.append(seconds)
+        losses.append(float(metrics["loss"]))
+        branches.append(metrics["branch"])
+        if metrics["branch"] == 1:
+            ledger.record_round(bits, bits, step=k)
+    launches = dict(LAUNCHES)   # and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    kernel = LEAFWISE_KERNELS[name]
+    check(branches == [0, 1, 2, 0, 1], f"branches {branches}")
+    check(launches == {kernel: 2 * 2 * STABLELM_LEAVES},
+          f"train ({name}) launches {launches}")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(peak <= TRAIN_PEAK, f"peak {peak / 1e9:.2f} GB")
+    check(ledger.rounds == 2 and ledger.bits_per_client == 4 * bits,
+          "ledger")
+    for leaf in tree_leaves(state.params):
+        check(bool(torch.isfinite(leaf).all()), "non-finite params")
+    local = [t for t, b in zip(times, branches) if b == 0]
+    fresh = [t for t, b in zip(times, branches) if b == 1]
+    log(f"phase train ({name}): stablelm-1.6b, 24 layers, {n} clients x "
+        f"{STABLELM_PARAMS:,} params (init {init_s:.2f} s), B={TRAIN_B} "
+        f"S={TRAIN_S} a client, leafwise both ways; step seconds "
+        f"{[round(t, 3) for t in times]} (local {np.mean(local):.3f}, "
+        f"fresh aggregation {np.mean(fresh):.3f}, cached {times[2]:.3f}); "
+        f"losses {[round(v, 5) for v in losses]}; peak allocated "
+        f"{peak / 1e9:.2f} GB; bits/n {ledger.bits_per_client:.6e} "
+        f"({ledger.rounds} rounds x {bits:.0f} bits a message each way); "
+        f"launches {launches}")
+    for what, k in (("local step", 5), ("fresh aggregation step", 6)):
+        out = []
+        log(train_line(f"train ({name}) {what}", *train_profile(
+            lambda: out.append(step(state, batches[k], xis[k], keys[k])))))
+        state = out[0][0]
+    return state.params, launches
+
+
+def phase_train_width(dev, params, launches, name, norm_ulps):
+    """The phase's kernel on the run's largest leaf (w_gate, 2 x
+    276,824,064 elements) against its plain version and its bound, with
+    the draw that feeds it timed at two chunk sizes."""
+    import torch
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.kernels.natural.kernel import natural_compress_2d
+    from repro_torch.kernels.natural.ref import natural_compress_2d_ref
+    from repro_torch.kernels.qsgd.kernel import qsgd_dequantized
+    from repro_torch.kernels.qsgd.ref import (dequantize_with_noise,
+                                              qsgd_dequantized_ref)
+
+    x = params["layers"]["ffn"]["w_gate"]
+    keys = prng.split(prng.PRNGKey(9), x.shape[0])
+    shape = x.shape[1:] if name == "natural" else \
+        (x[0].numel() // 2048, 2048)
+    draw_ms, chunk = {}, prng.DRAW_CHUNK
+    try:
+        for c in (chunk // 4, chunk):
+            prng.DRAW_CHUNK = c
+            draw_ms[c] = time_ms(lambda: prng.tensor_uniform(keys, shape,
+                                                             dev),
+                                 reps=2, warmup=1)
+    finally:
+        prng.DRAW_CHUNK = chunk
+    noise = prng.tensor_uniform(keys, shape, dev)
+    kernel = LEAFWISE_KERNELS[name]
+    if name == "natural":
+        xs, us = x, noise
+        fn = lambda: natural_compress_2d(xs, us)
+        got = fn()
+        want = natural_compress_2d_ref(xs, us)
+        check(same_bits(got, want), "natural_compress_2d at width")
+        err = 0.0
+        plain_fn = lambda: natural_compress_2d_ref(xs, us)
+    else:
+        xs = flatbuf.bucketize(x.reshape(x.shape[0], -1), 2048) \
+            .reshape(-1, 2048)
+        us = noise.reshape(-1, 2048)
+        norms = torch.empty((xs.shape[0], 1), device=dev)
+        fn = lambda: qsgd_dequantized(xs, us, levels=127)
+        got = qsgd_dequantized(xs, us, levels=127, norms_out=norms)
+        want = qsgd_dequantized_ref(xs, us, 127, norms=norms)
+        check(same_bits(got, want), "qsgd_dequantized at width, given norms")
+        own, plain_norms = dequantize_with_noise(xs, us, 127)
+        norm_ulps = max(norm_ulps, ulps(plain_norms, norms))
+        check(norm_ulps <= NORM_ULPS, f"norms {norm_ulps} ulps at width")
+        err = float(torch.max(torch.abs(own - got)))
+        check(bool(torch.all(torch.abs(own - got)
+                             <= plain_norms / 127 * 1.000001)),
+              "qsgd_dequantized beyond one level of its plain version")
+        del own, plain_norms
+        plain_fn = lambda: qsgd_dequantized_ref(xs, us, 127)
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(fn, reps=25)
+    plain_ms = time_ms(plain_fn, reps=1, warmup=1)
+    nbytes = 12 * xs.numel()    # x and the noise read, y written
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # float32 operations per element: QSGD square and add (norm), abs,
+    # div, mul, floor, sub, compare, add, sign, two multiplies (11);
+    # natural mask, convert, multiply, compare, mask, add (6, int32)
+    ops_ms = (11 * xs.numel() / PEAK_F32_OPS_PER_S if name == "qsgd" else
+              6 * xs.numel() / PEAK_I32_OPS_PER_S) * 1e3
+    log(f"time {kernel} ({tuple(xs.shape)}, the largest leaf of the train "
+        f"run): {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms, "
+        f"{nbytes / 1e9:.3f} GB; {bytes_ms / ms:.0%} of the memory "
+        f"roofline); plain version {plain_ms:.1f} ms; its threefry noise "
+        f"draw " + ", ".join(f"{v:.1f} ms (chunk {c})"
+                             for c, v in draw_ms.items()) +
+        (f"; norms within {norm_ulps:g} ulps; max |kernel - plain| "
+         f"{err:.3g}" if name == "qsgd" else "; bit-exact"))
+    return {"name": kernel, "route": "cuda",
+            "source": DEQUANT_SOURCES[kernel],
+            "replaces": DEQUANT_REPLACES[kernel],
+            "launches": launches.get(kernel, 0), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1447,6 +1798,13 @@ def main():
         del params
         torch.cuda.empty_cache()
     rows.append(phase_scan_width(dev, prefill_launches["falcon-mamba-7b"]))
+    norm_ulps = phase_dequantize_small(dev)
+    for name in ("natural", "qsgd"):
+        params, launches = phase_train(dev, name)
+        rows.append(phase_train_width(dev, params, launches, name,
+                                      norm_ulps))
+        del params
+        torch.cuda.empty_cache()
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

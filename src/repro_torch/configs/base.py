@@ -81,7 +81,7 @@ class ArchConfig:
                                     # models/model.py falls back to dense
                                     # when a layer's mask is not plain
                                     # causal)
-    remat: bool = True              # no effect in the port (forward only)
+    remat: bool = True              # checkpoint each layer when training
     mlp_fused: bool = False         # fuse gate+up input projections (§Perf)
     remat_policy: str = "full"      # full | dots (dots_saveable: keep matmul
                                     # outputs -> bwd skips recomputing the TP

@@ -123,4 +123,6 @@ def compressed_average(key, params_stacked, client_comp, master_comp, *,
         plain = masked_client_mean(compressed, mask)
         ybar = tree_map(lambda p, g: torch.where(all_ok, p, g), plain,
                         guarded)
+        # the clients' compressed models leave before the downlink runs
+        del compressed, guarded, plain
     return down_plan.apply(k_master, ybar)

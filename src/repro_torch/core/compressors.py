@@ -25,6 +25,16 @@ unchanged only where its exponent field is 255; subnormals round (the
 reference's jitted jnp compares ``x == 0`` with denormals-are-zero and
 passes them through — ``repro_torch/kernels/natural/ref.py``).
 
+``QSGD.apply`` and natural compression run on the hand-written kernels
+of the explicit-noise TPU kernels (``kernels.qsgd.kernel.
+qsgd_dequantized``, ``kernels.natural.kernel.natural_compress_2d``) with
+the threefry draw as their noise: one launch per leaf and call, the
+client batch included; a CPU tensor runs their plain versions.
+``QSGD.apply`` equals ``decode(encode)`` in value; where x < 0 rounds to
+level 0 it gives -0.0 (the TPU kernel's sign), the payload's integer
+code +0.0.  The other five codecs are plain PyTorch: the reference has
+no kernel for them.
+
 QSGD and natural also run whole trees through the flat-buffer engine
 (:mod:`repro_torch.core.flatbuf`, one kernel launch per tree).
 """
@@ -41,8 +51,10 @@ from repro_torch.core.codec import (BernoulliPayload, DensePayload,
                                     NaturalPayload, QSGDPayload,
                                     SparsePayload, TernPayload, index_bits,
                                     spec_tensor)
-from repro_torch.kernels.bits import (bits_float, float_bits, natural_merge,
-                                      natural_split, pack_bits, unpack_bits)
+from repro_torch.kernels.bits import (natural_merge, natural_split,
+                                      pack_bits, unpack_bits)
+from repro_torch.kernels.natural.kernel import natural_compress_2d
+from repro_torch.kernels.qsgd.kernel import qsgd_dequantized
 from repro_torch.kernels.qsgd.ref import qsgd_unpack_ref, quantize_with_noise
 
 __all__ = ["Compressor", "Identity", "QSGD", "Natural", "TernGrad",
@@ -172,6 +184,23 @@ class QSGD(Compressor):
     def _code_dtype(self):
         return torch.int8 if self.levels <= 127 else torch.int16
 
+    def apply(self, key, x: torch.Tensor) -> torch.Tensor:
+        """``decode(encode(key, x))`` in one kernel launch: the buckets of
+        every client in the batch as the rows of one buffer, the noise
+        the encoder would draw."""
+        nb = _batch_dims(key)
+        batch, d = tuple(x.shape[:nb]), _nelem(tuple(x.shape[nb:]))
+        if d == 0:
+            return torch.zeros_like(x)
+        xp = flatbuf.bucketize(x.reshape(batch + (d,)).to(torch.float32),
+                               self.bucket)
+        noise = prng.tensor_uniform(key, xp.shape[nb:], x.device)
+        y = qsgd_dequantized(xp.reshape(-1, self.bucket).contiguous(),
+                             noise.reshape(-1, self.bucket),
+                             levels=self.levels)
+        return flatbuf.unbucketize(y.reshape(xp.shape), d) \
+            .reshape(x.shape).to(x.dtype)
+
     def _encode_flat(self, key, x):
         batch, d = tuple(x.shape[:-1]), x.shape[-1]
         if d == 0:
@@ -224,13 +253,8 @@ class Natural(Compressor):
     elementwise: bool = dataclasses.field(default=True, init=False)
 
     def _apply_flat(self, key, x):
-        bits = float_bits(x)
-        rbits = prng.tensor_bits(key, x.shape[_batch_dims(key):], x.device)
-        special = (bits & 0x7F800000) == 0x7F800000
-        # u < mantissa / 2^23 with u = (rbits >> 9) * 2^-23, both exact
-        up = ((rbits >> 9) < (bits & 0x7FFFFF)) & ~special
-        out = (bits & 0xFF800000) + (up.to(torch.int64) << 23)
-        return bits_float(torch.where(special, bits, out))
+        noise = prng.tensor_uniform(key, x.shape[_batch_dims(key):], x.device)
+        return natural_compress_2d(x.contiguous(), noise)
 
     def _encode_flat(self, key, x):
         exps, signs = natural_split(self._apply_flat(key, x))

@@ -20,12 +20,15 @@ in Python without reading anything back from the device.  ``grad_fn``
 takes the stacked params and the stacked batch and returns
 ``(losses (n,), grads_stacked)`` — the reference's per-client function
 under ``vmap``, written out over the client axis; it must return fresh
-gradient tensors.
+gradient tensors.  The aggregation branches need only the losses: an
+optional ``loss_fn(params, batch) -> losses (n,)`` gives them without a
+backward (the reference calls ``grad_fn`` there and XLA removes the dead
+backward; eager PyTorch would run it).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -125,13 +128,14 @@ def _mean_loss(losses: torch.Tensor) -> torch.Tensor:
 
 def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
               hp: L2GDHyper, client_comp=Identity(), master_comp=Identity(),
-              *, local_steps: int = 1):
+              *, local_steps: int = 1, loss_fn: Optional[Callable] = None):
     """One step of Algorithm 1.
 
     ``xi_k`` is this step's Bernoulli(p) draw (a host int), ``key`` the
     step's compressor key (two uint32 words).  ``local_steps`` is the
     LoCoDL burst H >= 1: a local step runs H gradient passes on its
-    batch; aggregation steps are unaffected.
+    batch; aggregation steps are unaffected.  ``loss_fn`` (optional)
+    gives the aggregation branches' losses under ``torch.no_grad``.
 
     Returns ``(new_state, {"loss": mean client loss at the PRE-update
     params (a 0-d device tensor), "branch": 0 | 1 | 2})``."""
@@ -148,9 +152,14 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
             del grads
         new_state = L2GDState(new_params, state.cache, 0, state.step + 1)
         return new_state, {"loss": _mean_loss(losses), "branch": 0}
-    # aggregation: the loss of the pre-update params; the gradients of
-    # this evaluation are dropped before the aggregation allocates
-    losses = grad_fn(state.params, batch)[0]
+    # aggregation: the loss of the pre-update params; without a loss_fn
+    # the gradients of this evaluation are dropped before the aggregation
+    # allocates
+    if loss_fn is None:
+        losses = grad_fn(state.params, batch)[0]
+    else:
+        with torch.no_grad():
+            losses = loss_fn(state.params, batch)
     if branch == 1:
         target = compressed_average(key, state.params, as_plan(client_comp),
                                     as_plan(master_comp))

@@ -74,12 +74,13 @@ def rollout_l2gd(key, state: L2GDState, hp: L2GDHyper, batches,
                  xi_trace: Optional[Any] = None, *, grad_fn: Callable,
                  steps: Optional[int] = None, client_comp=Identity(),
                  master_comp=Identity(), batch_axis: Optional[int] = 0,
-                 local_steps: int = 1):
+                 local_steps: int = 1, loss_fn: Optional[Callable] = None):
     """Run K steps of Algorithm 1 from ``state``.
 
     ``batches`` is a tree whose leaves carry a leading (K, ...) steps axis
     (``batch_axis=0``) or one batch reused every step (``batch_axis=None``).
-    ``xi_trace`` optionally forces the xi realization.  Returns
+    ``xi_trace`` optionally forces the xi realization; ``loss_fn`` is
+    :func:`~repro_torch.core.l2gd.l2gd_step`'s.  Returns
     ``(final_state, RolloutTrace)``; the losses stay on the device."""
     length = _rollout_length(batches, batch_axis, xi_trace, steps)
     xis, subs = window_streams(key, hp.p, state.step, length, xi_trace)
@@ -91,7 +92,7 @@ def rollout_l2gd(key, state: L2GDState, hp: L2GDHyper, batches,
             tree_map(lambda a: a[i], batches)
         state, metrics = l2gd_step(state, batch, int(xis[i]), subs[i],
                                    grad_fn, hp, client_comp, master_comp,
-                                   local_steps=local_steps)
+                                   local_steps=local_steps, loss_fn=loss_fn)
         losses[i] = metrics["loss"]
         branches[i] = metrics["branch"]
     return state, RolloutTrace(

@@ -93,7 +93,8 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
              mode: str = "scan", chunk: Optional[int] = None,
              xi_trace=None, participation: Optional[float] = None,
              faults=None, checkpoint_policy=None, resume_from=None,
-             local_steps: int = 1, device=None) -> L2GDRun:
+             local_steps: int = 1, loss_fn: Optional[Callable] = None,
+             device=None) -> L2GDRun:
     """Run Algorithm 1 for ``steps`` iterations on ``device`` (default
     ``cuda``; raises without a CUDA device unless one is named).
 
@@ -104,7 +105,9 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     ``batch_fn(step)`` the step's stacked batch (deterministic per step).
     ``plan`` is an uplink CompressionPlan or an (uplink, downlink) pair;
     ``xi_trace`` forces the protocol realization; ``eval_fn(params)`` runs
-    every ``eval_every`` steps (at chunk boundaries in scan mode)."""
+    every ``eval_every`` steps (at chunk boundaries in scan mode);
+    ``loss_fn(params, batch) -> losses (n,)`` (optional) gives the
+    aggregation steps' losses without a backward."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
     for name, value in (("participation", participation), ("faults", faults),
@@ -146,11 +149,11 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     if mode == "host":
         _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
                   down_plan, up_bits, down_bits, eval_fn, eval_every,
-                  xi_trace, local_steps)
+                  xi_trace, local_steps, loss_fn)
     else:
         _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
                   down_plan, up_bits, down_bits, eval_fn, eval_every, chunk,
-                  xi_trace, local_steps)
+                  xi_trace, local_steps, loss_fn)
     return run
 
 
@@ -164,7 +167,7 @@ def _take_state(run: L2GDRun):
 
 def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
               down_plan, up_bits, down_bits, eval_fn, eval_every, xi_trace,
-              local_steps):
+              local_steps, loss_fn):
     """Per-step reference loop: one blocking loss fetch per step."""
     xis, subs = window_streams(key, hp.p, 0, steps, xi_trace)
     xi_prev = 1  # Algorithm 1 input: xi_{-1} = 1
@@ -172,7 +175,8 @@ def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
         xi = int(xis[k])
         run.state, metrics = l2gd_step(_take_state(run), batch_at(k), xi,
                                        subs[k], grad_fn, hp, up_plan,
-                                       down_plan, local_steps=local_steps)
+                                       down_plan, local_steps=local_steps,
+                                       loss_fn=loss_fn)
         run.losses.append((k, float(metrics["loss"])))
         if xi == 0:
             run.n_local += 1
@@ -189,7 +193,7 @@ def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
 
 def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
               down_plan, up_bits, down_bits, eval_fn, eval_every, chunk,
-              xi_trace, local_steps):
+              xi_trace, local_steps, loss_fn):
     """Chunked rollout: the chunk boundary is the only place the host
     reads device data (losses, eval_fn)."""
     if chunk is None:
@@ -214,7 +218,8 @@ def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
         run.state, trace = rollout_l2gd(
             key, _take_state(run), hp, batches, forced, grad_fn=grad_fn,
             steps=length, client_comp=up_plan, master_comp=down_plan,
-            batch_axis=None if const else 0, local_steps=local_steps)
+            batch_axis=None if const else 0, local_steps=local_steps,
+            loss_fn=loss_fn)
 
         # the chunk boundary: ONE fetch of the losses
         losses = trace.losses.cpu().numpy()

@@ -1,7 +1,7 @@
 // Natural-compression kernels for Hopper (sm_90a): the batched wire
-// encode, the fused round-trip and the server's fused decode->reduce.
-// Plain C interface, loaded with ctypes by repro_torch/kernels/natural/
-// kernel.py and ops.py.
+// encode, the fused round-trip, the server's fused decode->reduce and the
+// explicit-noise rounding.  Plain C interface, loaded with ctypes by
+// repro_torch/kernels/natural/kernel.py and ops.py.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   natural_pack   <- repro/kernels/natural/kernel.py  natural_pack (on the
@@ -11,12 +11,15 @@
 //                     (_natural_fused_kernel, _round_to_pow2)
 //   natural_reduce <- repro/kernels/natural/ops.py     _natural_reduce_pallas
 //                     (_natural_reduce_kernel, _merge_tile)
+//   natural_compress_2d <- repro/kernels/natural/kernel.py natural_compress_2d
+//                     (_natural_kernel, _round_to_pow2 with the given noise)
 //
-// Bound: all three are streaming passes of a few integer operations per
+// Bound: all four are streaming passes of a few integer operations per
 // element (the counter hash is ~12), far below the card's
 // operations-per-byte ridge, so each is bound by device memory traffic:
 // pack reads 4 bytes and writes 9 bits per element, fused reads 4 and
-// writes 4, the reduce reads 9 bits per element and client and writes 4.
+// writes 4, the reduce reads 9 bits per element and client and writes 4,
+// compress_2d reads x and the noise (4 + 4) and writes 4.
 //
 // Design:
 //   * Rounding is integer work on the float32 bit pattern: zero the
@@ -35,6 +38,13 @@
 //     4-byte store per lane.  A lane's 4 signs are a nibble; even lanes
 //     take their odd neighbour's nibble by a shuffle and store the byte
 //     (bit j of byte k is element 8k + j).
+//   * compress_2d (the leafwise codec's kernel, noise drawn by the caller
+//     from threefry): elementwise over any contiguous buffer, float32
+//     (a float4 per lane where the buffer allows it) or bfloat16 (widened
+//     on load; the result, a power of two, Inf, NaN or zero, is exact in
+//     bfloat16).  The bump is u < mantissa * 2^-23, the reference's
+//     compare, with both sides exact in float32; the passthrough rule is
+//     the one above.
 //   * reduce: the TPU kernel's VMEM accumulator carried across a
 //     sequential client grid axis becomes a loop over clients 0..n-1
 //     inside each thread, the accumulators in registers: no atomics, O(d)
@@ -46,6 +56,7 @@
 //     kernel.  y = bitcast((sign << 31) | (exp << 23)) is a power of two,
 //     so y * w is exact; the sum is an explicit round-to-nearest add in
 //     client order, starting from client 0's term.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -139,6 +150,48 @@ natural_fused_kernel(const float4* __restrict__ x, float4* __restrict__ out,
                          fused_one(v.z, i0 + 2u, s0, s1),
                          fused_one(v.w, i0 + 3u, s0, s1));
   }
+}
+
+// the rounding of one value with the given uniform u: the exponent is
+// bumped iff u < mantissa * 2^-23 (both exact in float32); Inf and NaN
+// keep their bits
+__device__ __forceinline__ float noise_one(float v, float u) {
+  const uint32_t bits = __float_as_uint(v);
+  if (special(bits)) return v;
+  const float prob =
+      __fmul_rn(static_cast<float>(bits & 0x7FFFFFu), 1.1920928955078125e-07f);
+  return __uint_as_float((bits & 0xFF800000u) + (u < prob ? 1u << 23 : 0u));
+}
+
+__global__ void __launch_bounds__(kThreads)
+natural_noise_quad_kernel(const float4* __restrict__ x,
+                          const float4* __restrict__ u,
+                          float4* __restrict__ out, int64_t quads) {
+  for (int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       q < quads; q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 v = x[q];
+    const float4 r = u[q];
+    out[q] = make_float4(noise_one(v.x, r.x), noise_one(v.y, r.y),
+                         noise_one(v.z, r.z), noise_one(v.w, r.w));
+  }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+natural_noise_kernel(const T* __restrict__ x, const float* __restrict__ u,
+                     T* __restrict__ out, int64_t total) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    store(out + e, noise_one(widen(x[e]), u[e]));
 }
 
 // client i's term w_i * bitcast((sign << 31) | (exp << 23)) of element k
@@ -302,6 +355,27 @@ int natural_reduce(const uint8_t* exps, const uint8_t* signs,
     natural_reduce_quad_kernel<<<blocks_for(total / 4), kThreads, 0, st>>>(
         reinterpret_cast<const uint32_t*>(exps), signs, weights,
         reinterpret_cast<float4*>(out), n, total / 4);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (total) float32 (bf16 == 0) or bfloat16, u (total) float32 -> out
+// (total) of x's type
+int natural_compress_2d(const void* x, const float* u, void* out,
+                        int64_t total, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    natural_noise_kernel<__nv_bfloat16><<<blocks_for(total), kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), u,
+        static_cast<__nv_bfloat16*>(out), total);
+  } else if (total % 4 == 0 && aligned(x, 16) && aligned(u, 16) &&
+             aligned(out, 16)) {
+    natural_noise_quad_kernel<<<blocks_for(total / 4), kThreads, 0, st>>>(
+        static_cast<const float4*>(x), reinterpret_cast<const float4*>(u),
+        static_cast<float4*>(out), total / 4);
+  } else {
+    natural_noise_kernel<float><<<blocks_for(total), kThreads, 0, st>>>(
+        static_cast<const float*>(x), u, static_cast<float*>(out), total);
   }
   return static_cast<int>(cudaGetLastError());
 }

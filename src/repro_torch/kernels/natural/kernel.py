@@ -7,6 +7,8 @@ CUDA kernels in ``csrc/natural.cu``, the counterparts of
   natural_pack  — the wire encode: uint8 biased-exponent codes plus the
                   packed sign bitmap, batched over a leading client axis;
                   ``natural_merge`` of its output equals natural_fused
+  natural_compress_2d — the rounding with noise the caller gives (the
+                  leafwise codec's threefry draw), any contiguous shape
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version in ``ref.py`` (:mod:`repro_torch.kernels.dispatch`).
@@ -20,15 +22,19 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.natural.ref import natural_fused_ref, natural_pack_ref
+from repro_torch.kernels.natural.ref import (natural_compress_2d_ref,
+                                             natural_fused_ref,
+                                             natural_pack_ref)
 
-__all__ = ["natural_fused", "natural_pack"]
+__all__ = ["natural_compress_2d", "natural_fused", "natural_pack"]
 
-_P, _I64, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+_P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint32)
 _SIGNATURES = {
     "natural_pack": (_P, _P, _P, _P, _I64, _I64, _P),
     "natural_fused": (_P, _P, _U32, _U32, _I64, _P),
     "natural_reduce": (_P, _P, _P, _P, _I64, _I64, _P),
+    "natural_compress_2d": (_P, _P, _P, _I64, _I32, _P),
 }
 
 
@@ -105,3 +111,25 @@ def natural_pack(x: torch.Tensor, seeds):
     if not batched:
         return exps[0], signs[0]
     return exps, signs
+
+
+def natural_compress_2d(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Natural compression of a contiguous float32 or bfloat16 tensor of
+    any shape with the float32 uniform ``noise`` of its shape; returns
+    x's dtype."""
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 or bfloat16 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    check_wire(noise, torch.float32, x.dim(), "noise")
+    if noise.shape != x.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if not use_kernel(x, noise):
+        return natural_compress_2d_ref(x, noise)
+    out = torch.empty_like(x)
+    if x.numel():
+        launch("natural_compress_2d", x.device, x.data_ptr(),
+               noise.data_ptr(), out.data_ptr(), x.numel(),
+               int(x.dtype == torch.bfloat16))
+    return out

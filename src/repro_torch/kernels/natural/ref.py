@@ -31,7 +31,8 @@ from repro_torch.kernels.bits import (bits_float, float_bits, natural_merge,
                                       pack_bits, unpack_bits)
 from repro_torch.kernels.rng import counter_bits_2d
 
-__all__ = ["natural_fused_ref", "natural_pack_ref", "natural_reduce_ref"]
+__all__ = ["natural_compress_2d_ref", "natural_fused_ref",
+           "natural_pack_ref", "natural_reduce_ref"]
 
 
 def _rounded(x2d, seeds, row_offset):
@@ -42,6 +43,20 @@ def _rounded(x2d, seeds, row_offset):
     special = (bits & 0x7F800000) == 0x7F800000
     up = ((rbits >> 8) < ((bits & 0x7FFFFF) << 1)) & ~special
     return bits, (bits & 0xFF800000) + (up.to(torch.int64) << 23), special
+
+
+def natural_compress_2d_ref(x, noise):
+    """Natural compression of ``x`` (float32 or bfloat16, any shape) with
+    the float32 uniform ``noise`` of its shape: the exponent is bumped
+    where ``noise < mantissa * 2^-23`` (both sides exact in float32), the
+    passthrough rule above; the result in x's dtype (a power of two, a
+    zero, Inf or NaN: exact in bfloat16 too)."""
+    bits = float_bits(x)
+    special = (bits & 0x7F800000) == 0x7F800000
+    prob = (bits & 0x7FFFFF).to(torch.float32) * (1.0 / (1 << 23))
+    up = (noise < prob) & ~special
+    out = (bits & 0xFF800000) + (up.to(torch.int64) << 23)
+    return bits_float(torch.where(special, bits, out)).to(x.dtype)
 
 
 def natural_fused_ref(x2d, seeds, *, row_offset: int = 0):

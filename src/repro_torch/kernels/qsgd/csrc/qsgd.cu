@@ -1,17 +1,21 @@
-// QSGD kernels for Hopper (sm_90a): pack, fused, unpack and the server's
-// fused decode->reduce.  Plain C interface, loaded with ctypes by
-// repro_torch/kernels/qsgd/kernel.py and ops.py.
+// QSGD kernels for Hopper (sm_90a): pack, fused, unpack, the server's
+// fused decode->reduce and the explicit-noise quantize-dequantize.  Plain
+// C interface, loaded with ctypes by repro_torch/kernels/qsgd/kernel.py
+// and ops.py.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   qsgd_pack    <- repro/kernels/qsgd/kernel.py  qsgd_pack_pallas   (_qsgd_pack_kernel)
 //   qsgd_fused   <- repro/kernels/qsgd/kernel.py  qsgd_fused_pallas  (_qsgd_fused_kernel)
 //   qsgd_unpack  <- repro/kernels/qsgd/kernel.py  qsgd_unpack_pallas (_qsgd_unpack_kernel)
 //   qsgd_reduce  <- repro/kernels/qsgd/ops.py     _qsgd_reduce_pallas (_qsgd_reduce_kernel)
+//   qsgd_dequantized <- repro/kernels/qsgd/kernel.py qsgd_dequantized (_qsgd_kernel)
 //
-// Bound: all four are streaming passes that do a few operations per byte
+// Bound: all five are streaming passes that do a few operations per byte
 // (the counter hash is ~12 integer operations per element), far below
 // the card's operations-per-byte ridge, so each is bound by device
-// memory traffic: every input read once, every output written once.
+// memory traffic: every input read once, every output written once
+// (qsgd_dequantized: x and the noise read, y written, 12 bytes an
+// element in float32).
 //
 // Design:
 //   * pack / fused: one block per (bucket row, client).  Pass 1 sums x*x
@@ -33,12 +37,22 @@
 //     carried across a sequential client grid axis with a loop over
 //     clients 0..n-1 inside the thread, the accumulator in registers:
 //     one store, no atomics, O(d) state.
+//   * qsgd_dequantized (the leafwise codec's kernel, noise drawn by the
+//     caller from threefry): one block per bucket row, pass 1 a
+//     deterministic tree sum of x*x as above, pass 2 reads x (again, from
+//     L1/L2) and the noise once and writes y once.  float32 or bfloat16
+//     x (widened on load, y rounded back to nearest even), float32
+//     noise, any levels >= 1 (the leafwise codec allows int16 codes).
+//     sign(x) * q is formed as torch.sign(x) * q: -0.0 where x < 0 rounds
+//     to level 0, +0.0 for x = +-0.  The row's norm can be written out
+//     for the layered check (codes exact given the same norms).
 //   * Rounding: every operation is an explicit round-to-nearest
 //     intrinsic and the library is built with --fmad=false, so no
 //     multiply-add is contracted; results equal the plain PyTorch
 //     versions bit for bit given the same codes and norms.  The level
 //     scale norm / s is norm * float32(1 / s), as XLA compiles the
 //     reference's division by the constant s.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -299,6 +313,83 @@ qsgd_reduce_elem_kernel(const int8_t* __restrict__ codes,
   }
 }
 
+// widen on load / round back to nearest even on store
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// torch.sign(x) * q, scaled = |x| / safe * s, q the stochastic rounding
+// of scaled by the given uniform u
+__device__ __forceinline__ float quantize_signed(float x, float safe,
+                                                 float s, float u) {
+  const float scaled = __fmul_rn(__fdiv_rn(fabsf(x), safe), s);
+  const float lo = floorf(scaled);
+  const float q = __fadd_rn(lo, u < __fsub_rn(scaled, lo) ? 1.0f : 0.0f);
+  const float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  return __fmul_rn(sgn, q);
+}
+
+// One block per bucket row of b elements: y = sign(x) q (norm / s), zero
+// for a zero-norm row.  V = 4: float32 rows read and written as float4.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+qsgd_dequantized_kernel(const T* __restrict__ x, const float* __restrict__ u,
+                        T* __restrict__ out, float* __restrict__ norms,
+                        int64_t b, float s, float inv_s) {
+  __shared__ float smem[33];
+  const int64_t row = blockIdx.x;
+  const int64_t base = row * b;
+  float acc = 0.0f;
+  if constexpr (V == 4) {
+    const float4* x4 = reinterpret_cast<const float4*>(x + base);
+    for (int64_t j = threadIdx.x; j < b / 4; j += blockDim.x) {
+      const float4 v = x4[j];
+      acc = __fadd_rn(acc, __fmul_rn(v.x, v.x));
+      acc = __fadd_rn(acc, __fmul_rn(v.y, v.y));
+      acc = __fadd_rn(acc, __fmul_rn(v.z, v.z));
+      acc = __fadd_rn(acc, __fmul_rn(v.w, v.w));
+    }
+  } else {
+    for (int64_t c = threadIdx.x; c < b; c += blockDim.x) {
+      const float v = widen(x[base + c]);
+      acc = __fadd_rn(acc, __fmul_rn(v, v));
+    }
+  }
+  const float norm = __fsqrt_rn(block_sum(acc, smem));
+  const float safe = norm == 0.0f ? 1.0f : norm;
+  const float scale = __fmul_rn(norm, inv_s);
+  if constexpr (V == 4) {
+    const float4* x4 = reinterpret_cast<const float4*>(x + base);
+    const float4* u4 = reinterpret_cast<const float4*>(u + base);
+    float4* y4 = reinterpret_cast<float4*>(out + base);
+    for (int64_t j = threadIdx.x; j < b / 4; j += blockDim.x) {
+      const float4 v = x4[j];
+      const float4 r = u4[j];
+      float4 o;
+      o.x = norm == 0.0f ? 0.0f
+                         : __fmul_rn(quantize_signed(v.x, safe, s, r.x), scale);
+      o.y = norm == 0.0f ? 0.0f
+                         : __fmul_rn(quantize_signed(v.y, safe, s, r.y), scale);
+      o.z = norm == 0.0f ? 0.0f
+                         : __fmul_rn(quantize_signed(v.z, safe, s, r.z), scale);
+      o.w = norm == 0.0f ? 0.0f
+                         : __fmul_rn(quantize_signed(v.w, safe, s, r.w), scale);
+      y4[j] = o;
+    }
+  } else {
+    for (int64_t c = threadIdx.x; c < b; c += blockDim.x) {
+      const float q = quantize_signed(widen(x[base + c]), safe, s, u[base + c]);
+      store(out + base + c, norm == 0.0f ? 0.0f : __fmul_rn(q, scale));
+    }
+  }
+  if (norms != nullptr && threadIdx.x == 0) norms[row] = norm;
+}
+
 // float32(1 / levels): the reciprocal XLA multiplies by for norm / s
 float inv_levels(int levels) {
   return static_cast<float>(1.0 / static_cast<double>(levels));
@@ -403,6 +494,33 @@ int qsgd_reduce(const int8_t* codes, const float* norms, const float* weights,
   } else {
     qsgd_reduce_elem_kernel<<<stream_grid(nb * b), kMaxThreads, 0, st>>>(
         codes, norms, weights, out, n, nb, b, inv_s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (nb, b) float32 (bf16 == 0) or bfloat16, u (nb, b) float32 ->
+// out (nb, b) of x's type; norms (nb) float32 written when not null
+int qsgd_dequantized(const void* x, const float* u, void* out, float* norms,
+                     int64_t nb, int64_t b, int levels, int bf16,
+                     void* stream) {
+  if (nb > 2147483647LL || levels < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float s = static_cast<float>(levels);
+  const float inv_s = inv_levels(levels);
+  const unsigned int grid = static_cast<unsigned int>(nb);
+  if (bf16) {
+    qsgd_dequantized_kernel<__nv_bfloat16, 1><<<grid, row_threads(b), 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), u,
+        static_cast<__nv_bfloat16*>(out), norms, b, s, inv_s);
+  } else if (b % 4 == 0 && aligned(x, 16) && aligned(u, 16) &&
+             aligned(out, 16)) {
+    qsgd_dequantized_kernel<float, 4><<<grid, row_threads(b / 4), 0, st>>>(
+        static_cast<const float*>(x), u, static_cast<float*>(out), norms, b, s,
+        inv_s);
+  } else {
+    qsgd_dequantized_kernel<float, 1><<<grid, row_threads(b), 0, st>>>(
+        static_cast<const float*>(x), u, static_cast<float*>(out), norms, b, s,
+        inv_s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,14 @@
-"""QSGD pack / fused / unpack — wrappers of the CUDA kernels in
-``csrc/qsgd.cu``, the counterparts of ``repro.kernels.qsgd.kernel``.
+"""QSGD pack / fused / unpack / dequantized — wrappers of the CUDA
+kernels in ``csrc/qsgd.cu``, the counterparts of
+``repro.kernels.qsgd.kernel``.
 
   qsgd_fused   — quantize-dequantize one buffer in one launch
   qsgd_pack    — quantize to the int8 wire payload (codes + bucket
                  norms), batched over a leading client axis
   qsgd_unpack  — dequantize a payload; bit-exact vs qsgd_fused given the
                  same codes and norms
+  qsgd_dequantized — quantize-dequantize with noise the caller gives
+                 (the leafwise codec's threefry draw); any levels >= 1
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version in ``ref.py`` (:mod:`repro_torch.kernels.dispatch`).
@@ -19,10 +22,11 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.qsgd.ref import (qsgd_fused_ref, qsgd_pack_ref,
+from repro_torch.kernels.qsgd.ref import (dequantize_with_noise,
+                                          qsgd_fused_ref, qsgd_pack_ref,
                                           qsgd_unpack_ref)
 
-__all__ = ["qsgd_fused", "qsgd_pack", "qsgd_unpack"]
+__all__ = ["qsgd_dequantized", "qsgd_fused", "qsgd_pack", "qsgd_unpack"]
 
 _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_uint32)
@@ -31,6 +35,7 @@ _SIGNATURES = {
     "qsgd_fused": (_P, _P, _U32, _U32, _I64, _I64, _I32, _P),
     "qsgd_unpack": (_P, _P, _P, _I64, _I64, _I32, _P),
     "qsgd_reduce": (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    "qsgd_dequantized": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
 }
 
 
@@ -119,4 +124,42 @@ def qsgd_unpack(codes: torch.Tensor, norms: torch.Tensor, *,
         nb, b = codes.shape
         launch("qsgd_unpack", codes.device, codes.data_ptr(),
                norms.data_ptr(), out.data_ptr(), nb, b, int(levels))
+    return out
+
+
+def qsgd_dequantized(x2d: torch.Tensor, noise: torch.Tensor, *,
+                     levels: int = 127, norms_out=None) -> torch.Tensor:
+    """Quantize-dequantize a (n_buckets, bucket) float32 or bfloat16
+    buffer with the float32 uniform ``noise`` of its shape; returns x's
+    dtype.  ``norms_out`` (optional (n_buckets, 1) float32) receives the
+    bucket norms used, for the layered check against the plain version."""
+    if int(levels) < 1:
+        raise ValueError(f"levels={levels} must be >= 1")
+    if x2d.dtype not in (torch.float32, torch.bfloat16) or x2d.dim() != 2 \
+            or not x2d.is_contiguous():
+        raise ValueError(f"x2d must be a contiguous float32 or bfloat16 "
+                         f"tensor of 2 dims, got {x2d.dtype} "
+                         f"{tuple(x2d.shape)}")
+    _check_buffer(noise, 2, "noise")
+    if noise.shape != x2d.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} does not match x2d "
+                         f"{tuple(x2d.shape)}")
+    if norms_out is not None:
+        _check_buffer(norms_out, 2, "norms_out")
+        if norms_out.shape != (x2d.shape[0], 1):
+            raise ValueError(f"norms_out {tuple(norms_out.shape)} does not "
+                             f"match x2d {tuple(x2d.shape)}")
+    given = () if norms_out is None else (norms_out,)
+    if not use_kernel(x2d, noise, *given):
+        out, norms = dequantize_with_noise(x2d, noise, int(levels))
+        if norms_out is not None:
+            norms_out.copy_(norms)
+        return out
+    out = torch.empty_like(x2d)
+    if x2d.numel():
+        nb, b = x2d.shape
+        launch("qsgd_dequantized", x2d.device, x2d.data_ptr(),
+               noise.data_ptr(), out.data_ptr(),
+               None if norms_out is None else norms_out.data_ptr(), nb, b,
+               int(levels), int(x2d.dtype == torch.bfloat16))
     return out

@@ -25,8 +25,9 @@ import torch
 
 from repro_torch.kernels.rng import counter_uniform_2d
 
-__all__ = ["qsgd_fused_ref", "qsgd_pack_ref", "qsgd_unpack_ref",
-           "qsgd_reduce_ref", "quantize_with_noise", "level_scale"]
+__all__ = ["qsgd_dequantized_ref", "qsgd_fused_ref", "qsgd_pack_ref",
+           "qsgd_unpack_ref", "qsgd_reduce_ref", "quantize_with_noise",
+           "dequantize_with_noise", "level_scale"]
 
 
 def level_scale(norms, levels: int):
@@ -49,6 +50,25 @@ def quantize_with_noise(x2d, noise, levels: int, norms=None):
     return torch.sign(x) * q, norm
 
 
+def dequantize_with_noise(x2d, noise, levels: int, norms=None):
+    """(quantize-dequantize of ``x2d`` given ``noise``, in x's dtype;
+    bucket norms): ``sign(x) * q * (norm / s)``, zero-norm buckets 0.
+    Where x < 0 rounds to level 0 the value is -0.0, as in the
+    reference's Pallas kernel; its leafwise codec, which goes through
+    integer codes, gives +0.0 there."""
+    codes, norm = quantize_with_noise(x2d, noise, levels, norms)
+    out = codes * level_scale(norm, levels)
+    out = torch.where(norm == 0.0, torch.zeros_like(out), out)
+    return out.to(x2d.dtype), norm
+
+
+def qsgd_dequantized_ref(x2d, noise, levels: int = 127, norms=None):
+    """The explicit-noise kernel's function: quantize one (n_buckets,
+    bucket) buffer (float32 or bfloat16) with the float32 ``noise`` of
+    its shape, dequantize, cast back to x's dtype."""
+    return dequantize_with_noise(x2d, noise, levels, norms)[0]
+
+
 def _noise(x2d, seeds, row_offset):
     return counter_uniform_2d(seeds, x2d.shape, row_offset=row_offset,
                               device=x2d.device)
@@ -58,10 +78,8 @@ def qsgd_fused_ref(x2d, seeds, *, levels: int = 127, row_offset: int = 0,
                    norms=None):
     """Quantize-dequantize one (n_buckets, bucket) buffer with the
     counter noise of ``seeds``."""
-    codes, norm = quantize_with_noise(x2d, _noise(x2d, seeds, row_offset),
-                                      levels, norms)
-    out = codes * level_scale(norm, levels)
-    return torch.where(norm == 0.0, torch.zeros_like(out), out)
+    return qsgd_dequantized_ref(x2d, _noise(x2d, seeds, row_offset),
+                                levels, norms)
 
 
 def qsgd_pack_ref(x2d, seeds, *, levels: int = 127, row_offset: int = 0,

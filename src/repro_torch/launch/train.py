@@ -1,0 +1,176 @@
+"""Federated training entry point (one process) — the counterpart of
+``repro.launch.train``.
+
+Runs compressed L2GD (Algorithm 1) over n clients on heterogeneous
+synthetic token streams with the bits/n ledger, through
+:func:`repro_torch.fl.run_l2gd` with auto plans, as the reference's
+``driver`` engine does.  The clients' models start from
+``init_params`` with one seeded ``torch.Generator`` per client (the
+reference's ``jax.random`` init gives other numbers).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+      --clients 4 --steps 200 --compressor natural --p 0.2 --lam 0.5
+
+Runs on the GPU; ``main(argv, device="cpu")`` runs the plain PyTorch
+versions on the CPU.  The 2-D mesh engine and checkpoints raise and name
+the slices that bring them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core import L2GDHyper, make_compressor, prng
+from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.data import TokenStream
+from repro_torch.fl import run_l2gd
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.steps import stacked_grad_fn, stacked_loss_fn
+from repro_torch.models import init_params, param_count
+
+__all__ = ["build", "tokens_processed", "init_stacked_params", "main"]
+
+
+def build(cfg, overrides):
+    changes = {k: v for k, v in overrides.items() if v is not None}
+    return dataclasses.replace(cfg, **changes)
+
+
+def tokens_processed(n_local: int, n_agg: int, local_steps: int, n: int,
+                     batch: int, seq: int) -> int:
+    """Tokens put through the model by a run: every protocol step
+    forwards the full n x batch x seq token batch at least once (the
+    aggregation branches evaluate the pre-update loss), and local steps
+    run ``local_steps`` gradient passes over it."""
+    passes = n_local * int(local_steps) + n_agg
+    return passes * n * batch * seq
+
+
+def init_stacked_params(cfg, n: int, seed: int, device):
+    """n clients' ``init_params``, client i from a generator seeded
+    ``seed + i``, stacked over a leading client axis.  Each client's
+    tree is copied in and freed before the next is drawn."""
+    stacked = None
+    for i in range(n):
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        leaves, treedef = tree_flatten(init_params(gen, cfg, device))
+        if stacked is None:
+            stacked = [torch.empty((n,) + tuple(a.shape), dtype=a.dtype,
+                                   device=device) for a in leaves]
+        for dst, a in zip(stacked, leaves):
+            dst[i].copy_(a)
+        del leaves
+    return tree_unflatten(treedef, stacked)
+
+
+def main(argv=None, device=None):
+    """CLI entry point; returns the run's ``L2GDRun``.  ``argv``
+    (optional list) replaces ``sys.argv[1:]``; ``device`` is CUDA unless
+    the caller names another (the tests pass ``"cpu"``)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="stablelm-1.6b")
+    ap.add_argument("--full", action="store_true",
+                    help="use the full assigned config (default: reduced)")
+    ap.add_argument("--layers", type=int)
+    ap.add_argument("--d-model", type=int)
+    ap.add_argument("--d-ff", type=int)
+    ap.add_argument("--heads", type=int)
+    ap.add_argument("--kv-heads", type=int)
+    ap.add_argument("--vocab", type=int)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--eta", type=float, default=0.1)
+    ap.add_argument("--lam", type=float, default=0.5)
+    ap.add_argument("--p", type=float, default=0.2)
+    ap.add_argument("--compressor", default="natural")
+    ap.add_argument("--master-compressor", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="not ported yet (the checkpoint slice)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="not ported yet (the checkpoint slice)")
+    ap.add_argument("--ckpt-keep", type=int, default=0,
+                    help="not ported yet (the checkpoint slice)")
+    ap.add_argument("--resume", action="store_true",
+                    help="not ported yet (the checkpoint slice)")
+    ap.add_argument("--log-every", type=int, default=20)
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="gradient passes per LOCAL protocol step (wire "
+                         "bits per round unchanged)")
+    ap.add_argument("--engine", choices=("driver", "mesh2d"),
+                    default="driver",
+                    help="driver: run_l2gd (default); mesh2d: not ported "
+                         "yet (the multi-device launch slice)")
+    ap.add_argument("--model-shards", type=int, default=1)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default=None,
+                    help="override param+compute dtype")
+    ap.add_argument("--attn-impl", choices=("dense", "flash"), default=None,
+                    help="train-path attention (the flash kernel has no "
+                         "backward: training needs dense)")
+    args = ap.parse_args(argv)
+    if args.engine == "mesh2d" or args.model_shards != 1:
+        raise NotImplementedError(
+            "--engine mesh2d (the 2-D clients x model mesh) comes with the "
+            "multi-device launch slice (ROADMAP.md Queue 1 item 12)")
+    if args.ckpt or args.ckpt_every or args.ckpt_keep or args.resume:
+        raise NotImplementedError(
+            "--ckpt, --ckpt-every, --ckpt-keep and --resume come with the "
+            "checkpoint slice (ROADMAP.md Queue 1 item 10)")
+    device = resolve_device(device)
+
+    base = get_config(args.arch) if args.full \
+        else get_config(args.arch).reduced()
+    cfg = build(base, {"n_layers": args.layers, "d_model": args.d_model,
+                       "d_ff": args.d_ff, "n_heads": args.heads,
+                       "n_kv_heads": args.kv_heads,
+                       "vocab_size": args.vocab,
+                       "head_dim": None if args.d_model else base.head_dim,
+                       "param_dtype": args.dtype, "compute_dtype": args.dtype,
+                       "attn_impl": args.attn_impl})
+    n = args.clients
+    ts = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=args.batch,
+                     seq=args.seq, seed=args.seed)
+    params = init_stacked_params(cfg, n, args.seed, device)
+    print(f"arch={cfg.name} params/client={param_count(params) // n:,} "
+          f"clients={n}", flush=True)
+
+    hp = L2GDHyper(eta=args.eta, lam=args.lam, p=args.p, n=n)
+    comp = make_compressor(args.compressor)
+    mcomp = make_compressor(args.master_compressor or args.compressor)
+
+    t0 = time.time()
+    run = run_l2gd(prng.PRNGKey(args.seed + 3), params, stacked_grad_fn(cfg),
+                   hp, lambda k: {"tokens": ts.batch_at(k)}, args.steps,
+                   client_comp=comp, master_comp=mcomp,
+                   local_steps=args.local_steps,
+                   loss_fn=stacked_loss_fn(cfg), device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+
+    losses = run.losses
+    for i in range(0, len(losses), max(args.log_every, 1)):
+        k, l = losses[i]
+        print(f"step {k:5d}  client-mean loss {l:8.4f}")
+    if losses:
+        print(f"final loss {losses[-1][1]:.4f}  "
+              f"({np.mean([l for _, l in losses[-5:]]):.4f} tail-5 mean)")
+    toks = tokens_processed(run.n_local, run.n_agg_comm + run.n_agg_cached,
+                            args.local_steps, n, args.batch, args.seq)
+    print(f"steps/s={args.steps / dt:.2f}  tokens/s={toks / dt:.0f}  "
+          f"rounds={run.ledger.rounds}  "
+          f"bits/n={run.ledger.bits_per_client:.3e}  "
+          f"local={run.n_local} aggC={run.n_agg_comm} aggK={run.n_agg_cached}")
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,14 @@ the counterpart of ``repro.models.model`` for ``mixer`` in {"gqa",
 
 The parameter tree is the reference's: a dict with a leading layer axis
 on every leaf of ``params["layers"]``, the same keys.  The forward pass
-loops over the layers in Python (the reference scans; ``remat`` has no
-effect on a forward pass).  With ``attn_impl="flash"`` and no sliding
+loops over the layers in Python (the reference scans), each layer's
+weights one ``unbind`` of the stacked leaves (its backward stacks the
+layer gradients once; a per-layer ``select`` would build a zero tensor
+of the whole leaf for every layer).  When a backward will follow
+(autograd on, some parameter requiring grad) and ``cfg.remat`` is set,
+each layer body runs under ``torch.utils.checkpoint``: its activations
+are recomputed in the backward, as the reference's ``jax.checkpoint`` of
+the layer scan does.  With ``attn_impl="flash"`` and no sliding
 window every attention layer runs the flash-attention kernel and no
 (S, S) mask is built; every Mamba layer's scan runs the selective-scan
 kernel on the card (``models/mamba.py``).  MLA, MoE, frontends and the
@@ -26,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tree import tree_leaves
@@ -164,9 +171,30 @@ def _attn_impl_train(cfg: ArchConfig) -> str:
     return "dense"
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    return {key: _layer(val, i) if isinstance(val, dict) else val[i]
-            for key, val in stacked.items()}
+def _layers(stacked: dict, n: int) -> list:
+    """The n per-layer parameter dicts, one ``unbind`` per stacked leaf."""
+    parts = {key: _layers(val, n) if isinstance(val, dict) else val.unbind(0)
+             for key, val in stacked.items()}
+    return [{key: part[i] for key, part in parts.items()} for i in range(n)]
+
+
+def _remat(cfg: ArchConfig, params, x) -> bool:
+    """True when the layers are to be checkpointed: a backward follows
+    and ``cfg.remat`` asks for it.  Raises for what the port cannot train
+    yet."""
+    if not (torch.is_grad_enabled()
+            and any(a.requires_grad for a in tree_leaves(params))):
+        return False
+    if cfg.mixer != "gqa" and x.is_cuda:
+        raise NotImplementedError(
+            "training the Mamba and hybrid mixers on the card waits for the "
+            "Mamba training slice: the selective-scan kernel has no "
+            "backward (the reference trains through its chunked scan)")
+    if cfg.remat and cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (keep the matrix products' outputs) comes "
+            "with the multi-device launch slice; use remat_policy='full'")
+    return cfg.remat
 
 
 def _attention(cfg: ArchConfig, p: dict, x, positions, **kw):
@@ -206,6 +234,13 @@ def _apply_ffn(cfg: ArchConfig, lp: dict, x, kind: str):
     return x + blocks.mlp(lp["ffn"], h, cfg.activation)
 
 
+def _decoder_layer(cfg: ArchConfig, kind: LayerKind, lp: dict, x, positions,
+                   mask, impl):
+    h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + _apply_mixer(cfg, lp, h, positions, mask, impl)
+    return _apply_ffn(cfg, lp, x, kind.ffn)
+
+
 def hidden(params, cfg: ArchConfig, batch):
     """The decoder stack up to the final norm: (B, S, d_model) in the
     compute dtype.  ``forward`` unembeds all of it; the prefill step only
@@ -223,13 +258,15 @@ def hidden(params, cfg: ArchConfig, batch):
         if cfg.sliding_window is not None:
             local_mask = attn.causal_mask(S, S, cfg.sliding_window,
                                           device=x.device)
-    for i, kind in enumerate(layer_kinds(cfg)):
-        lp = _layer(params["layers"], i)
-        h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        x = x + _apply_mixer(cfg, lp, h, positions,
-                             global_mask if kind.is_global else local_mask,
-                             impl)
-        x = _apply_ffn(cfg, lp, x, kind.ffn)
+    remat = _remat(cfg, params, x)
+    for lp, kind in zip(_layers(params["layers"], cfg.n_layers),
+                        layer_kinds(cfg)):
+        mask = global_mask if kind.is_global else local_mask
+        if remat:
+            x = checkpoint(_decoder_layer, cfg, kind, lp, x, positions, mask,
+                           impl, use_reentrant=False)
+        else:
+            x = _decoder_layer(cfg, kind, lp, x, positions, mask, impl)
     return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -308,8 +345,8 @@ def decode_step(params, cfg: ArchConfig, caches, index, batch):
     x = blocks.embed(params["embed"], tokens).to(_DTYPES[cfg.compute_dtype])
     pos = torch.full(tokens.shape, index, dtype=torch.int64,
                      device=tokens.device)
-    for i, kind in enumerate(layer_kinds(cfg)):
-        lp = _layer(params["layers"], i)
+    layers = _layers(params["layers"], cfg.n_layers)
+    for i, (lp, kind) in enumerate(zip(layers, layer_kinds(cfg))):
         h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         out, caches[i] = _decode_mixer(cfg, lp, caches[i], h, pos, index,
                                        kind)
