@@ -42,10 +42,11 @@ these phases and fails (non-zero exit, no result line) on any error:
            build_serve_step into the KV caches, then 16 greedy tokens;
            decode logits held against forward's, the greedy tokens
            against forward's argmax on the extended sequences;
-  flash width  the kernel at the prefill shapes against its bound, its
-           plain version and scaled_dot_product_attention; then once at
-           the prefill_32k length, checked on the last 256 query rows of
-           two heads;
+  flash width  the kernel at the prefill shapes against the bound of its
+           route (three split-TF32 passes on the tensor cores) and the
+           CUDA-core float32 bound, its plain version and
+           scaled_dot_product_attention; then once at the prefill_32k
+           length, checked on the last 256 query rows of two heads;
   selective_scan  the scan kernel against its plain version on the card
            at the CPU tests' shapes and hymba's E = 1600 (ragged L and E,
            N = 4 / 8 / 16, f32 and bf16), and a backward through it raises;
@@ -59,7 +60,8 @@ these phases and fails (non-zero exit, no result line) on any error:
            serve phase above through the Mamba (and ring KV) caches,
            which runs no kernel;
   scan width  the kernel at both prefill shapes (E = 8192 and 1600)
-           against its bound and its plain version;
+           against its bound and its plain version, with its warps in
+           flight;
   dequantize  the two explicit-noise kernels of the leafwise codecs
            (qsgd_dequantized, natural_compress_2d) against their plain
            versions on the card and on the CPU at the CPU tests' shapes
@@ -94,6 +96,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+PEAK_TF32_OPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
+FLASH_PASSES = 3               # split-TF32 passes of each f32 product
 # int32 instructions: 64 INT32 lanes per SM and clock (half the FP32
 # lanes, Hopper white paper) x 132 SMs x 1.98 GHz boost
 PEAK_I32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -1148,12 +1152,18 @@ def phase_serve(dev, cfg, params, tokens):
 # --------------------------------------------------------------------------
 
 def flash_bound_ms(B, H, S, D):
-    """Causal (S = T): 4 D flops per visible pair over the f32 peak,
-    against q, k, v and the output read / written once."""
+    """Causal (S = T), f32 inputs: (pairs, route ms, CUDA-core ms, bytes
+    ms).  The kernel's route: 3 split-TF32 passes of 4 D flops per visible
+    pair on the tensor cores, or one exp a pair on the special-function
+    units if that is larger.  Beside it the CUDA-core float32 bound (4 D
+    flops a pair at 67 TFLOP/s), which only a design on the CUDA cores is
+    held to; and q, k, v and the output read / written once."""
     pairs = B * H * S * (S + 1) // 2
-    ops_ms = 4 * D * pairs / PEAK_F32_OPS_PER_S * 1e3
+    tf32_ms = FLASH_PASSES * 4 * D * pairs / PEAK_TF32_OPS_PER_S * 1e3
+    exp_ms = pairs / PEAK_SFU_OPS_PER_S * 1e3
+    f32_ms = 4 * D * pairs / PEAK_F32_OPS_PER_S * 1e3
     bytes_ms = 4 * B * S * H * D * 4 / PEAK_BYTES_PER_S * 1e3
-    return pairs, ops_ms, bytes_ms
+    return pairs, max(tf32_ms, exp_ms), f32_ms, bytes_ms
 
 
 def phase_flash_width(dev, launches):
@@ -1180,14 +1190,16 @@ def phase_flash_width(dev, launches):
     lib_err = float(torch.max(torch.abs(lib.transpose(1, 2) - out)))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), reps=10)
-    pairs, ops_ms, bytes_ms = flash_bound_ms(B, H, S, D)
+    pairs, ops_ms, f32_ms, bytes_ms = flash_bound_ms(B, H, S, D)
     log(f"time flash_attention (B={B} S=T={S} H={H} D={D} causal f32): "
-        f"{ms:.3f} ms (bound {ops_ms:.3f} ms: {pairs:,} pairs, "
-        f"{4 * D * pairs / 1e9:.1f} GFLOP; bytes {bytes_ms:.3f} ms; "
-        f"{ops_ms / ms:.0%} of the f32 roofline); plain version "
-        f"{plain_ms:.1f} ms; scaled_dot_product_attention {library_ms:.3f} ms"
-        f" (max |d| {lib_err:.3g} from the kernel); kernel vs plain max "
-        f"|d| {err:.3g}")
+        f"{ms:.3f} ms (route bound {ops_ms:.3f} ms: {pairs:,} pairs, "
+        f"{FLASH_PASSES} x {4 * D * pairs / 1e9:.1f} GFLOP of TF32 or "
+        f"{pairs:.3g} exps; bytes {bytes_ms:.3f} ms; {ops_ms / ms:.0%} of "
+        f"it; CUDA-core f32 bound {f32_ms:.3f} ms, the kernel at "
+        f"{ms / f32_ms:.2f}x it); plain version {plain_ms:.1f} ms; "
+        f"scaled_dot_product_attention {library_ms:.3f} ms (the kernel at "
+        f"{ms / library_ms:.2f}x it; max |d| {lib_err:.3g} from the "
+        f"kernel); kernel vs plain max |d| {err:.3g}")
     row = {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
            "replaces": FLASH_REPLACES,
            "launches": launches.get("flash_attention", 0),
@@ -1214,12 +1226,13 @@ def phase_flash_width(dev, launches):
             out[:, rows, h:h + 1] - want))))
     check(long_err <= FLASH_TOL, f"flash at 32k: {long_err:.3g}")
     check(bool(torch.isfinite(out).all()), "non-finite flash output at 32k")
-    pairs, ops_ms, bytes_ms = flash_bound_ms(1, H, LONG_S, D)
+    pairs, ops_ms, f32_ms, _ = flash_bound_ms(1, H, LONG_S, D)
     log(f"time flash_attention (B=1 S=T={LONG_S} H={H} D={D} causal f32): "
-        f"{long_ms:.2f} ms (bound {ops_ms:.2f} ms: {pairs:,} pairs, "
-        f"{4 * D * pairs / 1e12:.2f} TFLOP; {ops_ms / long_ms:.0%} of the "
-        f"f32 roofline); last {LONG_ROWS} query rows of heads 0 and {H - 1} "
-        f"vs the plain version max |d| {long_err:.3g}")
+        f"{long_ms:.2f} ms (route bound {ops_ms:.2f} ms: {pairs:,} pairs; "
+        f"{ops_ms / long_ms:.0%} of it; CUDA-core f32 bound {f32_ms:.2f} ms,"
+        f" the kernel at {long_ms / f32_ms:.2f}x it); last {LONG_ROWS} query"
+        f" rows of heads 0 and {H - 1} vs the plain version max |d| "
+        f"{long_err:.3g}")
     del q, k, v, out
     torch.cuda.empty_cache()
     return row
@@ -1396,6 +1409,7 @@ def scan_bound_ms(B, L, E, N, esize):
 def phase_scan_width(dev, launches):
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan.kernel import warps
     from repro_torch.kernels.selective_scan.ops import selective_scan_op
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1418,7 +1432,8 @@ def phase_scan_width(dev, launches):
         log(f"time selective_scan ({arch}: B={B} L={L} E={E} N={N} f32): "
             f"{ms:.3f} ms (bound {bound_ms:.3f} ms: bytes {bytes_ms:.3f}, "
             f"exps {exp_ms:.3f}, f32 {f32_ms:.3f}; {bound_ms / ms:.0%} of "
-            f"the roofline; {B * E // 32} warps); plain version "
+            f"the roofline; {warps(B, E, N)} warps in flight, "
+            f"{warps(B, E, N) / 132:.1f} an SM); plain version "
             f"{plain_s * 1e3:.1f} ms; kernel vs plain max |d| {err:.3g} = "
             f"{err / ulp_of(float(plain.abs().max())):.2f} ulps of max |y|")
         if row is None:     # the row's numbers: the falcon prefill shape

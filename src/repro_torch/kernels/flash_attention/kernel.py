@@ -27,13 +27,14 @@ from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.flash_attention.ref import (attn_scale,
                                                      flash_attention_ref)
 
-__all__ = ["HEAD_DIMS", "TILE", "flash_attention"]
+__all__ = ["HEAD_DIMS", "TILES", "flash_attention"]
 
 #: head dims the kernel is compiled for (the reference's tiles cover these)
 HEAD_DIMS = (64, 128, 256)
 
-#: query rows and keys of one tile of the kernel (BQ = BK in the source)
-TILE = 64
+#: head dim -> (query rows, keys) of the kernel's tiles (Tile<T, D>'s BQ
+#: and BK in the source; the same for float32 and bfloat16)
+TILES = {64: (128, 64), 128: (64, 32), 256: (64, 32)}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURE = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -60,13 +61,14 @@ def _check(q, k, v, window) -> None:
 
 
 def _check_layout(t: torch.Tensor, what: str) -> None:
-    """The kernel's 4-element vector loads: last axis contiguous, every
-    other stride a multiple of 4 elements, the base 4-element aligned."""
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
-            or t.data_ptr() % (4 * t.element_size()):
+    """The kernel's 16-byte copies (cp.async): last axis contiguous,
+    every other stride a multiple of 16 bytes, the base 16-byte aligned."""
+    per = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % per for s in t.stride()[:-1]) \
+            or t.data_ptr() % 16:
         raise ValueError(f"{what}: the kernel needs a contiguous last axis, "
-                         f"strides in multiples of 4 and a base aligned to 4 "
-                         f"elements, got strides {t.stride()}")
+                         f"strides in multiples of {per} elements and a base "
+                         f"aligned to 16 bytes, got strides {t.stride()}")
 
 
 def _plain(q, k, v, causal, window):
@@ -117,8 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (B, S, H, D), k / v (B, T, Kv, D) -> (B, S, H, D) in q.dtype.
-    The kernel masks ragged edges, so :data:`TILE` need not divide S or
-    T.  ``window``: query i attends key j iff i - j < window."""
+    The kernel masks ragged edges, so its :data:`TILES` need not divide
+    S or T.  ``window``: query i attends key j iff i - j < window."""
     _check(q, k, v, window)
     if not use_kernel(q, k, v):
         return _plain(q, k, v, causal, window)

@@ -1,8 +1,8 @@
 """Dispatched (B, S, H, D)-layout entry point with GQA — the counterpart
 of ``repro.kernels.flash_attention.ops``.
 
-A CUDA tensor launches the hand-written kernel, whose one tile fits the
-shared memory of a Hopper block at every head dim (the reference's
+A CUDA tensor launches the hand-written kernel, whose tiles are chosen
+per head dim to fit the shared memory of a Hopper block (the reference's
 ``autotune_attn_blocks`` sized its tiles to VMEM); a CPU tensor runs the
 GQA repeat and the dense plain version, the reference's route off the
 TPU.

@@ -24,10 +24,29 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
-__all__ = ["MAX_STATE", "selective_scan"]
+__all__ = ["LANES", "MAX_STATE", "lane_split", "warps", "selective_scan"]
 
 #: the largest state size N the kernel keeps in registers
 MAX_STATE = 16
+
+#: lanes of a warp a channel's states are spread over, at most (kLanes in
+#: the source)
+LANES = 8
+
+
+def lane_split(N: int) -> tuple:
+    """(lanes a channel, states a lane) at state size N, as ``Split<N>``
+    in the source: the power of two at or above N, at most
+    :data:`LANES`, and the states shared out over them."""
+    lanes = min(LANES, 1 << (N - 1).bit_length())
+    return lanes, -(-N // lanes)
+
+
+def warps(B: int, E: int, N: int) -> int:
+    """Warps a launch runs: blocks of 128 threads, 128 / lanes channels
+    each, over B batch rows."""
+    return B * -(-E // (128 // lane_split(N)[0])) * 4
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)

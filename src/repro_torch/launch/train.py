@@ -146,8 +146,11 @@ def main(argv=None, device=None):
     comp = make_compressor(args.compressor)
     mcomp = make_compressor(args.master_compressor or args.compressor)
 
+    # the reference's CLI passes key seed + 3 and the deprecated seed=
+    # seed + 4, which its run_l2gd folds into the key
+    key = prng.fold_in(prng.PRNGKey(args.seed + 3), args.seed + 4)
     t0 = time.time()
-    run = run_l2gd(prng.PRNGKey(args.seed + 3), params, stacked_grad_fn(cfg),
+    run = run_l2gd(key, params, stacked_grad_fn(cfg),
                    hp, lambda k: {"tokens": ts.batch_at(k)}, args.steps,
                    client_comp=comp, master_comp=mcomp,
                    local_steps=args.local_steps,

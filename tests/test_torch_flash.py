@@ -2,8 +2,8 @@
 PyTorch version (which the CUDA kernel is held to on the card) against
 the jitted ``flash_attention_ref`` and the Pallas kernel in interpret
 mode, the (B, S, H, D) GQA entry point against the reference's CPU
-route, the tile-skipping rule of the CUDA kernel, its tile's shared
-memory and the wrapper's checks.
+route, the CUDA kernel's split-TF32 products (emulated), its
+tile-skipping rule, its tiles' shared memory and the wrapper's checks.
 
 Tolerances: 2e-5 absolute and relative in float32, the reference's own
 bound for its kernel against its oracle (tests/test_kernels.py); the
@@ -150,12 +150,89 @@ def test_query_offset_selects_rows():
 
 
 # --------------------------------------------------------------------------
+# the CUDA kernel's split-TF32 products, emulated
+# --------------------------------------------------------------------------
+
+def _tf32(x, ties):
+    """float32 -> TF32 (10 mantissa bits), to nearest: ties away from
+    zero, as the kernel rounds (half a TF32 ulp added to the bits, as
+    cvt.rna.tf32.f32), or to even."""
+    u = x.view(torch.int32).long()
+    if ties == "away":
+        u = u + 0x1000
+    else:
+        u = u + 0xFFF + ((u >> 13) & 1)
+    return (u & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _mm(a, b, passes, ties):
+    """a @ b on TF32 operands, float32 accumulation: one pass, or the
+    kernel's three (small.big + big.small + big.big of x = big + small)."""
+    ab, bb = _tf32(a, ties), _tf32(b, ties)
+    if passes == 1:
+        return ab @ bb
+    as_, bs = _tf32(a - ab, ties), _tf32(b - bb, ties)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _tf32_attention(q, k, v, causal, window, passes, ties):
+    """(B, H, S, D) attention with the kernel's products: S = Q K^T and
+    O = P V in TF32 passes, the softmax in float32."""
+    S, D, T = q.shape[2], q.shape[3], k.shape[2]
+    s = _mm(q, k.transpose(-1, -2), passes, ties) * attn_scale(D)
+    qi, kj = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= qi - kj < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    return _mm(p, v, passes, ties) / p.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("H,S,D,causal,window", [
+    (2, 128, 64, True, None),
+    (2, 96, 64, True, 24),
+    (1, 128, 128, True, None),
+    (1, 80, 128, False, 32),
+])
+def test_split_tf32_holds_the_float32_tolerance(H, S, D, causal, window):
+    """Three TF32 passes (the kernel's products) stay within TOL of the
+    jitted float32 reference, with either rounding of the split; one pass
+    (plain TF32) misses it."""
+    q, k, v = _qkv(S + D + 1, (1, H, S, D), (1, H, S, D))
+    want = np.asarray(_jref(q, k, v, causal=causal, window=window))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    for ties in ("away", "even"):
+        got = _tf32_attention(tq, tk, tv, causal, window, 3, ties).numpy()
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+        # measured: within 2e-6, as close as two float32 orders of summation
+        assert np.max(np.abs(got - want)) < 2e-6
+    one = _tf32_attention(tq, tk, tv, causal, window, 1, "even").numpy()
+    assert np.max(np.abs(one - want)) > 10 * TOL
+
+
+def test_tf32_rounding_emulation():
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      1 + 2 ** -11 + 2 ** -20], dtype=torch.float32)
+    # ties at 1 + 2^-11 (half of 2^-10): away rounds up, even rounds down;
+    # 1 + 3 * 2^-11 ties to the even 1 + 2^-9 both ways
+    assert _tf32(x, "away").tolist() == [1.0, 1 + 2 ** -10, 1 + 2 ** -9,
+                                         -(1 + 2 ** -10), 1 + 2 ** -10]
+    assert _tf32(x, "even").tolist() == [1.0, 1.0, 1 + 2 ** -9, -1.0,
+                                         1 + 2 ** -10]
+    big = _tf32(x, "away")
+    assert torch.equal(big + _tf32(x - big, "away"), x)
+
+
+# --------------------------------------------------------------------------
 # the CUDA kernel's tile skipping, emulated tile by tile in float32
 # --------------------------------------------------------------------------
 
 def _kv_tiles(q0, bq, S, T, bk, causal, window, skip):
     """The KV tiles flash_attention.cu visits for the query tile at q0
-    (its tiles are bq = bk = fk.TILE; smaller ones test the rule more
+    (its tiles are fk.TILES[D]; smaller ones test the rule more
     finely)."""
     q_last = min(q0 + bq, S) - 1
     begin, end = 0, -(-T // bk)
@@ -207,7 +284,7 @@ def _streamed(q, k, v, causal, window, bq, bk, skip):
 ])
 def test_tile_skipping_changes_no_value(S, T, causal, window):
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, (S, 64), (T, 64)))
-    for bq, bk in ((fk.TILE, fk.TILE), (32, 32)):
+    for bq, bk in (fk.TILES[64], fk.TILES[128], (32, 32)):
         skipped = _streamed(q, k, v, causal, window, bq, bk, skip=True)
         walked = _streamed(q, k, v, causal, window, bq, bk, skip=False)
         assert torch.equal(skipped, walked)
@@ -228,18 +305,35 @@ _CU = pathlib.Path(fk.__file__).parent / "csrc" / "flash_attention.cu"
 
 @pytest.mark.parametrize("D", fk.HEAD_DIMS)
 def test_one_tile_fits_shared_memory_at_every_head_dim(D):
-    """The kernel's one tile, staged in float32 (Q and K rows padded by 4,
-    V unpadded, P rows padded by 16), fits the 227 KB of dynamic shared
-    memory of a Hopper block at every head dim; the source holds the same
-    bound in a static_assert."""
+    """The kernel's tiles at head dim D (fk.TILES, Tile<T, D> in the
+    source): Q staged once in float32 (rows padded by 4), two stages of K
+    and V raw (rows padded by 16 bytes).  Every (D, dtype) fits the 227 KB
+    of dynamic shared memory of a Hopper block, and D = 64 leaves room for
+    two blocks an SM; the source holds both in static_asserts."""
     src = _CU.read_text()
-    assert re.search(rf"constexpr int BQ = {fk.TILE}, BK = {fk.TILE};", src)
-    assert "static_assert(Tile<256>::kSmem <= kSmemPerBlock" in src
-    t = fk.TILE
-    smem = 4 * (t * (D + 4) + t * (D + 4) + t * D + t * (t + 16))
-    assert smem <= 227 * 1024
+    bq, bk = fk.TILES[D]
+    assert "constexpr int kWarps64 = 4;" in src
+    assert "constexpr int kMTiles64 = 2;" in src
+    assert "constexpr int MT = D == 64 ? kMTiles64 : 1;" in src
+    assert "constexpr int BK = D == 64 ? 64 : 32;" in src
+    assert bq == 4 * 16 * (2 if D == 64 else 1) and bk == (64 if D == 64
+                                                           else 32)
+    assert "static_assert(Tile<float, 256>::kSmem <= kSmemPerBlock" in src
+    assert "static_assert(Tile<float, 64>::kSmem <= kSmemPerBlock / 2" in src
+    for esize in (4, 2):
+        smem = bq * (D + 4) * 4 + 2 * 2 * bk * (D + 16 // esize) * esize
+        assert smem <= 227 * 1024
+        if D == 64:
+            assert smem <= 227 * 1024 // 2
     if D == 256:
-        assert smem == 219_136
+        assert bq * (D + 4) * 4 + 4 * bk * (D + 4) * 4 == 199_680
+    # the route: TF32 MMAs from operands rounded half away (_tf32's
+    # "away"), the profiler's kernel name
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "return __float_as_uint(x) + 0x1000u;" in src
+    assert "tf32_operand(x) & 0xFFFFE000u" in src and "cp.async" in src
+    assert re.search(r"__global__ void __launch_bounds__\(Tile<T, D>::"
+                     r"kThreads\)\s+flash_fwd\(", src)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed", "gqa",
@@ -273,6 +367,12 @@ def test_kernel_layout_check():
     with pytest.raises(ValueError):
         fk._check_layout(torch.zeros(2 * 8 * 4 * 64 + 1)[1:]
                          .reshape(2, 8, 4, 64), "q")
+    # bf16: 16-byte copies need strides in multiples of 8 elements
+    fk._check_layout(torch.zeros(2, 8, 12 * 64, dtype=torch.bfloat16)
+                     [..., 64:320].reshape(2, 8, 4, 64), "q")
+    with pytest.raises(ValueError):   # a row stride of 260 elements
+        fk._check_layout(torch.zeros(2, 8, 260, dtype=torch.bfloat16)
+                         [..., :256].reshape(2, 8, 4, 64), "q")
 
 
 def test_other_devices_raise():

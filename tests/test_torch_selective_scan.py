@@ -125,6 +125,85 @@ def test_plain_matches_reference_chunked_scan():
     assert _rel(got, want) < PLAIN_TOL
 
 
+# --------------------------------------------------------------------------
+# the CUDA kernel's order of y's N-term sum, emulated
+# --------------------------------------------------------------------------
+
+#: chip_smoke.py's bound between the kernel and its plain version: 16
+#: float32 ulps of max |y| (the two differ only in the order of y's sum)
+SCAN_ULPS = 16
+
+
+def _tree_sum(terms):
+    """Sum over the last axis (N) in the kernel's order: lane j of a
+    channel's group adds its states j*SPL .. j*SPL+SPL-1 in order, then
+    the lanes' partials meet in the xor tree of offsets LANES/2, ..., 1
+    (states past N are zero)."""
+    N = terms.shape[-1]
+    lanes, spl = sk.lane_split(N)
+    pad = lanes * spl - N
+    t = torch.nn.functional.pad(terms, (0, pad)).reshape(
+        *terms.shape[:-1], lanes, spl)
+    part = t[..., 0]
+    for s in range(1, spl):
+        part = part + t[..., s]
+    while part.shape[-1] > 1:
+        half = part.shape[-1] // 2
+        part = part[..., :half] + part[..., half:]
+    return part[..., 0]
+
+
+def _tree_scan(dt, Bm, Cm, x, A):
+    """The plain version's state trajectory with y summed as the kernel
+    sums it."""
+    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]))
+    ys = torch.empty(x.shape)
+    for t in range(x.shape[1]):
+        dt_t = dt[:, t]
+        decay = torch.exp(dt_t[..., None] * A[None])
+        drive = (dt_t * x[:, t])[..., None] * Bm[:, t, None, :]
+        h = decay * h + drive
+        ys[:, t] = _tree_sum(h * Cm[:, t, None, :])
+    return ys
+
+
+def test_lane_split_matches_the_source():
+    """kernel.py's copy of the source's Split<N>: lanes a channel, states
+    a lane, and the warps at the prefill shapes."""
+    src = (pathlib.Path(build.__file__).parent
+           / build.SOURCES["selective_scan"]).read_text()
+    assert f"constexpr int kLanes = {sk.LANES};" in src
+    assert [sk.lane_split(n) for n in (1, 2, 3, 5, 8, 9, 12, 16)] == [
+        (1, 1), (2, 1), (4, 1), (8, 1), (8, 1), (8, 2), (8, 2), (8, 2)]
+    assert sk.warps(2, 8192, 16) == 4096      # falcon-mamba-7b
+    assert sk.warps(2, 1600, 16) == 800       # hymba-1.5b
+    # at N = 16 two states a lane, p_j = t_2j + t_2j+1, then
+    # ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)): 2^24 + 1 is lost
+    # where the order puts 1 beside 2^24 alone
+    t = torch.zeros(16)
+    t[0], t[1], t[8] = 2.0 ** 24, 1.0, 1.0
+    assert float(_tree_sum(t)) == 2.0 ** 24
+    t[1], t[9] = 0.0, 1.0
+    assert float(_tree_sum(t)) == 2.0 ** 24 + 2
+
+
+@pytest.mark.parametrize("B,L,E,N,chunk,eblk",
+                         SWEEP + [(2, 40, 1600, 16, 16, 64)])
+def test_kernel_sum_order_holds_the_ulp_bound(B, L, E, N, chunk, eblk):
+    """The kernel's y (the plain trajectory, y's sum in its tree order)
+    against the Pallas kernel in interpret mode and against the plain
+    version, within SCAN_ULPS float32 ulps of max |y|; the sweep and
+    hymba-1.5b's E = 1600."""
+    ins = _inputs(B, L, E, N, seed=L + 2)
+    want = np.asarray(jscan_op(*ins, chunk=chunk, e_blk=eblk,
+                               interpret=True))
+    got = _tree_scan(*_t(*ins)).numpy()
+    plain = selective_scan_ref(*_t(*ins)).numpy()
+    for ref in (want, plain):
+        ulp = float(np.spacing(np.float32(np.max(np.abs(ref)))))
+        assert np.max(np.abs(got - ref)) <= SCAN_ULPS * ulp
+
+
 def test_cpu_route_takes_the_plain_version():
     ins = _t(*_inputs(2, 20, 12, 16, seed=3))
     want = selective_scan_ref(*ins)

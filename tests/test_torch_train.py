@@ -23,6 +23,7 @@ exact.
 """
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -40,6 +41,7 @@ from repro.core import compressors as jcomp
 from repro.core import init_state as jinit_state
 from repro.fl.ledger import BitsLedger as JLedger
 from repro.launch import steps as jsteps
+from repro.launch import train as jtrain
 from repro.models import init_params as jinit_params
 from repro.models import loss_fn as jloss_fn
 from repro_torch.configs import get_config
@@ -338,6 +340,27 @@ def test_train_cli_runs_on_the_cpu(name, capsys):
     bits = make_plan(make_compressor(name),
                      steps.param_shapes(cfg)).round_bits()
     assert run.ledger.bits_per_client == 2 * bits * run.ledger.rounds
+
+
+_PROTOCOL = re.compile(r"rounds=(\d+)\s+bits/n=(\S+)\s+local=(\d+) "
+                       r"aggC=(\d+) aggK=(\d+)")
+
+
+def test_train_cli_draws_the_reference_protocol(capsys):
+    """The same flags give the reference's CLI and the port's the same
+    protocol: xi trace, rounds, local / fresh / cached counts and bits/n.
+    The reference folds its deprecated ``seed=`` (seed + 4) into the key
+    seed + 3; at 16 steps a key without the fold draws another trace
+    (4 rounds against the reference's 3)."""
+    argv = CLI + ["--steps", "16", "--compressor", "qsgd"]
+    with pytest.warns(DeprecationWarning, match="seed="):
+        jtrain.main(argv)
+    want = _PROTOCOL.search(capsys.readouterr().out)
+    run = ttrain.main(argv, device="cpu")
+    got = _PROTOCOL.search(capsys.readouterr().out)
+    assert want and got and got.groups() == want.groups()
+    assert (run.ledger.rounds, run.n_local, run.n_agg_comm,
+            run.n_agg_cached) == tuple(int(want[i]) for i in (1, 3, 4, 5))
 
 
 @pytest.mark.parametrize("extra", [["--engine", "mesh2d"],
