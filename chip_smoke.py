@@ -49,7 +49,13 @@ these phases and fails (non-zero exit, no result line) on any error:
            length, checked on the last 256 query rows of two heads;
   selective_scan  the scan kernel against its plain version on the card
            at the CPU tests' shapes and hymba's E = 1600 (ragged L and E,
-           N = 4 / 8 / 16, f32 and bf16), and a backward through it raises;
+           N = 4 / 8 / 16, f32 and bf16), its state checkpoints against
+           the plain trajectory, and a bfloat16 backward raises;
+  selective_scan backward  the backward kernel against the plain
+           backward on the same operands at those shapes and hymba's
+           E = 1600 with ragged L and E: each gradient within 2e-5 x max
+           |plain|, two launches bit-identical, and the autograd op on the
+           card giving the kernel's gradients;
   mamba    falcon-mamba-7b (64 Mamba layers) and then hymba-1.5b (32
            hybrid layers: sliding-window dense attention beside Mamba) at
            full width and depth, f32, random weights from a seeded
@@ -78,7 +84,22 @@ these phases and fails (non-zero exit, no result line) on any error:
            aggregation step;
   train width  each codec's kernel on that run's largest leaf (2 x
            276,824,064 elements) against its plain version and its
-           bound, and the threefry draw that feeds it.
+           bound, and the threefry draw that feeds it;
+  train (Mamba)  hymba-1.5b at full width and depth (32 hybrid layers,
+           leafwise natural) and falcon-mamba-7b at full width and 8 of
+           its 64 layers (leafwise QSGD), as the train phase: the scan
+           forward 2 clients x layers x (5 steps + 2 local recomputes),
+           its backward 2 clients x layers x 2 local steps, the codec 2 x
+           leaves x 2; profiles with the scan's shares;
+  scan backward width  the backward kernel at both train shapes (B = 1,
+           L = 4096, E = 1600 / 8192) against the plain backward, twice
+           bit for bit, timed against its bound, the plain backward and
+           the plain route (autograd through the chunked scan, one
+           layer); the forward timed with and without checkpoints;
+  model grad  a 2-layer hymba-1.5b at full width on 512 tokens: the
+           card's loss and gradient (the scan kernels) against the CPU's
+           (the chunked scan under autograd) from the same params, each
+           leaf within 1e-4 x its max.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -168,6 +189,36 @@ SCAN_CASES = [   # B, L, E, N: tests/test_kernels.py's sweep, hymba's E
 PEAK_SFU_OPS_PER_S = 132 * 16 * 1.98e9
 MAMBA_PARAMS = {"falcon-mamba-7b": 7_006_326_784,
                 "hymba-1.5b": 1_352_246_400}
+# the scan's backward: each gradient within GRAD_RTOL of
+# tests/test_torch_train.py, x max |plain|, at the forward's small shapes
+# and hymba's width with ragged L and E
+SCAN_BWD_RTOL = 2e-5
+SCAN_BWD_CASES = SCAN_CASES + [(2, 129, 1605, 16)]
+SCAN_GRADS = ("ddt", "dB", "dC", "dx", "dA")
+# the reference's gradient of the scan is XLA's autodiff of this function
+SCAN_BWD_REPLACES = "src/repro/models/mamba.py:75"
+# float32 operations of one state update in the backward: the state
+# recomputed (dt*A, dx*B, decay*h, + drive), the reverse step (g*C,
+# + carry, dh*h, *decay, *dt, + dA, *A, + sum, dh*B, + sum, dh*dx, g*h,
+# decay*dh) and the sums over E of dB's and dC's terms
+SCAN_BWD_OPS = 19
+# phases train (Mamba): hymba-1.5b at full width and depth; falcon-mamba-7b
+# at full width and 8 of its 64 layers (two clients' f32 params, cache and
+# gradients at 64 layers exceed the card's 80 GB)
+MAMBA_TRAIN = (("hymba-1.5b", None, "natural"),
+               ("falcon-mamba-7b", 8, "qsgd"))
+TRAIN_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
+                ("hymba-1.5b", None): 1_352_246_400,
+                ("falcon-mamba-7b", 8): 1_108_840_448}
+# phase model grad: 2-layer hymba-1.5b at full width, one sequence of 512
+# tokens, the card's gradient (the scan kernels) against the CPU's (the
+# chunked scan under autograd) from the same params: max |d| over max
+# |cpu| of each leaf.  The bound is a choice, set before the first run:
+# the two sum the matrix products (K up to 5504) in other orders and the
+# scans round differently (2.4e-7 of y, tests/test_torch_mamba.py), and
+# the reduced models' gradients hold 2e-5 against jax.grad on the CPU
+MODEL_GRAD_LAYERS, MODEL_GRAD_S = 2, 512
+MODEL_GRAD_RTOL = 1e-4
 
 
 def log(msg):
@@ -1269,8 +1320,9 @@ def phase_scan_small(dev):
     import torch
     from repro_torch.kernels.selective_scan.kernel import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import kernel as sk
     gen = torch.Generator(device=dev)
-    worst, worst_bf16, n = 0.0, 0.0, 0
+    worst, worst_bf16, worst_h, n = 0.0, 0.0, 0.0, 0
     for B, L, E, N in SCAN_CASES:
         gen.manual_seed(L * 1000 + E)
         dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
@@ -1291,19 +1343,33 @@ def phase_scan_small(dev):
                 check(u <= 1.0, f"{what}: {u:.2f} bf16 ulps at |y| {at:.3g}")
                 worst_bf16 = max(worst_bf16, u)
             n += 1
-    x = torch.randn((1, 8, 4), device=dev).requires_grad_()
+        # the launch that keeps the state checkpoints: the same y, and
+        # the plain trajectory's states
+        y, h = sk._launch(dt, Bm, Cm, x, A, ckpt=True)
+        py, ph = selective_scan_ref(dt, Bm, Cm, x, A,
+                                    ckpt_chunk=sk.ckpt_chunk(N))
+        check(torch.equal(y, selective_scan(dt, Bm, Cm, x, A)),
+              "the checkpointing launch changed y")
+        err = float(torch.max(torch.abs(h - ph)))
+        check(h.shape == ph.shape and err <= scan_bound(ph),
+              f"checkpoints B{B} L{L} E{E} N{N}: max |d| {err:.3g}")
+        worst_h = max(worst_h, err / ulp_of(float(ph.abs().max())))
+    x = torch.randn((1, 8, 4), device=dev).to(torch.bfloat16)
+    x.requires_grad_()
     try:
-        selective_scan(x, torch.ones((1, 8, 2), device=dev),
-                       torch.ones((1, 8, 2), device=dev), x,
+        selective_scan(x, torch.ones((1, 8, 2), device=dev).bfloat16(),
+                       torch.ones((1, 8, 2), device=dev).bfloat16(), x,
                        -torch.ones((4, 2), device=dev)).sum().backward()
     except NotImplementedError:
         pass
     else:
-        raise AssertionError("a backward through the scan op did not raise")
+        raise AssertionError("a bfloat16 backward through the scan op did "
+                             "not raise")
     log(f"phase selective_scan: {n} kernel calls against the plain version "
         f"on the card (f32 within {worst:.2f} ulps of max |y|, bound "
-        f"{SCAN_ULPS}; bf16 within {worst_bf16:.2f} bf16 ulp); backward "
-        "raises")
+        f"{SCAN_ULPS}; bf16 within {worst_bf16:.2f} bf16 ulp); the state "
+        f"checkpoints within {worst_h:.2f} ulps of max |h|; a bfloat16 "
+        "backward raises")
 
 
 # --------------------------------------------------------------------------
@@ -1451,6 +1517,157 @@ def phase_scan_width(dev, launches):
 
 
 # --------------------------------------------------------------------------
+# the scan's backward: small shapes, then the train shapes
+# --------------------------------------------------------------------------
+
+def scan_bwd_compare(what, got, want):
+    """The largest of max |kernel - plain| / max |plain| over the five
+    gradients, and the largest max |kernel - plain|; fails past
+    SCAN_BWD_RTOL or on a non-finite value."""
+    import torch
+    worst_rel, worst_abs = 0.0, 0.0
+    for name, a, b in zip(SCAN_GRADS, got, want):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{what} {name}: shape or non-finite")
+        err = float(torch.max(torch.abs(a - b))) if a.numel() else 0.0
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        rel = err / scale if scale else err
+        check(rel <= SCAN_BWD_RTOL, f"{what} {name}: max |d| {err:.3g} = "
+              f"{rel:.3g} x max |plain| > {SCAN_BWD_RTOL}")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+    return worst_rel, worst_abs
+
+
+def phase_scan_bwd_small(dev):
+    """The backward kernel against the plain backward on the same
+    operands (the kernel forward's checkpoints), twice bit for bit, and
+    the autograd op on the card against the kernel's own output."""
+    import torch
+    from repro_torch.kernels.selective_scan import kernel as sk
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    gen = torch.Generator(device=dev)
+    worst = 0.0
+    for B, L, E, N in SCAN_BWD_CASES:
+        gen.manual_seed(L * 1000 + E + 7)
+        dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
+        g = torch.randn((B, L, E), generator=gen, device=dev)
+        _, h = sk._launch(dt, Bm, Cm, x, A, ckpt=True)
+        got = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
+        again = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
+        torch.cuda.synchronize()
+        what = f"selective_scan_bwd B{B} L{L} E{E} N{N}"
+        check(all(same_bits(a, b) for a, b in zip(got, again)),
+              f"{what}: two launches differ")
+        want = selective_scan_bwd_ref(dt, Bm, Cm, x, A, h, g,
+                                      sk.ckpt_chunk(N))
+        worst = max(worst, scan_bwd_compare(what, got, want)[0])
+        ins = [t.clone().requires_grad_() for t in (dt, Bm, Cm, x, A)]
+        sk.selective_scan(*ins).backward(g)
+        check(all(same_bits(t.grad, a) for t, a in zip(ins, got)),
+              f"{what}: the autograd op's gradients are not the kernel's")
+    log(f"phase selective_scan backward: {len(SCAN_BWD_CASES)} shapes, each "
+        f"gradient within {worst:.3g} x max |plain| of the plain backward "
+        f"(bound {SCAN_BWD_RTOL}); two launches bit-identical; the autograd "
+        "op on the card gives the kernel's gradients")
+
+
+def scan_bwd_bound_ms(B, L, E, N, chunk):
+    """(bytes ms, exp ms, f32 ms) of the backward: dt, x, g, Bm, Cm, A
+    and the checkpoints read once, ddt, dx, dB, dC and dA written once;
+    one exp and SCAN_BWD_OPS float32 operations a state update."""
+    updates = B * L * E * N
+    nbytes = 4 * (5 * B * L * E + 4 * B * L * N + 2 * E * N
+                  + B * -(-L // chunk) * E * N)
+    return (nbytes / PEAK_BYTES_PER_S * 1e3,
+            updates / PEAK_SFU_OPS_PER_S * 1e3,
+            SCAN_BWD_OPS * updates / PEAK_F32_OPS_PER_S * 1e3)
+
+
+def chunked_route_seconds(dt, Bm, Cm, x, A, g, chunk):
+    """One layer's scan forward and backward the plain way: autograd
+    through models/mamba.py's chunked scan (called directly: on the card
+    the model takes the kernels)."""
+    import torch
+    from repro_torch.models.mamba import selective_scan_chunked
+    ins = [t.detach().clone().requires_grad_() for t in (dt, Bm, Cm, x, A)]
+    h0 = torch.zeros((x.shape[0], x.shape[2], A.shape[1]), device=x.device)
+
+    def run():
+        y, _ = selective_scan_chunked(*ins, h0, chunk)
+        return torch.autograd.grad(y, ins, g)
+
+    grads, seconds = timed(run)
+    del grads, ins
+    return seconds
+
+
+def phase_scan_bwd_width(dev, launches):
+    """The backward kernel at both train shapes (B = 1, L = 4096): against
+    the plain backward, twice bit for bit, timed against its bound, the
+    plain backward and the plain route; the forward timed with and without
+    the checkpoints, in turns.  Returns the kernels line's row (the
+    shape of hymba-1.5b, whose train run at full depth gave ``launches``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import kernel as sk
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    row = None
+    for arch in MAMBA_PARAMS:
+        cfg = get_config(arch)
+        B, L, E, N = TRAIN_B, TRAIN_S, cfg.d_inner, cfg.ssm_state
+        chunk = sk.ckpt_chunk(N)
+        dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
+        g = torch.randn((B, L, E), generator=gen, device=dev)
+        fwd = {False: [], True: []}
+        for ckpt in (False, True, True, False):
+            fwd[ckpt].append(time_ms(
+                lambda: sk._launch(dt, Bm, Cm, x, A, ckpt=ckpt), reps=25))
+        _, h = sk._launch(dt, Bm, Cm, x, A, ckpt=True)
+        got = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
+        again = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(got, again)),
+              f"selective_scan_bwd at {arch}'s train shape: two launches "
+              "differ")
+        ms = time_ms(lambda: sk._launch_bwd(dt, Bm, Cm, x, A, h, g), reps=25)
+        want, plain_s = timed(lambda: selective_scan_bwd_ref(
+            dt, Bm, Cm, x, A, h, g, chunk))
+        rel, err = scan_bwd_compare(f"selective_scan_bwd at {arch}'s train "
+                                    "shape", got, want)
+        del got, again, want
+        torch.cuda.empty_cache()
+        route_s = chunked_route_seconds(dt, Bm, Cm, x, A, g, cfg.scan_chunk)
+        torch.cuda.empty_cache()
+        bytes_ms, exp_ms, f32_ms = scan_bwd_bound_ms(B, L, E, N, chunk)
+        ops_ms = max(exp_ms, f32_ms)
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"time selective_scan_bwd ({arch}: B={B} L={L} E={E} N={N} f32): "
+            f"{ms:.3f} ms (bound {bound_ms:.3f} ms: bytes {bytes_ms:.3f}, "
+            f"exps {exp_ms:.3f}, f32 {f32_ms:.3f}; {bound_ms / ms:.0%} of the "
+            f"roofline; {sk.blocks(E, N)} blocks a row); plain backward "
+            f"{plain_s * 1e3:.1f} ms; the plain route (autograd through the "
+            f"chunked scan, chunk {cfg.scan_chunk}, one layer's forward and "
+            f"backward) {route_s * 1e3:.1f} ms; kernel vs plain within "
+            f"{rel:.3g} x max |plain| (max |d| {err:.3g}); two launches "
+            f"bit-identical; forward without / with checkpoints "
+            f"{', '.join(f'{t:.3f}' for t in fwd[False])} / "
+            f"{', '.join(f'{t:.3f}' for t in fwd[True])} ms")
+        if arch == "hymba-1.5b":
+            row = {"name": "selective_scan_bwd", "route": "cuda",
+                   "source": SCAN_SOURCE, "replaces": SCAN_BWD_REPLACES,
+                   "launches": launches.get("selective_scan_bwd", 0),
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+                   "bound_ms": bound_ms,
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes",
+                   "library_ms": None}
+        del dt, Bm, Cm, x, A, g, h
+        torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------
 # the explicit-noise kernels of the leafwise codecs: small shapes
 # --------------------------------------------------------------------------
 
@@ -1534,13 +1751,14 @@ def phase_dequantize_small(dev):
 
 def train_profile(fn):
     """Run ``fn`` once under torch.profiler: (wall ms, {"gemm" |
-    "attention" | "draw" | "kernel" | "elementwise": device ms}, kernel
-    count).  "gemm" is every matrix product (the attention's included),
-    "attention" its softmax, "kernel" the hand-written kernels; "draw" is
-    the threefry draws' device time, bracketed by CUDA events around each
-    draw (one stream: nothing else runs in between), and comes out of the
-    elementwise kernels, which are the rest.  The device ms do not
-    overlap."""
+    "attention" | "draw" | "kernel" | "scan" | "scan_bwd" |
+    "elementwise": device ms}, kernel count).  "gemm" is every matrix
+    product (the attention's included), "attention" its softmax, "kernel"
+    the codecs' hand-written kernels, "scan" and "scan_bwd" the selective
+    scan's forward and backward kernels; "draw" is the threefry draws'
+    device time, bracketed by CUDA events around each draw (one stream:
+    nothing else runs in between), and comes out of the elementwise
+    kernels, which are the rest.  The device ms do not overlap."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import prng
@@ -1567,7 +1785,7 @@ def train_profile(fn):
     finally:
         prng._draw = draw
     by_kind = {"gemm": 0.0, "attention": 0.0, "draw": 0.0, "kernel": 0.0,
-               "elementwise": 0.0}
+               "scan": 0.0, "scan_bwd": 0.0, "elementwise": 0.0}
     count = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1575,6 +1793,9 @@ def train_profile(fn):
         name = e.key.lower()
         kind = "kernel" if ("qsgd_dequantized" in name
                             or "natural_noise" in name) else \
+            "scan_bwd" if ("scan_bwd_kernel<" in name
+                           or "sum_middle" in name) else \
+            "scan" if "scan_kernel<" in name else \
             "gemm" if "gemm" in name or "gemv" in name else \
             "attention" if "softmax" in name else "elementwise"
         by_kind[kind] += e.self_device_time_total / 1e3
@@ -1591,17 +1812,24 @@ def train_line(what, wall_ms, by_kind, count):
         return f"profile {what}: the profiler saw no device activity"
     return (f"profile {what}: wall {wall_ms:.1f} ms, {count} kernels, device "
             f"busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.1%}): " +
-            ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind.items()))
+            ", ".join(f"{k} {v:.1f} ms ({v / wall_ms:.1%})"
+                      for k, v in by_kind.items()
+                      if v or k not in ("scan", "scan_bwd")))
 
 
-def phase_train(dev, name):
-    """stablelm-1.6b at 24 layers and full width, 2 clients x one 4096-token
-    sequence, f32, remat on, dense attention: build_train_step with
-    leafwise ``name`` compression both ways, forced xi TRAIN_XI.  Every
-    leaf's codec runs the kernel: 2 fresh rounds x 11 leaves x 2 links =
-    44 launches and no other kernel.  Then one local and one fresh
-    aggregation step under the profiler.  Returns the trained stacked
-    params and the launch counts."""
+def phase_train(dev, name, arch="stablelm-1.6b", layers=None):
+    """``arch`` at full width (and ``layers`` of its layers, all by
+    default), 2 clients x one 4096-token sequence, f32, remat on, dense
+    attention: build_train_step with leafwise ``name`` compression both
+    ways, forced xi TRAIN_XI.  Every leaf's codec runs the kernel: 2 fresh
+    rounds x leaves x 2 links launches (44 for stablelm-1.6b).  A Mamba
+    or hybrid model also runs the scan: its forward once a layer and
+    client for each step's loss and again in each local step's recompute
+    (remat), its backward once a layer and client in each local step; no
+    other kernel runs.  Then one local and one fresh aggregation step
+    under the profiler.  Returns the trained stacked params and the
+    launch counts."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import L2GDHyper, init_state, make_compressor
@@ -1615,14 +1843,18 @@ def phase_train(dev, name):
     from repro_torch.launch.train import init_stacked_params
     from repro_torch.models import param_count
 
-    cfg = get_config("stablelm-1.6b")
-    check(cfg.remat and cfg.attn_impl == "dense" and cfg.n_layers == 24,
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    check(cfg.remat and cfg.attn_impl == "dense",
           "the train phase's configuration")
     n = TRAIN_CLIENTS
     torch.cuda.reset_peak_memory_stats(dev)
     params, init_s = timed(lambda: init_stacked_params(cfg, n, 0, dev))
-    check(param_count(params) == n * STABLELM_PARAMS, "parameter count")
-    check(len(tree_leaves(params)) == STABLELM_LEAVES, "leaf count")
+    n_params = TRAIN_PARAMS[(arch, layers)]
+    check(param_count(params) == n * n_params, "parameter count")
+    leaves = len(tree_leaves(params))
+    check(arch != "stablelm-1.6b" or leaves == STABLELM_LEAVES, "leaf count")
     stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
                          seq=TRAIN_S)
     batches = [{"tokens": torch.from_numpy(stream.batch_at(k)).to(dev)}
@@ -1651,8 +1883,13 @@ def phase_train(dev, name):
     peak = torch.cuda.max_memory_allocated(dev)
     kernel = LEAFWISE_KERNELS[name]
     check(branches == [0, 1, 2, 0, 1], f"branches {branches}")
-    check(launches == {kernel: 2 * 2 * STABLELM_LEAVES},
-          f"train ({name}) launches {launches}")
+    want = {kernel: 2 * 2 * leaves}
+    if cfg.mixer != "gqa":      # every layer of both families has a scan
+        local = branches.count(0)
+        want["selective_scan"] = n * cfg.n_layers * (len(TRAIN_XI) + local)
+        want["selective_scan_bwd"] = n * cfg.n_layers * local
+    check(launches == want, f"train {arch} ({name}) launches {launches}, "
+          f"the path implies {want}")
     check(all(np.isfinite(losses)), f"losses {losses}")
     check(peak <= TRAIN_PEAK, f"peak {peak / 1e9:.2f} GB")
     check(ledger.rounds == 2 and ledger.bits_per_client == 4 * bits,
@@ -1661,8 +1898,8 @@ def phase_train(dev, name):
         check(bool(torch.isfinite(leaf).all()), "non-finite params")
     local = [t for t, b in zip(times, branches) if b == 0]
     fresh = [t for t, b in zip(times, branches) if b == 1]
-    log(f"phase train ({name}): stablelm-1.6b, 24 layers, {n} clients x "
-        f"{STABLELM_PARAMS:,} params (init {init_s:.2f} s), B={TRAIN_B} "
+    log(f"phase train ({name}): {arch}, {cfg.n_layers} layers, {n} clients x "
+        f"{n_params:,} params (init {init_s:.2f} s), B={TRAIN_B} "
         f"S={TRAIN_S} a client, leafwise both ways; step seconds "
         f"{[round(t, 3) for t in times]} (local {np.mean(local):.3f}, "
         f"fresh aggregation {np.mean(fresh):.3f}, cached {times[2]:.3f}); "
@@ -1672,7 +1909,7 @@ def phase_train(dev, name):
         f"launches {launches}")
     for what, k in (("local step", 5), ("fresh aggregation step", 6)):
         out = []
-        log(train_line(f"train ({name}) {what}", *train_profile(
+        log(train_line(f"train {arch} ({name}) {what}", *train_profile(
             lambda: out.append(step(state, batches[k], xis[k], keys[k])))))
         state = out[0][0]
     return state.params, launches
@@ -1760,6 +1997,77 @@ def phase_train_width(dev, params, launches, name, norm_ulps):
             "library_ms": None}
 
 
+# --------------------------------------------------------------------------
+# phase model grad: the card's gradient of a 2-layer hymba-1.5b at full
+# width against the CPU's
+# --------------------------------------------------------------------------
+
+def phase_model_grad(dev):
+    """One client's loss and gradient of hymba-1.5b at full width and
+    MODEL_GRAD_LAYERS layers on one sequence of MODEL_GRAD_S tokens: on
+    the card through the scan kernels (forward, remat's recompute,
+    backward), on the CPU through the chunked scan under autograd, from
+    the same params.  Each leaf within MODEL_GRAD_RTOL x its max."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              n_layers=MODEL_GRAD_LAYERS)
+    params = init_params(torch.Generator(device=dev).manual_seed(3), cfg)
+    leaves, treedef = tree_flatten(params)
+    names = tree_flatten(_key_paths(params))[0]
+    del params
+    tokens = torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=1,
+        seq=MODEL_GRAD_S).batch_at(0)[0]).long()
+
+    def grads(device):
+        own = [a.detach().to(device).requires_grad_() for a in leaves]
+        loss, _ = loss_fn(tree_unflatten(treedef, own), cfg,
+                          {"tokens": tokens.to(device)})
+        return loss.detach(), torch.autograd.grad(loss, own)
+
+    reset_launches()
+    (loss, got), gpu_s = timed(lambda: grads(dev))
+    launches = dict(LAUNCHES)
+    want_launches = {"selective_scan": cfg.n_layers * (2 if cfg.remat else 1),
+                     "selective_scan_bwd": cfg.n_layers}
+    check(launches == want_launches, f"model grad launches {launches}")
+    t0 = time.perf_counter()
+    cpu_loss, want = grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    check(loss_rel <= MODEL_GRAD_RTOL, f"model loss {loss_rel:.3g}")
+    worst, at = 0.0, None
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(a).all()), "non-finite gradient")
+        rel = float(torch.max(torch.abs(a.cpu() - b))) \
+            / max(float(b.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, at = rel, i
+    check(worst <= MODEL_GRAD_RTOL, f"model gradient leaf {names[at]}: "
+          f"{worst:.3g} x max |cpu| > {MODEL_GRAD_RTOL}")
+    log(f"phase model grad: hymba-1.5b at full width, {cfg.n_layers} layers "
+        f"(remat {cfg.remat}), one sequence of {MODEL_GRAD_S} tokens: the "
+        f"card's gradient ({gpu_s:.2f} s; launches {launches}) against the "
+        f"CPU's chunked scan under autograd ({cpu_s:.1f} s): loss within "
+        f"{loss_rel:.3g}, the worst of {len(want)} leaves {names[at]} within "
+        f"{worst:.3g} x its max (bound {MODEL_GRAD_RTOL})")
+
+
+def _key_paths(tree, path=""):
+    """The nested dict ``tree`` with each leaf replaced by its key path."""
+    if isinstance(tree, dict):
+        return {key: _key_paths(val, f"{path}.{key}" if path else key)
+                for key, val in tree.items()}
+    return path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1805,6 +2113,7 @@ def main():
     torch.cuda.empty_cache()
     rows.append(phase_flash_width(dev, launches))
     phase_scan_small(dev)
+    phase_scan_bwd_small(dev)
     prefill_launches = {}
     for arch in MAMBA_PARAMS:
         cfg, params, tokens, prefill_launches[arch] = \
@@ -1820,6 +2129,13 @@ def main():
                                       norm_ulps))
         del params
         torch.cuda.empty_cache()
+    train_launches = {}
+    for arch, layers, name in MAMBA_TRAIN:
+        params, train_launches[arch] = phase_train(dev, name, arch, layers)
+        del params
+        torch.cuda.empty_cache()
+    rows.append(phase_scan_bwd_width(dev, train_launches["hymba-1.5b"]))
+    phase_model_grad(dev)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

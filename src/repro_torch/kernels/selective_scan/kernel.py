@@ -1,8 +1,8 @@
-"""Selective scan — the wrapper of the CUDA kernel in
-``csrc/selective_scan.cu``, the counterpart of
-``repro.kernels.selective_scan.kernel.selective_scan``.
+"""Selective scan — the wrappers of the CUDA kernels in
+``csrc/selective_scan.cu``: the forward, the counterpart of
+``repro.kernels.selective_scan.kernel.selective_scan``, and its backward.
 
-The kernel takes dt, x (B, L, E) and Bm, Cm (B, L, N), contiguous, in
+The forward takes dt, x (B, L, E) and Bm, Cm (B, L, N), contiguous, in
 float32 or bfloat16 (all four alike), A (E, N) contiguous float32, any
 L >= 1, any E >= 1 and N <= :data:`MAX_STATE`, and writes a contiguous
 (B, L, E) y in x.dtype.  The state starts at zero, as in the reference's
@@ -10,9 +10,17 @@ kernel.  The reference's ``chunk`` and ``e_blk`` sized its tiles to VMEM
 (and made callers pad L); the CUDA kernel masks its own edges and has
 no such knobs.
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain version in ``ref.py``.  Like the reference's Pallas kernel, the
-CUDA op has no backward.
+When a backward will follow (autograd on and an operand requiring
+grad), the op runs as :class:`_SelectiveScan`: the forward also writes
+the float32 state at the start of every chunk of :func:`ckpt_chunk`
+steps, and the backward kernel (``selective_scan_bwd``) recomputes each
+chunk's states from those and walks it in reverse, giving the gradients
+of dt, Bm, Cm, x and A (float32 only: bfloat16 operands raise in the
+backward).  The reference's Pallas kernel has no backward; its training
+path differentiates the chunked scan of ``models/mamba.py`` with XLA.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor runs the
+plain versions in ``ref.py``, through the same autograd Function.
 """
 from __future__ import annotations
 
@@ -22,9 +30,11 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
 
-__all__ = ["LANES", "MAX_STATE", "lane_split", "warps", "selective_scan"]
+__all__ = ["LANES", "MAX_STATE", "lane_split", "warps", "ckpt_chunk",
+           "blocks", "selective_scan"]
 
 #: the largest state size N the kernel keeps in registers
 MAX_STATE = 16
@@ -42,14 +52,30 @@ def lane_split(N: int) -> tuple:
     return lanes, -(-N // lanes)
 
 
+def blocks(E: int, N: int) -> int:
+    """Blocks of 128 threads over E channels (128 / lanes channels each),
+    a batch row: the backward's dB / dC partials a step."""
+    return -(-E // (128 // lane_split(N)[0]))
+
+
 def warps(B: int, E: int, N: int) -> int:
-    """Warps a launch runs: blocks of 128 threads, 128 / lanes channels
-    each, over B batch rows."""
-    return B * -(-E // (128 // lane_split(N)[0])) * 4
+    """Warps a launch runs: 4 a block, over B batch rows."""
+    return B * blocks(E, N) * 4
+
+
+def ckpt_chunk(N: int) -> int:
+    """Steps a chunk at state size N, as ``Split<N>::CHUNK``: the forward
+    writes the state before every chunk, the backward walks chunk by
+    chunk."""
+    return min(2048 // (128 // lane_split(N)[0]), 32)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+# dt, Bm, Cm, x, A, y, h_ckpt; bf16, B, L, E, N; stream
+_SIGNATURE = (_P,) * 7 + (_I,) * 5 + (_P,)
+# dt, Bm, Cm, x, A, h_ckpt, g, ddt, dx, part, dA_part, dBC, dA; B, L, E,
+# N; stream
+_BWD_SIGNATURE = (_P,) * 13 + (_I,) * 4 + (_P,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -75,40 +101,91 @@ def _check(dt, Bm, Cm, x, A) -> None:
             raise ValueError(f"{what} must be contiguous")
 
 
-def _launch(dt, Bm, Cm, x, A) -> torch.Tensor:
+def _launch(dt, Bm, Cm, x, A, ckpt: bool = False):
+    """The forward kernel: y, or (y, h_ckpt) with ``ckpt``."""
     Bsz, L, E = x.shape
+    N = Bm.shape[2]
     if Bsz > 65535:
         raise ValueError(f"batch {Bsz} exceeds the grid's 65535")
     y = torch.empty((Bsz, L, E), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    dispatch.launch("selective_scan", "selective_scan", _SIGNATURE, x.device,
-                    dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(),
-                    A.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], Bsz, L, E,
-                    Bm.shape[2])
-    return y
+    h_ckpt = torch.empty((Bsz, -(-L // ckpt_chunk(N)), E, N),
+                         dtype=torch.float32, device=x.device) \
+        if ckpt else None
+    if y.numel():
+        dispatch.launch("selective_scan", "selective_scan", _SIGNATURE,
+                        x.device, dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                        x.data_ptr(), A.data_ptr(), y.data_ptr(),
+                        h_ckpt.data_ptr() if ckpt else None,
+                        _DTYPES[x.dtype], Bsz, L, E, N)
+    return (y, h_ckpt) if ckpt else y
+
+
+def _launch_bwd(dt, Bm, Cm, x, A, h_ckpt, g) -> tuple:
+    """The backward kernel: (ddt, dBm, dCm, dx, dA), float32."""
+    Bsz, L, E = x.shape
+    N = Bm.shape[2]
+    dev = x.device
+    ddt = torch.empty((Bsz, L, E), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(ddt)
+    dBC = torch.empty((2, Bsz, L, N), dtype=torch.float32, device=dev)
+    dA = torch.empty((E, N), dtype=torch.float32, device=dev)
+    if not ddt.numel():
+        return ddt, dBC.zero_()[0], dBC[1], dx, dA.zero_()
+    part = torch.empty((2, Bsz, L, blocks(E, N), N), dtype=torch.float32,
+                       device=dev)
+    dA_part = torch.empty((Bsz, E, N), dtype=torch.float32, device=dev)
+    dispatch.launch("selective_scan", "selective_scan_bwd", _BWD_SIGNATURE,
+                    dev, dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                    x.data_ptr(), A.data_ptr(), h_ckpt.data_ptr(),
+                    g.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
+                    part.data_ptr(), dA_part.data_ptr(), dBC.data_ptr(),
+                    dA.data_ptr(), Bsz, L, E, N)
+    return ddt, dBC[0], dBC[1], dx, dA
 
 
 class _SelectiveScan(torch.autograd.Function):
-    """The CUDA op.  Forward only, as the reference's Pallas kernel."""
+    """The op under autograd: the forward keeps its operands and the
+    state checkpoints, the backward launches the backward kernel (CUDA)
+    or runs the plain backward (CPU).  Differentiable once: a second
+    derivative raises."""
 
     @staticmethod
     def forward(ctx, dt, Bm, Cm, x, A):
-        return _launch(dt, Bm, Cm, x, A)
+        ckpt = x.dtype == torch.float32     # the backward's only dtype
+        if dt.is_cuda:
+            out = _launch(dt, Bm, Cm, x, A, ckpt=ckpt)
+        else:
+            out = selective_scan_ref(
+                dt, Bm, Cm, x, A,
+                ckpt_chunk=ckpt_chunk(Bm.shape[2]) if ckpt else None)
+        y, h_ckpt = out if ckpt else (out, None)
+        ctx.save_for_backward(dt, Bm, Cm, x, A, h_ckpt)
+        return y
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the selective-scan kernel has no backward (nor has the "
-            "reference's Pallas kernel, whose training path differentiates "
-            "the chunked scan of models/mamba.py)")
+        dt, Bm, Cm, x, A, h_ckpt = ctx.saved_tensors
+        if h_ckpt is None:
+            raise NotImplementedError(
+                f"the selective-scan backward takes float32 operands only "
+                f"(training runs in float32), got {x.dtype}")
+        g = grad_out.float().contiguous()
+        if g.is_cuda:
+            return _launch_bwd(dt, Bm, Cm, x, A, h_ckpt, g)
+        return selective_scan_bwd_ref(dt, Bm, Cm, x, A, h_ckpt, g,
+                                      ckpt_chunk(Bm.shape[2]))
 
 
 def selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                    x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """dt / x: (B, L, E); Bm / Cm: (B, L, N); A: (E, N) float32.  Returns
-    y (B, L, E) in x.dtype, from a zero state."""
+    y (B, L, E) in x.dtype, from a zero state; differentiable in all five
+    operands (float32)."""
     _check(dt, Bm, Cm, x, A)
-    if not use_kernel(dt, Bm, Cm, x, A):
-        return selective_scan_ref(dt, Bm, Cm, x, A)
-    return _SelectiveScan.apply(dt, Bm, Cm, x, A)
+    kernel = use_kernel(dt, Bm, Cm, x, A)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, Bm, Cm, x, A)):
+        return _SelectiveScan.apply(dt, Bm, Cm, x, A)
+    return _launch(dt, Bm, Cm, x, A) if kernel \
+        else selective_scan_ref(dt, Bm, Cm, x, A)

@@ -1,13 +1,16 @@
 """Mamba-1 (S6 selective state space) mixer — the counterpart of
 ``repro.models.mamba``.
 
-Prefill runs the whole sequence through the selective scan: on a CUDA
-tensor the hand-written kernel (``kernels/selective_scan``), on a CPU
-tensor the reference's own route, the chunked scan below.  Both compute
-the same function from a zero state; they differ in rounding only (the
-kernel walks the recurrence step by step, the chunked scan combines
-decays within a chunk first).  The reference calls its chunked scan on
-every backend; its Pallas kernel tiles the same computation on the TPU.
+Prefill and training run the whole sequence through the selective
+scan: on a CUDA tensor the hand-written kernels (``kernels/selective_scan``;
+under autograd the forward keeps state checkpoints and the backward
+kernel gives the scan's gradient), on a CPU tensor the reference's own
+route, the chunked scan below, differentiated by autograd as the
+reference's is by XLA.  Both compute the same function from a zero
+state; they differ in rounding only (the kernel walks the recurrence
+step by step, the chunked scan combines decays within a chunk first).
+The reference calls its chunked scan on every backend; its Pallas
+kernel tiles the same forward on the TPU.
 
 Decode carries (conv window, ssm state) and is O(1) per token.  The port
 writes both into the cache tensors IN PLACE (the reference returns a new

@@ -178,18 +178,13 @@ def _layers(stacked: dict, n: int) -> list:
     return [{key: part[i] for key, part in parts.items()} for i in range(n)]
 
 
-def _remat(cfg: ArchConfig, params, x) -> bool:
+def _remat(cfg: ArchConfig, params) -> bool:
     """True when the layers are to be checkpointed: a backward follows
     and ``cfg.remat`` asks for it.  Raises for what the port cannot train
     yet."""
     if not (torch.is_grad_enabled()
             and any(a.requires_grad for a in tree_leaves(params))):
         return False
-    if cfg.mixer != "gqa" and x.is_cuda:
-        raise NotImplementedError(
-            "training the Mamba and hybrid mixers on the card waits for the "
-            "Mamba training slice: the selective-scan kernel has no "
-            "backward (the reference trains through its chunked scan)")
     if cfg.remat and cfg.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy='dots' (keep the matrix products' outputs) comes "
@@ -258,7 +253,7 @@ def hidden(params, cfg: ArchConfig, batch):
         if cfg.sliding_window is not None:
             local_mask = attn.causal_mask(S, S, cfg.sliding_window,
                                           device=x.device)
-    remat = _remat(cfg, params, x)
+    remat = _remat(cfg, params)
     for lp, kind in zip(_layers(params["layers"], cfg.n_layers),
                         layer_kinds(cfg)):
         mask = global_mask if kind.is_global else local_mask

@@ -3,7 +3,11 @@ PyTorch version (which the CUDA kernel is held to on the card) against
 the reference's jitted ``selective_scan_ref``, its Pallas kernel in
 interpret mode through ``selective_scan_op``, and the Mamba mixer's
 chunked scan; the CPU route of the wrapper and of the op; the wrapper's
-checks; the kernel source in the build.
+checks; the kernel source in the build.  The backward: the plain
+backward (which the backward kernel is held to on the card) against
+``jax.vjp`` of the reference's scan and torch autograd of the plain
+forward, the forward's state checkpoints, the autograd Function's glue
+on the CPU route.
 
 Inputs are drawn with numpy as tests/test_kernels.py draws them with
 jax.random: dt = softplus(normal) * 0.2, B, C and x normal, A = -|normal|.
@@ -35,7 +39,8 @@ from repro_torch.kernels.selective_scan import kernel as sk
 from repro_torch.kernels.selective_scan.kernel import (MAX_STATE,
                                                        selective_scan)
 from repro_torch.kernels.selective_scan.ops import selective_scan_op
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
 
 RTOL, ATOL = 1e-4, 1e-5
 BF16_TOL = 5e-2
@@ -249,16 +254,130 @@ def test_other_devices_raise():
 
 
 def test_cpu_route_gradient_matches_the_reference():
-    """The CPU route keeps autograd (the CUDA op has no backward, as the
-    reference's Pallas kernel)."""
+    """The CPU route's gradient in all five operands (the autograd
+    Function with the plain forward and backward) against jax.grad of
+    the reference's scan."""
     ins = _inputs(1, 12, 6, 4, seed=11)
-    tins = [t.requires_grad_() for t in _t(*ins[:4])] + _t(ins[4])
+    tins = [t.requires_grad_() for t in _t(*ins)]
     selective_scan(*tins).sum().backward()
-    want = jax.grad(lambda *a: jnp.sum(jscan_ref(*a)), argnums=(0, 1, 2, 3))(
-        *ins)
-    for t, g in zip(tins[:4], want):
+    want = jax.grad(lambda *a: jnp.sum(jscan_ref(*a)),
+                    argnums=(0, 1, 2, 3, 4))(*ins)
+    for t, g in zip(tins, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=RTOL,
                                    atol=ATOL)
+
+
+# --------------------------------------------------------------------------
+# the backward: checkpoints, the plain backward, the Function's glue
+# --------------------------------------------------------------------------
+
+#: the plain backward against jax.vjp of the reference's jitted scan and
+#: against torch autograd of the plain forward, relative to each
+#: gradient's largest magnitude: GRAD_RTOL of tests/test_torch_train.py
+#: (measured here at most 4e-7 against jax, where the two exps differ in
+#: the last bit; torch autograd runs the same roundings, and only dA's sum
+#: over the batch runs in another order)
+BWD_RTOL = 2e-5
+
+#: the sweep, hymba-1.5b's E = 1600 with ragged L and E, and every lane
+#: split (N = 1 takes 16-step chunks, the others 32)
+BWD_CASES = [(1, 16, 8, 4), (2, 64, 32, 16), (3, 33, 16, 8), (2, 37, 24, 8),
+             (1, 70, 1605, 16), (2, 45, 130, 1), (1, 9, 5, 3), (2, 40, 20, 12)]
+
+
+def _bwd_inputs(B, L, E, N, seed):
+    dt, Bm, Cm, x, A = _inputs(B, L, E, N, seed=seed)
+    g = np.random.default_rng(seed + 100).normal(size=(B, L, E)) \
+        .astype(np.float32)
+    return (dt, Bm, Cm, x, A), g
+
+
+def _plain_bwd(ins, g):
+    tins = _t(*ins)
+    chunk = sk.ckpt_chunk(ins[1].shape[2])
+    _, h = selective_scan_ref(*tins, ckpt_chunk=chunk)
+    return selective_scan_bwd_ref(*tins, h, torch.from_numpy(g), chunk)
+
+
+@pytest.mark.parametrize("B,L,E,N", BWD_CASES)
+def test_plain_backward_matches_jax_vjp(B, L, E, N):
+    ins, g = _bwd_inputs(B, L, E, N, seed=L + E)
+    _, vjp = jax.vjp(_jref, *ins)
+    want = vjp(g)
+    got = _plain_bwd(ins, g)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        assert _rel_max(a, w) <= BWD_RTOL
+
+
+@pytest.mark.parametrize("B,L,E,N", BWD_CASES[:4] + BWD_CASES[5:])
+def test_plain_backward_matches_torch_autograd(B, L, E, N):
+    ins, g = _bwd_inputs(B, L, E, N, seed=L + E + 1)
+    tins = [t.requires_grad_() for t in _t(*ins)]
+    want = torch.autograd.grad(selective_scan_ref(*tins), tins,
+                               torch.from_numpy(g))
+    got = _plain_bwd(ins, g)
+    for a, w in zip(got[:4], want[:4]):
+        assert torch.equal(a, w)
+    assert _rel_max(got[4], want[4]) <= BWD_RTOL
+
+
+def _rel_max(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.max(np.abs(got - want))
+                 / max(float(np.max(np.abs(want))), 1e-30))
+
+
+@pytest.mark.parametrize("N", [1, 3, 16])
+def test_checkpoints_are_the_plain_trajectory(N):
+    """h_ckpt[:, k] is the state before step k * chunk: zero first, then
+    the trajectory of the step-by-step recurrence; y is unchanged."""
+    B, L, E = 2, 75, 6
+    dt, Bm, Cm, x, A = _t(*_inputs(B, L, E, N, seed=N))
+    chunk = sk.ckpt_chunk(N)
+    assert chunk == (16 if N == 1 else 32)
+    y, h = selective_scan_ref(dt, Bm, Cm, x, A, ckpt_chunk=chunk)
+    assert torch.equal(y, selective_scan_ref(dt, Bm, Cm, x, A))
+    assert h.shape == (B, -(-L // chunk), E, N) and h.dtype == torch.float32
+    state = torch.zeros((B, E, N))
+    for t in range(L):
+        if t % chunk == 0:
+            assert torch.equal(h[:, t // chunk], state)
+        decay = torch.exp(dt[:, t, :, None] * A[None])
+        state = decay * state + (dt[:, t] * x[:, t])[..., None] \
+            * Bm[:, t, None, :]
+
+
+def test_function_glue_on_the_cpu_route():
+    """The CPU route of the op under autograd: the plain forward's
+    checkpoints and the plain backward reach the operands (dA to A's
+    parent too), only for operands that require grad; without autograd
+    no checkpoint is made."""
+    ins, g = _bwd_inputs(2, 40, 10, 16, seed=21)
+    A_log = torch.log(-torch.from_numpy(ins[4])).requires_grad_()
+    ins = ins[:4] + (-torch.exp(A_log.detach()).numpy(),)
+    want = _plain_bwd(ins, g)
+    dt, Bm, Cm, x, _ = _t(*ins)
+    dbc = torch.cat([Bm, Cm], -1).requires_grad_()
+    x.requires_grad_()
+    y = selective_scan_op(dt, dbc[..., :16], dbc[..., 16:], x,
+                          -torch.exp(A_log))
+    y.backward(torch.from_numpy(g))
+    assert dt.grad is None
+    assert torch.equal(x.grad, want[3])
+    assert torch.equal(dbc.grad, torch.cat([want[1], want[2]], -1))
+    assert torch.equal(A_log.grad, want[4] * -torch.exp(A_log.detach()))
+    with torch.no_grad():
+        assert torch.equal(selective_scan(*_t(*ins)), y.detach())
+
+
+def test_bf16_backward_raises():
+    dt, Bm, Cm, x, A = (t.to(torch.bfloat16) for t in _t(*_inputs(1, 8, 4, 2)))
+    x.requires_grad_()
+    y = selective_scan(dt, Bm, Cm, x, _t(_inputs(1, 8, 4, 2)[4])[0])
+    assert y.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="float32"):
+        y.float().sum().backward()
 
 
 def test_build_names_the_kernel_source():
@@ -266,11 +385,18 @@ def test_build_names_the_kernel_source():
     assert src.name == "selective_scan.cu" and src.exists()
     text = src.read_text()
     assert re.search(r'extern "C" int selective_scan\(', text)
+    assert re.search(r'extern "C" int selective_scan_bwd\(', text)
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--fmad=false" in build.NVCC_FLAGS
     # the accurate expf: no fast exp, no fast-math build
     assert "expf(" in text and "__expf(" not in text
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
     assert f"kMaxState = {MAX_STATE};" in text
-    # the ctypes signature: six pointers, five ints, the stream
-    assert len(sk._SIGNATURE) == 12
+    # ckpt_chunk copies Split<N>::CHUNK; the backward's two reduction
+    # kernels sum in index order, with no float atomics
+    assert "CHUNK = 2048 / CPB < 32 ? 2048 / CPB : 32;" in text
+    assert "atomicAdd" not in text
+    # the ctypes signatures: forward seven pointers (h_ckpt may be null),
+    # five ints, the stream; backward thirteen pointers, four ints, the
+    # stream
+    assert len(sk._SIGNATURE) == 13 and len(sk._BWD_SIGNATURE) == 18

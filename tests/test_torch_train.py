@@ -382,10 +382,13 @@ def test_init_stacked_params_is_per_client_init():
 
 
 def test_train_path_loads_no_jax_and_no_reference():
+    """The train CLI of each ported family (dense GQA, Mamba, hybrid)."""
     code = (
         "import sys\n"
         "from repro_torch.launch.train import main\n"
-        "main(" + repr(CLI + ["--compressor", "qsgd"]) + ", device='cpu')\n"
+        "for arch in ('stablelm-1.6b', 'falcon-mamba-7b', 'hymba-1.5b'):\n"
+        "    main(" + repr(CLI + ["--compressor", "qsgd"])
+        + " + ['--arch', arch], device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"

@@ -4,6 +4,7 @@ source, the flash kernel's warps and m-tiles at D = 64, and the
 selective scan's lanes a channel.
 
     python3 tools/probe_kernels.py [--flash 4x2 4x1 8x1] [--lanes 4 8 16]
+                                   [--scan-baseline OTHER.cu]
 
 1. Compiles every kernel source with ``-Xptxas -v`` and prints the
    registers, spills and shared memory of the flash kernels and of the
@@ -20,6 +21,12 @@ selective scan's lanes a channel.
    N = 16, E = 8192 / 1600, f32), checks each build against the plain
    version (16 float32 ulps of max |y|) and times it (median of 25
    launches, in turns).
+4. With ``--scan-baseline``, builds that copy of ``selective_scan.cu``
+   (another commit's, say ``git show REV:src/repro_torch/kernels/
+   selective_scan/csrc/selective_scan.cu``) and, at both prefill shapes,
+   times its forward against this checkout's, without and with the
+   state checkpoints, in turns (median of 25 launches each, CUDA events
+   around the ctypes call alone); the outputs must agree bit for bit.
 Needs nvcc and a CUDA device; prints the card's name and power limit.
 """
 import argparse
@@ -173,10 +180,9 @@ def scan_lanes(build, lanes_list):
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def run(lib):
-            err = lib(dt.data_ptr(), Bm.data_ptr(),
-                                     Cm.data_ptr(), x.data_ptr(),
-                                     A.data_ptr(), y.data_ptr(), 0, B, L, E,
-                                     N, stream)
+            err = lib(dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                      x.data_ptr(), A.data_ptr(), y.data_ptr(), None, 0, B,
+                      L, E, N, stream)
             if err:
                 raise RuntimeError(f"selective_scan launch: {err}")
 
@@ -199,12 +205,75 @@ def scan_lanes(build, lanes_list):
         torch.cuda.empty_cache()
 
 
+def scan_baseline(build, path):
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.selective_scan import kernel as sk
+    text = open(path).read()
+    out = build.BUILD_DIR / "probe" / "selective_scan-baseline.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), path],
+                   check=True)
+    base = ctypes.CDLL(str(out)).selective_scan
+    # a source without the checkpoint pointer takes one argument less
+    has_ckpt = "void* h_ckpt" in text
+    base.argtypes = sk._SIGNATURE if has_ckpt else \
+        sk._SIGNATURE[:6] + sk._SIGNATURE[7:]
+    base.restype = ctypes.c_int
+    cur = build.library("selective_scan").selective_scan
+    cur.argtypes, cur.restype = sk._SIGNATURE, ctypes.c_int
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for arch, E in (("falcon-mamba-7b", 8192), ("hymba-1.5b", 1600)):
+        B, L, N = 2, 4096, 16
+        dt = F.softplus(torch.randn((B, L, E), generator=gen,
+                                    device=dev)) * 0.2
+        Bm, Cm = (torch.randn((B, L, N), generator=gen, device=dev)
+                  for _ in range(2))
+        x = torch.randn((B, L, E), generator=gen, device=dev)
+        A = -torch.randn((E, N), generator=gen, device=dev).abs()
+        y0, y1 = torch.empty_like(x), torch.empty_like(x)
+        h = torch.empty((B, -(-L // sk.ckpt_chunk(N)), E, N), device=dev)
+        ptrs = [t.data_ptr() for t in (dt, Bm, Cm, x, A)]
+        runs = {
+            "baseline": lambda: base(*ptrs, y0.data_ptr(),
+                                     *([None] if has_ckpt else []), 0, B, L,
+                                     E, N, stream),
+            "current": lambda: cur(*ptrs, y1.data_ptr(), None, 0, B, L, E, N,
+                                   stream),
+            "current+ckpt": lambda: cur(*ptrs, y1.data_ptr(), h.data_ptr(),
+                                        0, B, L, E, N, stream),
+        }
+        for name, fn in runs.items():
+            if fn():
+                raise RuntimeError(f"selective_scan {name} launch failed")
+            torch.cuda.synchronize()
+            if name != "baseline" and not torch.equal(y0, y1):
+                raise AssertionError(f"{name} at {arch}: y differs from the "
+                                     "baseline's")
+        times = {k: [] for k in runs}
+        order = list(runs) + list(reversed(runs))
+        for name in order:   # in turns: a, b, c, c, b, a
+            times[name].append(time_ms(runs[name]))
+        print(f"time scan forward at {arch} (B={B} L={L} E={E} N={N} f32), "
+              "turns: " + "; ".join(
+                  f"{k} {', '.join(f'{t:.3f}' for t in v)} ms"
+                  for k, v in times.items()), flush=True)
+        del dt, Bm, Cm, x, A, y0, y1, h
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--flash", nargs="*", default=["4x2", "4x1", "8x1"],
                     help="kWarps64 x kMTiles64 pairs")
     ap.add_argument("--lanes", type=int, nargs="*", default=[4, 8, 16])
+    ap.add_argument("--scan-baseline", default=None,
+                    help="another copy of selective_scan.cu to time the "
+                         "forward against")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -219,6 +288,8 @@ def main():
                             for f in args.flash])
     if args.lanes:
         scan_lanes(build, args.lanes)
+    if args.scan_baseline:
+        scan_baseline(build, args.scan_baseline)
     return 0
 
 
