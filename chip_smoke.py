@@ -51,11 +51,12 @@ these phases and fails (non-zero exit, no result line) on any error:
            at the CPU tests' shapes and hymba's E = 1600 (ragged L and E,
            N = 4 / 8 / 16, f32 and bf16), its state checkpoints against
            the plain trajectory, and a bfloat16 backward raises;
-  selective_scan backward  the backward kernel against the plain
+  selective_scan backward  the backward kernels against the plain
            backward on the same operands at those shapes and hymba's
            E = 1600 with ragged L and E: each gradient within 2e-5 x max
-           |plain|, two launches bit-identical, and the autograd op on the
-           card giving the kernel's gradients;
+           |plain|, two launches bit-identical, the autograd op on the
+           card giving the kernel's gradients, and the carry pass alone
+           within 2e-5 x max |plain| of the plain backward's carries;
   mamba    falcon-mamba-7b (64 Mamba layers) and then hymba-1.5b (32
            hybrid layers: sliding-window dense attention beside Mamba) at
            full width and depth, f32, random weights from a seeded
@@ -95,7 +96,9 @@ these phases and fails (non-zero exit, no result line) on any error:
            L = 4096, E = 1600 / 8192) against the plain backward, twice
            bit for bit, timed against its bound, the plain backward and
            the plain route (autograd through the chunked scan, one
-           layer); the forward timed with and without checkpoints;
+           layer), its carry pass and chunk kernel each timed alone and
+           the carries held against the plain backward's; the forward
+           timed with and without checkpoints;
   model grad  a 2-layer hymba-1.5b at full width on 512 tokens: the
            card's loss and gradient (the scan kernels) against the CPU's
            (the chunked scan under autograd) from the same params, each
@@ -669,6 +672,25 @@ def time_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def time_ms_queued(fn, reps, warmup=2):
+    """Device ms a call: CUDA events around ``reps`` calls queued back to
+    back, so that the host's work for a call overlaps the device's for
+    the one before (time_ms's events around each call also take in the
+    wrapper's Python, a tenth of a millisecond or so)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_width_kernels(x, launches, norm_ulps):
@@ -1538,15 +1560,81 @@ def scan_bwd_compare(what, got, want):
     return worst_rel, worst_abs
 
 
+class ScanBwdStages:
+    """The backward's carry pass and chunk kernel launched on their own,
+    through the library's timing entry points, with the scratch of
+    ``plan`` (split, groups), on the operands of one backward (outside
+    the wrappers: not launches of the main path).  ``carry`` holds the
+    carry pass's output (split only)."""
+
+    def __init__(self, dt, Bm, Cm, x, A, h, g, plan):
+        import ctypes
+        import torch
+        from repro_torch.kernels import build
+        from repro_torch.kernels.selective_scan import kernel as sk
+        lib = build.library("selective_scan")
+        self.fc = lib.selective_scan_bwd_carry
+        self.fk = lib.selective_scan_bwd_chunks
+        self.fc.argtypes = sk._BWD_CARRY_SIGNATURE
+        self.fk.argtypes = sk._BWD_CHUNKS_SIGNATURE
+        self.fc.restype = self.fk.restype = ctypes.c_int
+        B, L, E = x.shape
+        N = Bm.shape[2]
+        self.plan = plan
+        self.carry, self.part, self.dA_part = sk._bwd_scratch(
+            B, L, E, N, *plan, x.device)
+        self.ddt, self.dx = torch.empty_like(x), torch.empty_like(x)
+        self.ops = (dt, Bm, Cm, x, A, h, g)
+        self.shape = (B, L, E, N)
+        self.stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run_carry(self):
+        dt, _, Cm, _, A, _, g = self.ops
+        err = self.fc(dt.data_ptr(), Cm.data_ptr(), A.data_ptr(),
+                      g.data_ptr(), self.carry.data_ptr(), *self.shape,
+                      self.stream)
+        check(err == 0, f"selective_scan_bwd_carry: cudaError_t {err}")
+
+    def run_chunks(self):
+        ptrs = [t.data_ptr() for t in self.ops]
+        carry = self.carry.data_ptr() if self.plan[0] else None
+        err = self.fk(*ptrs[:6], carry, ptrs[6], self.ddt.data_ptr(),
+                      self.dx.data_ptr(), self.part.data_ptr(),
+                      self.dA_part.data_ptr(), *self.shape,
+                      int(self.plan[0]), self.plan[1], self.stream)
+        check(err == 0, f"selective_scan_bwd_chunks: cudaError_t {err}")
+
+
+def carries_compare(what, stages, want):
+    """The carry pass's output against the plain backward's carries:
+    within SCAN_BWD_RTOL x max |plain|; returns (relative error, bit for
+    bit)."""
+    import torch
+    stages.run_carry()
+    torch.cuda.synchronize()
+    got = stages.carry
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what} carries: shape or non-finite")
+    err = float(torch.max(torch.abs(got - want)))
+    rel = err / max(float(want.abs().max()), 1e-30)
+    check(rel <= SCAN_BWD_RTOL, f"{what} carries: {rel:.3g} x max |plain|")
+    return rel, same_bits(got, want)
+
+
 def phase_scan_bwd_small(dev):
-    """The backward kernel against the plain backward on the same
-    operands (the kernel forward's checkpoints), twice bit for bit, and
-    the autograd op on the card against the kernel's own output."""
+    """The backward kernels against the plain backward on the same
+    operands (the kernel forward's checkpoints), with the plan the card
+    gives and with L split and walked whole whatever the shape, twice
+    bit for bit, and the autograd op on the card against the kernels'
+    own output; the carry pass alone against the plain backward's
+    carries."""
     import torch
     from repro_torch.kernels.selective_scan import kernel as sk
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
     gen = torch.Generator(device=dev)
-    worst = 0.0
+    worst, worst_carry, carry_bits = 0.0, 0.0, True
+    plans = ((True, sk.BWD_GROUPS), (True, 1), (False, 1),
+             (False, sk.WALK_GROUPS))
     for B, L, E, N in SCAN_BWD_CASES:
         gen.manual_seed(L * 1000 + E + 7)
         dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
@@ -1558,17 +1646,28 @@ def phase_scan_bwd_small(dev):
         what = f"selective_scan_bwd B{B} L{L} E{E} N{N}"
         check(all(same_bits(a, b) for a, b in zip(got, again)),
               f"{what}: two launches differ")
-        want = selective_scan_bwd_ref(dt, Bm, Cm, x, A, h, g,
-                                      sk.ckpt_chunk(N))
+        *want, carries = selective_scan_bwd_ref(
+            dt, Bm, Cm, x, A, h, g, sk.ckpt_chunk(N), return_carries=True)
         worst = max(worst, scan_bwd_compare(what, got, want)[0])
+        for plan in plans:
+            forced = sk._launch_bwd(dt, Bm, Cm, x, A, h, g, plan=plan)
+            worst = max(worst, scan_bwd_compare(f"{what} plan {plan}",
+                                                forced, want)[0])
+        rel, bits = carries_compare(
+            what, ScanBwdStages(dt, Bm, Cm, x, A, h, g, plans[0]), carries)
+        worst_carry, carry_bits = max(worst_carry, rel), carry_bits and bits
         ins = [t.clone().requires_grad_() for t in (dt, Bm, Cm, x, A)]
         sk.selective_scan(*ins).backward(g)
         check(all(same_bits(t.grad, a) for t, a in zip(ins, got)),
               f"{what}: the autograd op's gradients are not the kernel's")
     log(f"phase selective_scan backward: {len(SCAN_BWD_CASES)} shapes, each "
         f"gradient within {worst:.3g} x max |plain| of the plain backward "
-        f"(bound {SCAN_BWD_RTOL}); two launches bit-identical; the autograd "
-        "op on the card gives the kernel's gradients")
+        f"(bound {SCAN_BWD_RTOL}) with the card's plan and with plans "
+        f"{', '.join(map(str, plans))} (split, groups); two launches "
+        "bit-identical; the autograd "
+        "op on the card gives the kernel's gradients; the carry pass within "
+        f"{worst_carry:.3g} x max |plain| of the plain backward's carries "
+        f"(bit-identical: {carry_bits})")
 
 
 def scan_bwd_bound_ms(B, L, E, N, chunk):
@@ -1604,8 +1703,9 @@ def chunked_route_seconds(dt, Bm, Cm, x, A, g, chunk):
 def phase_scan_bwd_width(dev, launches):
     """The backward kernel at both train shapes (B = 1, L = 4096): against
     the plain backward, twice bit for bit, timed against its bound, the
-    plain backward and the plain route; the forward timed with and without
-    the checkpoints, in turns.  Returns the kernels line's row (the
+    plain backward and the plain route, its carry pass and chunk kernel
+    timed alone, the carries against the plain backward's; the forward
+    timed with and without the checkpoints, in turns.  Returns the kernels line's row (the
     shape of hymba-1.5b, whose train run at full depth gave ``launches``)."""
     import torch
     from repro_torch.configs import get_config
@@ -1627,15 +1727,41 @@ def phase_scan_bwd_width(dev, launches):
         got = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
         again = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
         torch.cuda.synchronize()
+        what = f"selective_scan_bwd at {arch}'s train shape"
         check(all(same_bits(a, b) for a, b in zip(got, again)),
-              f"selective_scan_bwd at {arch}'s train shape: two launches "
-              "differ")
-        ms = time_ms(lambda: sk._launch_bwd(dt, Bm, Cm, x, A, h, g), reps=25)
-        want, plain_s = timed(lambda: selective_scan_bwd_ref(
-            dt, Bm, Cm, x, A, h, g, chunk))
-        rel, err = scan_bwd_compare(f"selective_scan_bwd at {arch}'s train "
-                                    "shape", got, want)
-        del got, again, want
+              f"{what}: two launches differ")
+        # events around each call, as every row of the kernels line; the
+        # queued time (the wrapper's Python overlapped) beside it
+        ms = time_ms(lambda: sk._launch_bwd(dt, Bm, Cm, x, A, h, g),
+                     reps=25)
+        queued_ms = time_ms_queued(
+            lambda: sk._launch_bwd(dt, Bm, Cm, x, A, h, g), reps=25)
+        slots = sk.bwd_slots(dev, N)
+        plan = sk.bwd_plan(B, E, N, slots)
+        # both plans whatever the card chose, each whole and its kernels
+        # alone: split (the carry pass, one block a chunk) and the walk
+        # over L (the walk's groups as the plan would give them)
+        walk = (False, plan[1] if not plan[0] else 1)
+        split = (True, sk.BWD_GROUPS)
+        plan_ms, stage_ms = {}, {}
+        for p in (split, walk):
+            plan_ms[p] = time_ms(lambda: sk._launch_bwd(
+                dt, Bm, Cm, x, A, h, g, plan=p), reps=25)
+            stages = ScanBwdStages(dt, Bm, Cm, x, A, h, g, p)
+            if p[0]:
+                stage_ms["carry pass"] = time_ms(stages.run_carry, reps=25)
+            stage_ms[f"chunk kernel {p}"] = time_ms(stages.run_chunks,
+                                                    reps=25)
+            del stages
+        (*want, carries), plain_s = timed(lambda: selective_scan_bwd_ref(
+            dt, Bm, Cm, x, A, h, g, chunk, return_carries=True))
+        rel, err = scan_bwd_compare(what, got, want)
+        for p in (split, walk):
+            scan_bwd_compare(f"{what} plan {p}", sk._launch_bwd(
+                dt, Bm, Cm, x, A, h, g, plan=p), want)
+        carry_rel, carry_bits = carries_compare(
+            what, ScanBwdStages(dt, Bm, Cm, x, A, h, g, split), carries)
+        del got, again, want, carries
         torch.cuda.empty_cache()
         route_s = chunked_route_seconds(dt, Bm, Cm, x, A, g, cfg.scan_chunk)
         torch.cuda.empty_cache()
@@ -1643,9 +1769,17 @@ def phase_scan_bwd_width(dev, launches):
         ops_ms = max(exp_ms, f32_ms)
         bound_ms = max(bytes_ms, ops_ms)
         log(f"time selective_scan_bwd ({arch}: B={B} L={L} E={E} N={N} f32): "
-            f"{ms:.3f} ms (bound {bound_ms:.3f} ms: bytes {bytes_ms:.3f}, "
-            f"exps {exp_ms:.3f}, f32 {f32_ms:.3f}; {bound_ms / ms:.0%} of the "
-            f"roofline; {sk.blocks(E, N)} blocks a row); plain backward "
+            f"{ms:.3f} ms (events around each call; {queued_ms:.3f} ms a "
+            f"call over 25 queued) (bound {bound_ms:.3f} ms: bytes "
+            f"{bytes_ms:.3f}, exps {exp_ms:.3f}, f32 {f32_ms:.3f}; "
+            f"{bound_ms / ms:.0%} of the roofline; plan (split, groups) "
+            f"{plan} (the card holds {slots} chunk-kernel blocks at once); "
+            f"split {split} "
+            f"{plan_ms[split]:.3f} ms, walk {walk} {plan_ms[walk]:.3f} ms; "
+            "alone: " + ", ".join(f"{k} {v:.3f} ms"
+                                  for k, v in stage_ms.items())
+            + f"; the carries within {carry_rel:.3g} x max |plain| of the "
+            f"plain backward's, bit-identical: {carry_bits}); plain backward "
             f"{plain_s * 1e3:.1f} ms; the plain route (autograd through the "
             f"chunked scan, chunk {cfg.scan_chunk}, one layer's forward and "
             f"backward) {route_s * 1e3:.1f} ms; kernel vs plain within "
@@ -1793,7 +1927,7 @@ def train_profile(fn):
         name = e.key.lower()
         kind = "kernel" if ("qsgd_dequantized" in name
                             or "natural_noise" in name) else \
-            "scan_bwd" if ("scan_bwd_kernel<" in name
+            "scan_bwd" if ("scan_bwd_" in name
                            or "sum_middle" in name) else \
             "scan" if "scan_kernel<" in name else \
             "gemm" if "gemm" in name or "gemv" in name else \

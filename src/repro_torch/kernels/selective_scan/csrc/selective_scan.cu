@@ -296,43 +296,83 @@ int launch_n(int n, const void* dt, const void* Bm, const void* Cm,
 //   dprod   = (dh_t h_{t-1}) decay_t    (the gradient of dt_t A[e, n])
 //   ddt_t   = sum_n dprod A[e, n] + x_t sum_n dh_t B_t[n]
 //   dx_t    = dt_t sum_n dh_t B_t[n]
-//   dA[e,n] = sum over b, then over t (from L-1 down) of dprod dt_t
+//   dA[e,n] = sum over b and t of dprod dt_t
 //   dB_t[n] = sum over e of dh_t (dt_t x_t),  dC_t[n] = sum over e of g_t h_t
 // The plain version (ref.py selective_scan_bwd_ref) runs the same
-// recurrence with the same roundings; the sums over n, over e and the
-// order of dB's and dC's terms are where the two differ.
+// recurrence with the same roundings; the sums over n and over e, the
+// order of dB's and dC's terms and dA's order over t are where the two
+// differ.
 //
 // Bound: at falcon-mamba-7b's train shape (B = 1, L = 4096, E = 8192,
 // N = 16) the function reads dt, x and g and writes ddt and dx (5 x 134
 // MB) and reads the checkpoints (67 MB): 0.74 GB, 0.22 ms at 3.35 TB/s;
 // its 5.4e8 state updates take one exp each (0.13 ms on the
 // special-function units) and about 19 float32 operations (0.15 ms at
-// 67 TFLOP/s).  This kernel also writes and reads back the dB / dC
-// partials of 512 blocks (2 x 2 x 134 MB, 1.3 GB in all) and takes two
-// exps a state update (the chunk's states recomputed, then the decay in
-// the reverse walk).
+// 67 TFLOP/s).  What bounds the kernels below is the instructions they run: the
+// chunk kernel's code for one chunk of one channel group (64 state
+// updates a lane) is about 4,300 instructions (tools/probe_kernels.py
+// --sass, at N = 16): the recompute (its exp is 8 a state update) and
+// the reverse step, the xor trees of the sums over n and e, and the
+// staging and stores; at 235 registers an SM holds 2 of its blocks.
 //
-// Design: the forward's layout (Split<N>: LANES lanes a channel, SPL
-// states a lane, CPB channels a block of 128 threads, chunks of CHUNK
-// steps), with the chunks walked in reverse.  For each chunk the block
-// stages dt, x, g of its channels and the B, C rows in shared memory,
-// loads each lane's states from the checkpoint of the chunk's start and
-// recomputes the chunk's CHUNK states into registers (CHUNK x SPL floats
-// a lane, 64 at N = 16: both step loops are unrolled), then walks it
-// backwards with the carry in registers across chunks.
-//   * sum over n (ddt, dx): the forward's transposing xor tree over the
-//     channel's LANES lanes, LANES steps at a time;
-//   * sum over e: a transposing xor tree over the channel groups of a
-//     warp (lane offsets LANES .. 16) for the 2 SPL values of a lane (dh
-//     dt x and g h for each state), then the block's 4 warps in order
-//     through shared memory, written as one partial a block:
-//     part (2, B, L, blocks, N).  A second kernel sums the partials over
-//     the blocks in index order.  No float atomics: two launches give
-//     the same bits;
-//   * dA: each lane sums its states' terms over t in registers (from
-//     L-1 down), writes dA_part (B, E, N), and the second kernel sums it
-//     over b in index order.
+// Design: only the adjoint's carry runs across the whole of L; every
+// chunk's states can be recomputed from the forward's checkpoints on
+// their own.  The chunk kernel (scan_bwd_chunk) does a chunk of one
+// group of CPB channels at a time, an item, in the forward's layout
+// (Split<N>: LANES lanes a channel, SPL states a lane, CPB channels to
+// 128 threads).  It recomputes the chunk's states from the checkpoint
+// into registers, keeping their decays (CHUNK x SPL floats a lane each:
+// one exp a state update), and walks them backwards from the carry in;
+// the next item's dt, x, g, checkpoint and carry are loaded into
+// registers, and the next chunk's B and C rows into shared memory
+// (cp.async), while an item computes.  The wrapper chooses how a block
+// covers L (bwd_plan in kernel.py, from the grid and the chunk kernel's
+// blocks the card holds at once, selective_scan_bwd_occupancy):
+//   * walk (split = 0): a block walks all of L for `groups` channel
+//     groups, the carry and dA kept between chunks (in shared memory,
+//     per group).  No carry pass; the sums are the single walk's.  Taken
+//     where those blocks fill the card (falcon-mamba-7b's train shape:
+//     512 groups, 256 blocks of 2 on 132 SMs at 2 blocks an SM).
+//   * split (split != 0): first scan_bwd_carry, one thread a state
+//     (b, e, n): it walks t = L-1 .. CHUNK once, dh = g C + carry, carry
+//     = decay dh, rounded as the plain backward rounds, and writes the
+//     carry that enters each chunk's reverse walk, carry_in (B, chunks,
+//     E, N) (zero for the last).  Only one multiply and one add a step
+//     are on that chain; a cp.async ring holds kCarryStages groups of
+//     kCarrySteps steps of dt, g and C ahead, and each group's exps
+//     interleave with the chain of the group before.  Then the chunk
+//     kernel runs one block a chunk and kBwdGroups channel groups, from
+//     those carries (hymba-1.5b's train shape: 100 groups, 1,664 blocks
+//     where the walk had 100).  Two exps a state update in all.
+//   * sums inside the chunk kernel: over n (ddt, dx) the forward's
+//     transposing xor tree over a channel's LANES lanes, LANES steps at a
+//     time; over e (dB, dC) a transposing xor tree over the channel
+//     groups of a warp (lane offsets LANES .. 16) for the 2 SPL values of
+//     a lane (dh dt x and g h for each state), added in shared memory
+//     over the block's groups in turn, then over its 4 warps in order:
+//     one partial a block and step, part (2, B, L, blocks, N); dA over
+//     the block's steps (the last first) in registers, one partial a
+//     block's run of chunks, dA_part (B, chunks or 1, E, N).
+//   * sum_middle sums the dB / dC partials over the blocks and the dA
+//     partials over (b, chunk), each in index order.  No float atomics:
+//     two launches give the same bits.
+// The carries, dh and so ddt, dx and dB's and dC's terms are the same
+// functions of the same bits either way; only dA's order of summation
+// differs when L is split.
 // --------------------------------------------------------------------------
+
+// channel groups of CPB a block of the chunk kernel walks in turn when L
+// is split (its dB / dC partial covers all of them), and at most when it
+// walks all of L; the carry pass's steps a group and groups of steps in
+// flight in its ring.  Measured with tools/probe_kernels.py on an H100
+// 80GB HBM3 at 700 W (PERF.md): kBwdGroups 8 against 1, 2, 4, 16;
+// kWalkGroups 2 (the falcon-mamba-7b train shape's plan) against 1;
+// kCarrySteps 32 (16 at N = 1, a chunk) against 8, 16; kCarryStages 4
+// against 2, 3, 8.
+constexpr int kBwdGroups = 8;
+constexpr int kWalkGroups = 2;
+constexpr int kCarrySteps = 32;
+constexpr int kCarryStages = 4;
 
 // Sums v[0..V-1] over the G channel groups of a warp (lane offsets
 // LANES, 2 LANES, ..., 16; G >= V, both powers of two): while a lane
@@ -365,15 +405,155 @@ __device__ __forceinline__ void group_sum(float (&v)[V], int q, int& idx,
   }
 }
 
+// cp.async of one float, global -> shared (lands by cp_async_wait); with
+// ok false it reads nothing and writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most PENDING of this thread's newest groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+template <int N>
+struct CarrySplit {
+  static constexpr int CHUNK = Split<N>::CHUNK;
+  static constexpr int CBC = kThreads / N;  // channels a block
+  // steps a group (a divisor of CHUNK) and groups in the ring
+  static constexpr int U = kCarrySteps < CHUNK ? kCarrySteps : CHUNK;
+  static constexpr int FIT = 40960 / (4 * (U + 4) * (2 * CBC + N));
+  static constexpr int STAGES =
+      FIT < 2 ? 2 : (FIT < kCarryStages ? FIT : kCarryStages);
+};
+
 template <int N>
 __global__ void __launch_bounds__(kThreads)
-    scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
-                    const float* __restrict__ Cm,
-                    const float* __restrict__ x, const float* __restrict__ A,
-                    const float* __restrict__ h_ckpt,
-                    const float* __restrict__ g, float* __restrict__ ddt,
-                    float* __restrict__ dx, float* __restrict__ part,
-                    float* __restrict__ dA_part, int L, int E) {
+    scan_bwd_carry(const float* __restrict__ dt, const float* __restrict__ Cm,
+                   const float* __restrict__ A, const float* __restrict__ g,
+                   float* __restrict__ carry_in, int L, int E) {
+  using P = CarrySplit<N>;
+  constexpr int CHUNK = P::CHUNK, U = P::U, CBC = P::CBC, S = P::STAGES;
+  static_assert(CHUNK % U == 0 && U % 4 == 0,
+                "a chunk holds whole groups of steps, read 4 at a time");
+  // time runs along the rows: a thread reads 4 steps in one load; rows
+  // of UP floats keep those loads 16-byte aligned and conflict-free
+  constexpr int UP = U + 4;
+  __shared__ __align__(16) float s_dt[S][CBC][UP];
+  __shared__ __align__(16) float s_g[S][CBC][UP];
+  __shared__ __align__(16) float s_c[S][N][UP];
+
+  const int c = threadIdx.x / N, n = threadIdx.x % N;
+  const int e0 = blockIdx.x * CBC, e = e0 + c;
+  const int ce = min(CBC, E - e0);
+  const bool mine = c < ce;  // this thread holds state (b, e, n)
+  const int cr = mine ? c : 0;  // the column it reads
+  const int b = blockIdx.y, chunks = (L + CHUNK - 1) / CHUNK;
+  const int64_t row0 = static_cast<int64_t>(b) * L;  // (b, t = 0)
+  const int64_t EN = static_cast<int64_t>(E) * N;
+  // chunk k's carry of this state at k E N
+  float* out = carry_in + static_cast<int64_t>(b) * chunks * EN +
+               static_cast<int64_t>(e) * N + n;
+  const float a = mine ? A[static_cast<int64_t>(e) * N + n] : 0.f;
+
+  // steps q U .. q U + U - 1 into ring slot q % S: the block's dt and g
+  // columns and the C rows, zeros past L and E (decay 1, nothing added)
+  auto fetch = [&](int q) {
+    const int slot = q % S;
+#pragma unroll
+    for (int i = threadIdx.x; i < U * CBC; i += kThreads) {
+      const int u = i / CBC, v = i % CBC, t = q * U + u;
+      const bool ok = t < L && v < ce;
+      const int64_t at = ok ? (row0 + t) * E + e0 + v : 0;
+      cp_async4(&s_dt[slot][v][u], dt + at, ok);
+      cp_async4(&s_g[slot][v][u], g + at, ok);
+    }
+#pragma unroll
+    for (int i = threadIdx.x; i < U * N; i += kThreads) {
+      const int u = i / N, m = i % N, t = q * U + u;
+      const bool ok = t < L;
+      cp_async4(&s_c[slot][m][u], Cm + (ok ? (row0 + t) * N + m : 0), ok);
+    }
+    cp_async_commit();
+  };
+  // the decays and g C of group q, from its slot
+  auto prep = [&](int q, float(&dec)[U], float(&gc)[U]) {
+    const int slot = q % S;
+#pragma unroll
+    for (int u = 0; u < U; u += 4) {
+      const float4 d4 = *reinterpret_cast<const float4*>(&s_dt[slot][cr][u]);
+      const float4 g4 = *reinterpret_cast<const float4*>(&s_g[slot][cr][u]);
+      const float4 c4 = *reinterpret_cast<const float4*>(&s_c[slot][n][u]);
+      dec[u] = expf(d4.x * a);
+      dec[u + 1] = expf(d4.y * a);
+      dec[u + 2] = expf(d4.z * a);
+      dec[u + 3] = expf(d4.w * a);
+      gc[u] = g4.x * c4.x;
+      gc[u + 1] = g4.y * c4.y;
+      gc[u + 2] = g4.z * c4.z;
+      gc[u + 3] = g4.w * c4.w;
+    }
+  };
+
+  float carry = 0.f;
+  if (mine) out[static_cast<int64_t>(chunks - 1) * EN] = carry;
+  constexpr int kLow = CHUNK / U;  // chunk 0's steps: no carry needed
+  const int top = (L - 1) / U;
+  if (top < kLow) return;  // one chunk (the same for the whole block)
+  // group q is fetched S - 1 groups ahead of its walk; an empty commit
+  // past the last keeps the count
+  auto fetch_or_not = [&](int q) {
+    if (q >= kLow) {
+      fetch(q);
+    } else {
+      cp_async_commit();
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < S - 1; ++p) fetch_or_not(top - p);
+  // one step of the walk: group q's chain (its decays ready in dec, gc)
+  // beside group q - 1's loads and exps, which do not wait on the chain
+  // (one branch-free stretch, so that the two interleave; at q = kLow
+  // the exps read a slot no group fills, and go unused)
+  auto walk = [&](int q, float(&dec)[U], float(&gc)[U], float(&dn)[U],
+                  float(&gn)[U]) {
+    cp_async_wait<S - 2>();  // group q - 1 has landed
+    __syncthreads();         // for every thread; q's slot is read
+    prep(q - 1, dn, gn);
+#pragma unroll
+    for (int u = U - 1; u >= 0; --u) carry = dec[u] * (gc[u] + carry);
+    if (mine && (q * U) % CHUNK == 0)  // chunk q U / CHUNK done
+      out[static_cast<int64_t>(q * U / CHUNK - 1) * EN] = carry;
+    fetch_or_not(q - S);  // into q's slot
+  };
+  float d0[U], g0[U], d1[U], g1[U];
+  cp_async_wait<S - 2>();  // group top has landed
+  __syncthreads();
+  fetch_or_not(top - (S - 1));
+  prep(top, d0, g0);
+  for (int q = top; q >= kLow; q -= 2) {  // two a turn: no register copies
+    walk(q, d0, g0, d1, g1);
+    if (q - 1 >= kLow) walk(q - 1, d1, g1, d0, g0);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    scan_bwd_chunk(const float* __restrict__ dt, const float* __restrict__ Bm,
+                   const float* __restrict__ Cm, const float* __restrict__ x,
+                   const float* __restrict__ A,
+                   const float* __restrict__ h_ckpt,
+                   const float* __restrict__ carry_in,
+                   const float* __restrict__ g, float* __restrict__ ddt,
+                   float* __restrict__ dx, float* __restrict__ part,
+                   float* __restrict__ dA_part, int L, int E, int groups) {
   using P = Split<N>;
   constexpr int LANES = P::LANES, SPL = P::SPL, NP = P::NP, CPB = P::CPB;
   constexpr int CHUNK = P::CHUNK;
@@ -384,79 +564,122 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float s_dt[CHUNK][CPB];
   __shared__ float s_x[CHUNK][CPB];
   __shared__ float s_g[CHUNK][CPB];
-  __shared__ float s_b[CHUNK][NP];
-  __shared__ float s_c[CHUNK][NP];
+  // the B and C rows of a chunk, by its parity: the next chunk's land
+  // while this one's groups compute
+  __shared__ float s_bc[2][2][CHUNK][NP];
   __shared__ float s_red[CHUNK][WARPS][V][LANES];
   __shared__ float s_ddt[CHUNK][CPB + 1];
   __shared__ float s_dx[CHUNK][CPB + 1];
+  // a walk over several chunks: each group's carry and dA between them
+  __shared__ float s_carry[kWalkGroups][SPL][kThreads];
+  __shared__ float s_dA[kWalkGroups][SPL][kThreads];
 
   const int c = threadIdx.x / LANES, j = threadIdx.x % LANES;
   const int w = threadIdx.x / 32, q = (threadIdx.x % 32) / LANES;
-  const int e0 = blockIdx.x * CPB, e = e0 + c;
-  const int ce = min(CPB, E - e0);
-  const int b = blockIdx.y, blocks = gridDim.x;
-  const int64_t row0 = static_cast<int64_t>(b) * L;
-  const int chunks = (L + CHUNK - 1) / CHUNK;
+  const int b = blockIdx.z, blocks = gridDim.x, slices = gridDim.y;
+  const int chunks = (L + CHUNK - 1) / CHUNK, per = chunks / slices;
+  const int k_lo = blockIdx.y * per, k_hi = k_lo + per - 1;
+  const int e_first = blockIdx.x * groups * CPB;
+  const int ngrp = min(groups, (E - e_first + CPB - 1) / CPB);  // inside E
+  const int items = per * ngrp;  // (chunk, group): chunks last first
 
-  float a[SPL], carry[SPL], dA[SPL];
+  // an item's dt, x, g (CPB channels; zeros past L and E) and each lane's
+  // checkpoint and carry in, loaded into registers while the item before
+  // computes
+  constexpr int kPer = CHUNK * CPB / kThreads;
+  static_assert(kThreads % CPB == 0 && (CHUNK * CPB) % kThreads == 0,
+                "a tile is whole rounds of the block's threads");
+  float nd[kPer], nx[kPer], ng[kPer], nh[SPL], nk[SPL];
+  // this thread's column of a staged tile and its first row; its rows
+  // step by kThreads / CPB (CPB divides kThreads)
+  constexpr int kRowStep = kThreads / CPB;
+  const int col = threadIdx.x % CPB, row = threadIdx.x / CPB;
+  auto load_item = [&](int it) {
+    const int k = k_hi - it / ngrp, e0 = e_first + (it % ngrp) * CPB;
+    const int steps = min(CHUNK, L - k * CHUNK), ce = min(CPB, E - e0);
+    const int64_t at0 =
+        (static_cast<int64_t>(b) * L + k * CHUNK + row) * E + e0 + col;
+    const int64_t step = static_cast<int64_t>(kRowStep) * E;
 #pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    const int n = j * SPL + s;
-    a[s] = (c < ce && n < N) ? A[static_cast<int64_t>(e) * N + n] : 0.f;
-    carry[s] = 0.f;
-    dA[s] = 0.f;
-  }
-
-  for (int k = chunks - 1; k >= 0; --k) {
-    const int t0 = k * CHUNK, steps = min(CHUNK, L - t0);
-    __syncthreads();  // the previous chunk's tiles are no longer read
-    for (int i = threadIdx.x; i < CHUNK * CPB; i += kThreads) {
-      const int r = i / CPB, cc = i % CPB;
-      float vd = 0.f, vx = 0.f, vg = 0.f;
-      if (r < steps && cc < ce) {
-        const int64_t at = (row0 + t0 + r) * E + e0 + cc;
-        vd = dt[at];
-        vx = x[at];
-        vg = g[at];
+    for (int u = 0; u < kPer; ++u) {
+      nd[u] = nx[u] = ng[u] = 0.f;
+      if (row + u * kRowStep < steps && col < ce) {
+        nd[u] = dt[at0 + u * step];
+        nx[u] = x[at0 + u * step];
+        ng[u] = g[at0 + u * step];
       }
-      s_dt[r][cc] = vd;
-      s_x[r][cc] = vx;
-      s_g[r][cc] = vg;
     }
-    for (int i = threadIdx.x; i < CHUNK * NP; i += kThreads) {
-      const int r = i / NP, n = i % NP;
-      float vb = 0.f, vc = 0.f;
-      if (r < steps && n < N) {
-        const int64_t at = (row0 + t0 + r) * N + n;
-        vb = Bm[at];
-        vc = Cm[at];
-      }
-      s_b[r][n] = vb;
-      s_c[r][n] = vc;
-    }
-    float h0[SPL];
+    // (b, k, e0 + c, n) of the checkpoints and carries
+    const int64_t ck =
+        ((static_cast<int64_t>(b) * chunks + k) * E + e0 + c) * N;
 #pragma unroll
     for (int s = 0; s < SPL; ++s) {
       const int n = j * SPL + s;
-      h0[s] = (c < ce && n < N)
-                  ? h_ckpt[((static_cast<int64_t>(b) * chunks + k) * E + e) *
-                               N + n]
-                  : 0.f;
+      const bool in = c < ce && n < N;
+      nh[s] = in ? h_ckpt[ck + n] : 0.f;
+      nk[s] = in && carry_in != nullptr ? carry_in[ck + n] : 0.f;
+    }
+  };
+  // chunk k's B and C rows (zeros past L and N) into s_bc[k & 1]
+  auto fetch_bc = [&](int k) {
+    const int steps = min(CHUNK, L - k * CHUNK);
+    const int64_t row0 = static_cast<int64_t>(b) * L + k * CHUNK;
+    for (int i = threadIdx.x; i < CHUNK * NP; i += kThreads) {
+      const int r = i / NP, n = i % NP;
+      const bool ok = r < steps && n < N;
+      const int64_t at = ok ? (row0 + r) * N + n : 0;
+      cp_async4(&s_bc[k & 1][0][r][n], Bm + at, ok);
+      cp_async4(&s_bc[k & 1][1][r][n], Cm + at, ok);
+    }
+    cp_async_commit();
+  };
+  fetch_bc(k_hi);
+  load_item(0);
+
+  for (int it = 0; it < items; ++it) {
+    const int k = k_hi - it / ngrp, grp = it % ngrp;
+    const int t0 = k * CHUNK, steps = min(CHUNK, L - t0);
+    const int64_t row0 = static_cast<int64_t>(b) * L + t0;  // (b, t0)
+    const int e0 = e_first + grp * CPB, ce = min(CPB, E - e0), e = e0 + c;
+    const float(*s_b)[NP] = s_bc[k & 1][0];
+    const float(*s_c)[NP] = s_bc[k & 1][1];
+    if (grp == 0) cp_async_wait<0>();  // the chunk's B and C rows
+    __syncthreads();  // the item before's tiles are no longer read
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      s_dt[row + u * kRowStep][col] = nd[u];
+      s_x[row + u * kRowStep][col] = nx[u];
+      s_g[row + u * kRowStep][col] = ng[u];
+    }
+    // the carry into the chunk's walk and the group's dA so far: from
+    // the carry pass (or zero) at the first chunk, then from the chunk
+    // after
+    float a[SPL], h0[SPL], carry[SPL], dA[SPL];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int n = j * SPL + s;
+      a[s] = (c < ce && n < N) ? A[static_cast<int64_t>(e) * N + n] : 0.f;
+      h0[s] = nh[s];
+      carry[s] = k == k_hi ? nk[s] : s_carry[grp][s][threadIdx.x];
+      dA[s] = k == k_hi ? 0.f : s_dA[grp][s][threadIdx.x];
     }
     __syncthreads();
+    // the next chunk's B and C rows into the slot the chunk before used
+    if (grp == 0 && k > k_lo) fetch_bc(k - 1);
+    if (it + 1 < items) load_item(it + 1);
 
-    // the chunk's states, as the forward computes them (steps past L
-    // are staged with dt = 0 and leave the state as it is)
-    float hs[CHUNK][SPL];
+    // the chunk's states and their decays, as the forward computes them
+    // (steps past L are staged with dt = 0 and leave the state as it is)
+    float hs[CHUNK][SPL], dec[CHUNK][SPL];
 #pragma unroll
     for (int i = 0; i < CHUNK; ++i) {
       const float dtv = s_dt[i][c];
       const float dxv = dtv * s_x[i][c];
 #pragma unroll
       for (int s = 0; s < SPL; ++s) {
-        const float decay = expf(dtv * a[s]);
+        dec[i][s] = expf(dtv * a[s]);
         const float drive = dxv * s_b[i][j * SPL + s];
-        hs[i][s] = decay * (i == 0 ? h0[s] : hs[i - 1][s]) + drive;
+        hs[i][s] = dec[i][s] * (i == 0 ? h0[s] : hs[i - 1][s]) + drive;
       }
     }
 
@@ -473,8 +696,7 @@ __global__ void __launch_bounds__(kThreads)
         const int n = j * SPL + s;
         const float dh = gv * s_c[i][n] + carry[s];
         const float hprev = i == 0 ? h0[s] : hs[i - 1][s];
-        const float decay = expf(dtv * a[s]);
-        const float dprod = (dh * hprev) * decay;
+        const float dprod = (dh * hprev) * dec[i][s];
         dA[s] = dA[s] + dprod * dtv;
         const float t1 = dprod * a[s];
         const float t2 = dh * s_b[i][n];
@@ -482,7 +704,7 @@ __global__ void __launch_bounds__(kThreads)
         sum2 = s == 0 ? t2 : sum2 + t2;
         vals[s] = dh * dxv;
         vals[SPL + s] = gv * hs[i][s];
-        carry[s] = decay * dh;
+        carry[s] = dec[i][s] * dh;
       }
       p1[i % LANES] = sum1;
       p2[i % LANES] = sum2;
@@ -496,35 +718,52 @@ __global__ void __launch_bounds__(kThreads)
       int idx = 0;
       bool writer = true;
       group_sum<V, G / 2, LANES, V>(vals, q, idx, writer);
-      if (writer) s_red[i][w][idx][j] = vals[0];
+      if (writer) {  // the chunk's groups in turn
+        float& acc = s_red[i][w][idx][j];
+        acc = grp == 0 ? vals[0] : acc + vals[0];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int n = j * SPL + s;
+      if (k > k_lo) {
+        s_carry[grp][s][threadIdx.x] = carry[s];
+        s_dA[grp][s][threadIdx.x] = dA[s];
+      } else if (c < ce && n < N) {
+        dA_part[((static_cast<int64_t>(b) * slices + blockIdx.y) * E + e) *
+                    N + n] = dA[s];
+      }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < steps * CPB; i += kThreads) {
-      const int r = i / CPB, cc = i % CPB;
-      if (cc < ce) {
-        const int64_t at = (row0 + t0 + r) * E + e0 + cc;
-        ddt[at] = s_ddt[r][cc];
-        dx[at] = s_dx[r][cc];
+    if (col < ce) {
+      const int64_t at0 = (row0 + row) * E + e0 + col;
+      const int64_t step = static_cast<int64_t>(kRowStep) * E;
+      for (int r = row, u = 0; r < steps; r += kRowStep, ++u) {
+        ddt[at0 + u * step] = s_ddt[r][col];
+        dx[at0 + u * step] = s_dx[r][col];
       }
     }
-    for (int i = threadIdx.x; i < steps * V * LANES; i += kThreads) {
-      const int r = i / (V * LANES), u = (i / LANES) % V, jj = i % LANES;
-      const int n = jj * SPL + u % SPL;
+    if (grp + 1 == ngrp) {  // the chunk's dB / dC partial: its groups'
+      // sums in s_red, the warps in order; this thread's (value, lane)
+      // is fixed, its steps go by kThreads / (V LANES)
+      constexpr int VL = V * LANES;
+      static_assert(kThreads % VL == 0, "whole rounds of (value, lane)");
+      const int u = (threadIdx.x / LANES) % V, jj = threadIdx.x % LANES;
+      const int n = jj * SPL + u % SPL, kind = u / SPL;  // 0: dB, 1: dC
       if (n < N) {
-        float sum = s_red[r][0][u][jj];
+        float* dst = part + ((static_cast<int64_t>(kind) * gridDim.z + b) *
+                                 L + t0) * blocks * N +
+                     static_cast<int64_t>(blockIdx.x) * N + n;
+        const int64_t step = static_cast<int64_t>(blocks) * N;
+        for (int r = threadIdx.x / VL; r < steps; r += kThreads / VL) {
+          float sum = s_red[r][0][u][jj];
 #pragma unroll
-        for (int ww = 1; ww < WARPS; ++ww) sum = sum + s_red[r][ww][u][jj];
-        const int kind = u / SPL;  // 0: dB, 1: dC
-        part[(((static_cast<int64_t>(kind) * gridDim.y + b) * L + t0 + r) *
-                  blocks + blockIdx.x) * N + n] = sum;
+          for (int ww = 1; ww < WARPS; ++ww)
+            sum = sum + s_red[r][ww][u][jj];
+          dst[r * step] = sum;
+        }
       }
     }
-  }
-#pragma unroll
-  for (int s = 0; s < SPL; ++s) {
-    const int n = j * SPL + s;
-    if (c < ce && n < N)
-      dA_part[(static_cast<int64_t>(b) * E + e) * N + n] = dA[s];
   }
 }
 
@@ -542,49 +781,89 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = acc;
 }
 
-int launch_sum(const float* in, float* out, int64_t R, int K, int C,
+int launch_sum(const float* in, float* out, int64_t R, int64_t K, int64_t C,
                cudaStream_t stream) {
   const int64_t n = R * C, grid = (n + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  sum_middle<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(in, out,
-                                                                  R, K, C);
+  if (grid > 0x7fffffff || K > 0x7fffffff || C > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sum_middle<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+      in, out, R, static_cast<int>(K), static_cast<int>(C));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int chunks_of(int L) {
+  return (L + Split<N>::CHUNK - 1) / Split<N>::CHUNK;
+}
+
+template <int N>
+int launch_bwd_carry(const float* dt, const float* Cm, const float* A,
+                     const float* g, float* carry, int Bsz, int L, int E,
+                     cudaStream_t stream) {
+  constexpr int CBC = CarrySplit<N>::CBC;
+  const dim3 grid((E + CBC - 1) / CBC, Bsz);
+  scan_bwd_carry<N><<<grid, kThreads, 0, stream>>>(dt, Cm, A, g, carry, L,
+                                                    E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// split != 0: one block a chunk (and `groups` channel groups), from the
+// carry pass's carries; else one block a run of `groups` channel groups
+// over all of L, the carry kept between chunks (carry unread)
+template <int N>
+int launch_bwd_chunks(const float* dt, const float* Bm, const float* Cm,
+                      const float* x, const float* A, const float* h_ckpt,
+                      const float* carry, const float* g, float* ddt,
+                      float* dx, float* part, float* dA_part, int Bsz, int L,
+                      int E, int split, int groups, cudaStream_t stream) {
+  const int chunks = chunks_of<N>(L);
+  if (chunks > 65535 || groups < 1 ||
+      groups > (split ? kBwdGroups : kWalkGroups) ||
+      (split && carry == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int span = Split<N>::CPB * groups;
+  const dim3 grid((E + span - 1) / span, split ? chunks : 1, Bsz);
+  scan_bwd_chunk<N><<<grid, kThreads, 0, stream>>>(
+      dt, Bm, Cm, x, A, h_ckpt, split ? carry : nullptr, g, ddt, dx, part,
+      dA_part, L, E, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int N>
 int launch_bwd(const float* dt, const float* Bm, const float* Cm,
                const float* x, const float* A, const float* h_ckpt,
-               const float* g, float* ddt, float* dx, float* part,
-               float* dA_part, float* dBC, float* dA, int Bsz, int L, int E,
-               cudaStream_t stream) {
-  constexpr int CPB = Split<N>::CPB;
-  const int blocks = (E + CPB - 1) / CPB;
-  const dim3 grid(blocks, Bsz);
-  scan_bwd_kernel<N><<<grid, kThreads, 0, stream>>>(
-      dt, Bm, Cm, x, A, h_ckpt, g, ddt, dx, part, dA_part, L, E);
-  int err = static_cast<int>(cudaGetLastError());
+               const float* g, float* ddt, float* dx, float* carry,
+               float* part, float* dA_part, float* dBC, float* dA, int Bsz,
+               int L, int E, int split, int groups, cudaStream_t stream) {
+  int err = 0;
+  if (split) {
+    err = launch_bwd_carry<N>(dt, Cm, A, g, carry, Bsz, L, E, stream);
+    if (err) return err;
+  }
+  err = launch_bwd_chunks<N>(dt, Bm, Cm, x, A, h_ckpt, carry, g, ddt, dx,
+                             part, dA_part, Bsz, L, E, split, groups, stream);
   if (err) return err;
-  err = launch_sum(part, dBC, 2 * static_cast<int64_t>(Bsz) * L, blocks, N,
-                   stream);
+  const int span = Split<N>::CPB * groups;
+  err = launch_sum(part, dBC, 2 * static_cast<int64_t>(Bsz) * L,
+                   (E + span - 1) / span, N, stream);
   if (err) return err;
-  return launch_sum(dA_part, dA, 1, Bsz, E * N, stream);
+  return launch_sum(dA_part, dA, 1,
+                    static_cast<int64_t>(Bsz) * (split ? chunks_of<N>(L) : 1),
+                    static_cast<int64_t>(E) * N, stream);
 }
 
-template <int N = kMaxState>
-int launch_bwd_n(int n, const float* dt, const float* Bm, const float* Cm,
-                 const float* x, const float* A, const float* h_ckpt,
-                 const float* g, float* ddt, float* dx, float* part,
-                 float* dA_part, float* dBC, float* dA, int Bsz, int L,
-                 int E, cudaStream_t stream) {
-  if (n == N) {
-    return launch_bwd<N>(dt, Bm, Cm, x, A, h_ckpt, g, ddt, dx, part, dA_part,
-                         dBC, dA, Bsz, L, E, stream);
-  }
-  if constexpr (N > 1) {
-    return launch_bwd_n<N - 1>(n, dt, Bm, Cm, x, A, h_ckpt, g, ddt, dx, part,
-                               dA_part, dBC, dA, Bsz, L, E, stream);
-  }
+// f(std::integral_constant<int, n>()): one instantiation per state size
+// 1..kMaxState
+template <int N = kMaxState, typename F>
+int with_state_size(int n, const F& f) {
+  if (n == N) return f(std::integral_constant<int, N>());
+  if constexpr (N > 1) return with_state_size<N - 1>(n, f);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool bwd_shape_ok(int Bsz, int L, int E, int N) {
+  return Bsz > 0 && Bsz <= 65535 && L > 0 && E > 0 && N > 0 &&
+         N <= kMaxState;
 }
 
 }  // namespace
@@ -608,30 +887,82 @@ extern "C" int selective_scan(const void* dt, const void* Bm, const void* Cm,
                                 stream);
 }
 
+using F = const float*;
 
 // The backward, float32 only.  dt, x, g (dL/dy): (B, L, E); Bm, Cm:
-// (B, L, N); A: (E, N); h_ckpt: the forward's (B, ceil(L / CHUNK), E, N)
-// checkpoints; all contiguous.  Writes ddt, dx (B, L, E), dBC (2, B, L,
-// N) = (dB, dC) and dA (E, N), using part (2, B, L, ceil(E / CPB), N) and
-// dA_part (B, E, N) as scratch.  Three launches on `stream`; returns the
-// first cudaError_t that is not 0, else 0.
+// (B, L, N); A: (E, N); h_ckpt: the forward's (B, chunks, E, N)
+// checkpoints, chunks = ceil(L / CHUNK); all contiguous.  Writes ddt, dx
+// (B, L, E), dBC (2, B, L, N) = (dB, dC) and dA (E, N).  split != 0: the
+// carry pass into carry (B, chunks, E, N), then one chunk kernel block a
+// (groups x CPB channels, chunk, b), groups <= kBwdGroups; split = 0: no
+// carry pass (carry may be null), one block a (groups x CPB channels, b)
+// over all of L, groups <= kWalkGroups.  Scratch: part (2, B, L, blocks,
+// N), blocks = ceil(E / (groups CPB)), and dA_part (B, split ? chunks :
+// 1, E, N).  Launches on `stream` (the carry pass, the chunk kernel, the
+// two sums); returns the first cudaError_t that is not 0, else 0.
 extern "C" int selective_scan_bwd(const void* dt, const void* Bm,
                                   const void* Cm, const void* x,
                                   const void* A, const void* h_ckpt,
                                   const void* g, void* ddt, void* dx,
-                                  void* part, void* dA_part, void* dBC,
-                                  void* dA, int Bsz, int L, int E, int N,
+                                  void* carry, void* part, void* dA_part,
+                                  void* dBC, void* dA, int Bsz, int L, int E,
+                                  int N, int split, int groups,
                                   cudaStream_t stream) {
-  if (Bsz <= 0 || Bsz > 65535 || L <= 0 || E <= 0 || N <= 0 ||
-      N > kMaxState)
+  if (!bwd_shape_ok(Bsz, L, E, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  using F = const float*;
-  return launch_bwd_n(N, static_cast<F>(dt), static_cast<F>(Bm),
-                      static_cast<F>(Cm), static_cast<F>(x),
-                      static_cast<F>(A), static_cast<F>(h_ckpt),
-                      static_cast<F>(g), static_cast<float*>(ddt),
-                      static_cast<float*>(dx), static_cast<float*>(part),
-                      static_cast<float*>(dA_part),
-                      static_cast<float*>(dBC), static_cast<float*>(dA), Bsz,
-                      L, E, stream);
+  return with_state_size(N, [&](auto n) {
+    return launch_bwd<decltype(n)::value>(
+        static_cast<F>(dt), static_cast<F>(Bm), static_cast<F>(Cm),
+        static_cast<F>(x), static_cast<F>(A), static_cast<F>(h_ckpt),
+        static_cast<F>(g), static_cast<float*>(ddt), static_cast<float*>(dx),
+        static_cast<float*>(carry), static_cast<float*>(part),
+        static_cast<float*>(dA_part), static_cast<float*>(dBC),
+        static_cast<float*>(dA), Bsz, L, E, split, groups, stream);
+  });
+}
+
+// Blocks of the chunk kernel at state size N that an SM of the current
+// device holds at once (its registers and shared memory as compiled),
+// into *blocks: the wrapper's plan weighs the walk's blocks against them.
+// Launches nothing; returns a cudaError_t.
+extern "C" int selective_scan_bwd_occupancy(int N, int* blocks) {
+  if (N <= 0 || N > kMaxState || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_state_size(N, [&](auto n) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, scan_bwd_chunk<decltype(n)::value>, kThreads, 0));
+  });
+}
+
+// The backward's first two launches on their own, to time each: the
+// carry pass (writes carry) and the chunk kernel (reads carry when split,
+// writes ddt, dx and the partials); operands as in selective_scan_bwd.
+extern "C" int selective_scan_bwd_carry(const void* dt, const void* Cm,
+                                        const void* A, const void* g,
+                                        void* carry, int Bsz, int L, int E,
+                                        int N, cudaStream_t stream) {
+  if (!bwd_shape_ok(Bsz, L, E, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_state_size(N, [&](auto n) {
+    return launch_bwd_carry<decltype(n)::value>(
+        static_cast<F>(dt), static_cast<F>(Cm), static_cast<F>(A),
+        static_cast<F>(g), static_cast<float*>(carry), Bsz, L, E, stream);
+  });
+}
+
+extern "C" int selective_scan_bwd_chunks(
+    const void* dt, const void* Bm, const void* Cm, const void* x,
+    const void* A, const void* h_ckpt, const void* carry, const void* g,
+    void* ddt, void* dx, void* part, void* dA_part, int Bsz, int L, int E,
+    int N, int split, int groups, cudaStream_t stream) {
+  if (!bwd_shape_ok(Bsz, L, E, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_state_size(N, [&](auto n) {
+    return launch_bwd_chunks<decltype(n)::value>(
+        static_cast<F>(dt), static_cast<F>(Bm), static_cast<F>(Cm),
+        static_cast<F>(x), static_cast<F>(A), static_cast<F>(h_ckpt),
+        static_cast<F>(carry), static_cast<F>(g), static_cast<float*>(ddt),
+        static_cast<float*>(dx), static_cast<float*>(part),
+        static_cast<float*>(dA_part), Bsz, L, E, split, groups, stream);
+  });
 }

@@ -13,10 +13,14 @@ no such knobs.
 When a backward will follow (autograd on and an operand requiring
 grad), the op runs as :class:`_SelectiveScan`: the forward also writes
 the float32 state at the start of every chunk of :func:`ckpt_chunk`
-steps, and the backward kernel (``selective_scan_bwd``) recomputes each
-chunk's states from those and walks it in reverse, giving the gradients
-of dt, Bm, Cm, x and A (float32 only: bfloat16 operands raise in the
-backward).  The reference's Pallas kernel has no backward; its training
+steps.  The backward (``selective_scan_bwd``, one call) recomputes
+each chunk's states from its checkpoint and walks them in reverse,
+giving the gradients of dt, Bm, Cm, x and A (float32 only: bfloat16
+operands raise in the backward).  Where one walk over L a channel block
+would leave the card short of blocks (:func:`bwd_plan`), L is split: a
+carry pass, one thread a state over all of L, writes the adjoint's carry
+into each chunk, and the chunk kernel runs one block a chunk from it.
+The reference's Pallas kernel has no backward; its training
 path differentiates the chunked scan of ``models/mamba.py`` with XLA.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor runs the
@@ -25,16 +29,18 @@ plain versions in ``ref.py``, through the same autograd Function.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
                                                     selective_scan_ref)
 
-__all__ = ["LANES", "MAX_STATE", "lane_split", "warps", "ckpt_chunk",
-           "blocks", "selective_scan"]
+__all__ = ["LANES", "MAX_STATE", "BWD_GROUPS", "WALK_GROUPS", "lane_split",
+           "warps", "ckpt_chunk", "blocks", "bwd_plan", "bwd_slots",
+           "bwd_blocks", "selective_scan"]
 
 #: the largest state size N the kernel keeps in registers
 MAX_STATE = 16
@@ -42,6 +48,12 @@ MAX_STATE = 16
 #: lanes of a warp a channel's states are spread over, at most (kLanes in
 #: the source)
 LANES = 8
+
+#: channel groups (of 128 / lanes channels) a block of the backward's
+#: chunk kernel walks in turn when L is split, and at most when it walks
+#: all of L (kBwdGroups, kWalkGroups in the source)
+BWD_GROUPS = 8
+WALK_GROUPS = 2
 
 
 def lane_split(N: int) -> tuple:
@@ -53,9 +65,31 @@ def lane_split(N: int) -> tuple:
 
 
 def blocks(E: int, N: int) -> int:
-    """Blocks of 128 threads over E channels (128 / lanes channels each),
-    a batch row: the backward's dB / dC partials a step."""
+    """The forward's blocks of 128 threads over E channels (128 / lanes
+    channels each), a batch row."""
     return -(-E // (128 // lane_split(N)[0]))
+
+
+def bwd_plan(B: int, E: int, N: int, slots: int) -> tuple:
+    """(split, groups) of the backward on a card that holds ``slots``
+    blocks of the chunk kernel at once (:func:`bwd_slots`).  One block a
+    group of 128 / lanes channels and batch row, walking all of L with
+    the carry in registers, needs no carry pass; where those blocks fill
+    the card at once the walk runs so, ``groups`` groups a block (about
+    one wave, at most WALK_GROUPS).  Where they do not (hymba-1.5b's E =
+    1600 at B = 1: 100 blocks against an H100's 264) L is split: the
+    carry pass, then one block a chunk and BWD_GROUPS groups."""
+    walk = B * -(-E // (128 // lane_split(N)[0]))
+    if walk < slots:
+        return True, BWD_GROUPS
+    return False, max(1, min(WALK_GROUPS, round(walk / slots)))
+
+
+def bwd_blocks(E: int, N: int, groups: int) -> int:
+    """The chunk kernel's blocks over E channels (``groups`` x 128 /
+    lanes channels each), a batch row and chunk: its dB / dC partials a
+    step."""
+    return -(-E // (groups * (128 // lane_split(N)[0])))
 
 
 def warps(B: int, E: int, N: int) -> int:
@@ -73,9 +107,15 @@ def ckpt_chunk(N: int) -> int:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dt, Bm, Cm, x, A, y, h_ckpt; bf16, B, L, E, N; stream
 _SIGNATURE = (_P,) * 7 + (_I,) * 5 + (_P,)
-# dt, Bm, Cm, x, A, h_ckpt, g, ddt, dx, part, dA_part, dBC, dA; B, L, E,
-# N; stream
-_BWD_SIGNATURE = (_P,) * 13 + (_I,) * 4 + (_P,)
+# dt, Bm, Cm, x, A, h_ckpt, g, ddt, dx, carry, part, dA_part, dBC, dA;
+# B, L, E, N, split, groups; stream
+_BWD_SIGNATURE = (_P,) * 14 + (_I,) * 6 + (_P,)
+# the backward's first two launches on their own (timing only): the carry
+# pass (dt, Cm, A, g, carry; B, L, E, N) and the chunk kernel (dt, Bm,
+# Cm, x, A, h_ckpt, carry, g, ddt, dx, part, dA_part; B, L, E, N, split,
+# groups); stream
+_BWD_CARRY_SIGNATURE = (_P,) * 5 + (_I,) * 4 + (_P,)
+_BWD_CHUNKS_SIGNATURE = (_P,) * 12 + (_I,) * 6 + (_P,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -120,8 +160,32 @@ def _launch(dt, Bm, Cm, x, A, ckpt: bool = False):
     return (y, h_ckpt) if ckpt else y
 
 
-def _launch_bwd(dt, Bm, Cm, x, A, h_ckpt, g) -> tuple:
-    """The backward kernel: (ddt, dBm, dCm, dx, dA), float32."""
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device: torch.device, N: int) -> int:
+    lib = build.library("selective_scan")
+    fn = lib.selective_scan_bwd_occupancy
+    fn.argtypes, fn.restype = (_I, ctypes.POINTER(_I)), _I
+    blocks = _I(0)
+    with torch.cuda.device(device):
+        err = fn(N, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd_occupancy failed: "
+                           f"cudaError_t {err}")
+    return blocks.value
+
+
+def bwd_slots(device, N: int) -> int:
+    """Blocks of the backward's chunk kernel at state size N that the
+    CUDA ``device`` holds at once: its SMs times the blocks an SM holds,
+    as the CUDA runtime works them out from the built kernel."""
+    device = torch.device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * _blocks_per_sm(device, N)
+
+
+def _launch_bwd(dt, Bm, Cm, x, A, h_ckpt, g, plan=None) -> tuple:
+    """The backward kernels: (ddt, dBm, dCm, dx, dA), float32.  ``plan``
+    (split, groups) overrides :func:`bwd_plan`'s choice for this card."""
     Bsz, L, E = x.shape
     N = Bm.shape[2]
     dev = x.device
@@ -131,16 +195,33 @@ def _launch_bwd(dt, Bm, Cm, x, A, h_ckpt, g) -> tuple:
     dA = torch.empty((E, N), dtype=torch.float32, device=dev)
     if not ddt.numel():
         return ddt, dBC.zero_()[0], dBC[1], dx, dA.zero_()
-    part = torch.empty((2, Bsz, L, blocks(E, N), N), dtype=torch.float32,
-                       device=dev)
-    dA_part = torch.empty((Bsz, E, N), dtype=torch.float32, device=dev)
+    if -(-L // ckpt_chunk(N)) > 65535:
+        raise ValueError(f"{-(-L // ckpt_chunk(N))} chunks of L = {L} "
+                         "exceed the grid's 65535")
+    split, groups = plan or bwd_plan(Bsz, E, N, bwd_slots(dev, N))
+    carry, part, dA_part = _bwd_scratch(Bsz, L, E, N, split, groups, dev)
     dispatch.launch("selective_scan", "selective_scan_bwd", _BWD_SIGNATURE,
                     dev, dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                     x.data_ptr(), A.data_ptr(), h_ckpt.data_ptr(),
                     g.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
-                    part.data_ptr(), dA_part.data_ptr(), dBC.data_ptr(),
-                    dA.data_ptr(), Bsz, L, E, N)
+                    carry.data_ptr() if split else None, part.data_ptr(),
+                    dA_part.data_ptr(), dBC.data_ptr(), dA.data_ptr(), Bsz, L,
+                    E, N, int(split), groups)
     return ddt, dBC[0], dBC[1], dx, dA
+
+
+def _bwd_scratch(Bsz, L, E, N, split, groups, dev) -> tuple:
+    """The backward's scratch, float32: the carries into each chunk (B,
+    chunks, E, N) when L is split (else None), the dB / dC partials (2,
+    B, L, bwd_blocks, N) and the dA partials (B, chunks or 1, E, N)."""
+    chunks = -(-L // ckpt_chunk(N))
+    carry = torch.empty((Bsz, chunks, E, N), dtype=torch.float32,
+                        device=dev) if split else None
+    part = torch.empty((2, Bsz, L, bwd_blocks(E, N, groups), N),
+                       dtype=torch.float32, device=dev)
+    dA_part = torch.empty((Bsz, chunks if split else 1, E, N),
+                          dtype=torch.float32, device=dev)
+    return carry, part, dA_part
 
 
 class _SelectiveScan(torch.autograd.Function):

@@ -49,12 +49,16 @@ def selective_scan_ref(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return ys.to(x.dtype), h_ckpt
 
 
-def selective_scan_bwd_ref(dt, Bm, Cm, x, A, h_ckpt, grad, ckpt_chunk: int):
+def selective_scan_bwd_ref(dt, Bm, Cm, x, A, h_ckpt, grad, ckpt_chunk: int,
+                           return_carries: bool = False):
     """The gradient of the recurrence, float32: given the forward's
     operands, its checkpoints ``h_ckpt`` (every ``ckpt_chunk`` steps) and
     ``grad`` = dL/dy (B, L, E), returns (ddt, dBm, dCm, dx, dA) shaped as
-    dt, Bm, Cm, x, A.  For each chunk, last first, the states are
-    recomputed from its checkpoint, then walked backwards:
+    dt, Bm, Cm, x, A; with ``return_carries`` also the carry each chunk's
+    reverse walk starts from, (B, chunks, E, N) (zero for the last: what
+    the backward kernel's carry pass writes).  For each chunk, last
+    first, the states are recomputed from its checkpoint, then walked
+    backwards:
 
       dh_t    = g_t·C_t + carry             (carry = decay_{t+1}·dh_{t+1})
       dprod   = (dh_t·h_{t-1})·decay_t      (the gradient of dt_t·A)
@@ -64,7 +68,8 @@ def selective_scan_bwd_ref(dt, Bm, Cm, x, A, h_ckpt, grad, ckpt_chunk: int):
       dB_t    = Σ_e dh_t·(dt_t·x_t),  dC_t = Σ_e g_t·h_t
 
     with the kernel's roundings; the sums over n and e run in torch's
-    order (the kernel's trees differ from it in the last bits)."""
+    order (the kernel's trees differ from it in the last bits), and the
+    kernel sums dA over each chunk's steps and then over (b, chunk)."""
     Bsz, L, E = x.shape
     N = A.shape[1]
     ddt = torch.empty((Bsz, L, E), dtype=torch.float32, device=x.device)
@@ -73,8 +78,11 @@ def selective_scan_bwd_ref(dt, Bm, Cm, x, A, h_ckpt, grad, ckpt_chunk: int):
     dC = torch.empty_like(dB)
     dA = torch.zeros((Bsz, E, N), dtype=torch.float32, device=x.device)
     carry = torch.zeros((Bsz, E, N), dtype=torch.float32, device=x.device)
+    carries = torch.empty_like(h_ckpt) if return_carries else None
     for k in reversed(range(h_ckpt.shape[1])):
         t0, t1 = k * ckpt_chunk, min(L, (k + 1) * ckpt_chunk)
+        if return_carries:
+            carries[:, k] = carry
         hs = [h_ckpt[:, k]]
         for t in range(t0, t1):
             hs.append(_step(hs[-1], dt[:, t], x[:, t], Bm[:, t], A))
@@ -93,4 +101,6 @@ def selective_scan_bwd_ref(dt, Bm, Cm, x, A, h_ckpt, grad, ckpt_chunk: int):
     total = dA[0]
     for b in range(1, Bsz):
         total = total + dA[b]
+    if return_carries:
+        return ddt, dB, dC, dx, total, carries
     return ddt, dB, dC, dx, total

@@ -7,7 +7,8 @@ checks; the kernel source in the build.  The backward: the plain
 backward (which the backward kernel is held to on the card) against
 ``jax.vjp`` of the reference's scan and torch autograd of the plain
 forward, the forward's state checkpoints, the autograd Function's glue
-on the CPU route.
+on the CPU route, and the backward kernels' order emulated (a carry
+pass over all of L, then every chunk on its own) against both.
 
 Inputs are drawn with numpy as tests/test_kernels.py draws them with
 jax.random: dt = softplus(normal) * 0.2, B, C and x normal, A = -|normal|.
@@ -380,23 +381,195 @@ def test_bf16_backward_raises():
         y.float().sum().backward()
 
 
+# --------------------------------------------------------------------------
+# the backward kernels' order, emulated: the carry pass, then the chunks
+# --------------------------------------------------------------------------
+
+def _carry_pass(dt, Cm, A, g, chunk):
+    """The carry pass written out: one walk over t = L-1 .. chunk of
+    dh = g·C + carry, carry = decay·dh, rounded as the plain backward
+    rounds.  Returns the carry that enters each chunk's reverse walk,
+    (B, chunks, E, N), zero for the last chunk."""
+    Bsz, L, E = dt.shape
+    chunks = -(-L // chunk)
+    out = torch.empty((Bsz, chunks, E, A.shape[1]))
+    carry = torch.zeros((Bsz, E, A.shape[1]))
+    out[:, chunks - 1] = carry
+    for t in reversed(range(chunk, L)):
+        dh = g[:, t, :, None] * Cm[:, t, None, :] + carry
+        carry = torch.exp(dt[:, t, :, None] * A[None]) * dh
+        if t % chunk == 0:
+            out[:, t // chunk - 1] = carry
+    return out
+
+
+def _chunked_bwd(dt, Bm, Cm, x, A, h_ckpt, g, chunk, split):
+    """The backward in the kernels' order.  ``split``: the carry pass
+    over all of L, then each chunk on its own, its states recomputed
+    from its checkpoint and walked backwards from its carry, dA summed
+    over the chunk's steps (the last first) into a partial, and the
+    partials summed over (b, chunk) in index order.  Else one walk over
+    the chunks, last first, with the carry and dA kept between them, and
+    dA's partials summed over b.  The products and the sums over n and e
+    are the plain backward's, so only dA's order can differ."""
+    Bsz, L, E = x.shape
+    N = A.shape[1]
+    chunks = -(-L // chunk)
+    carries = _carry_pass(dt, Cm, A, g, chunk) if split else None
+    ddt, dx = torch.empty((Bsz, L, E)), torch.empty((Bsz, L, E))
+    dB, dC = torch.empty((Bsz, L, N)), torch.empty((Bsz, L, N))
+    dA_part = torch.empty((Bsz, chunks if split else 1, E, N))
+    carry = dA = torch.zeros((Bsz, E, N))
+    for k in reversed(range(chunks)):  # split: any order, each chunk alone
+        t0, t1 = k * chunk, min(L, (k + 1) * chunk)
+        hs = [h_ckpt[:, k]]
+        for t in range(t0, t1):
+            decay = torch.exp(dt[:, t, :, None] * A[None])
+            drive = (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+            hs.append(decay * hs[-1] + drive)
+        if split:
+            carry, dA = carries[:, k], torch.zeros((Bsz, E, N))
+        for t in reversed(range(t0, t1)):
+            dt_t, x_t, g_t = dt[:, t], x[:, t], g[:, t]
+            dh = g_t[..., None] * Cm[:, t, None, :] + carry
+            decay = torch.exp(dt_t[..., None] * A[None])
+            dprod = (dh * hs[t - t0]) * decay
+            dA = dA + dprod * dt_t[..., None]
+            dbx = torch.sum(dh * Bm[:, t, None, :], dim=-1)
+            ddt[:, t] = torch.sum(dprod * A[None], dim=-1) + x_t * dbx
+            dx[:, t] = dt_t * dbx
+            dB[:, t] = torch.sum(dh * (dt_t * x_t)[..., None], dim=1)
+            dC[:, t] = torch.sum(g_t[..., None] * hs[t - t0 + 1], dim=1)
+            carry = decay * dh
+        if split or k == 0:
+            dA_part[:, k if split else 0] = dA
+    flat = dA_part.reshape(-1, E, N)
+    total = flat[0]
+    for i in range(1, flat.shape[0]):
+        total = total + flat[i]
+    return ddt, dB, dC, dx, total
+
+
+@pytest.mark.parametrize("B,L,E,N", BWD_CASES)
+def test_carry_pass_gives_the_plain_backward_carries(B, L, E, N):
+    """The carry pass over all of L writes, bit for bit, the carry the
+    plain backward starts each chunk's reverse walk from."""
+    ins, g = _bwd_inputs(B, L, E, N, seed=L + E + 2)
+    tins = _t(*ins)
+    chunk = sk.ckpt_chunk(N)
+    _, h = selective_scan_ref(*tins, ckpt_chunk=chunk)
+    *_, want = selective_scan_bwd_ref(*tins, h, torch.from_numpy(g), chunk,
+                                      return_carries=True)
+    got = _carry_pass(tins[0], tins[2], tins[4], torch.from_numpy(g), chunk)
+    assert got.shape == want.shape == h.shape
+    assert not want[:, -1].any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B,L,E,N", BWD_CASES)
+def test_chunked_backward_order_matches_plain_and_jax(B, L, E, N, split):
+    """The kernels' order against the plain backward (ddt, dB, dC, dx bit
+    for bit: the same dh and the same terms; dA too for the one walk over
+    L, and within BWD_RTOL when L is split: another order of its sum) and
+    against jax.vjp of the reference's scan (every gradient within
+    BWD_RTOL)."""
+    ins, g = _bwd_inputs(B, L, E, N, seed=L + E)
+    tins = _t(*ins)
+    chunk = sk.ckpt_chunk(N)
+    _, h = selective_scan_ref(*tins, ckpt_chunk=chunk)
+    got = _chunked_bwd(*tins, h, torch.from_numpy(g), chunk, split)
+    plain = selective_scan_bwd_ref(*tins, h, torch.from_numpy(g), chunk)
+    for a, p in zip(got[:4], plain[:4]):
+        assert torch.equal(a, p)
+    if split:
+        assert _rel_max(got[4], plain[4]) <= BWD_RTOL
+    else:
+        assert torch.equal(got[4], plain[4])
+    _, vjp = jax.vjp(_jref, *ins)
+    for a, w in zip(got, vjp(g)):
+        assert a.shape == w.shape
+        assert _rel_max(a, w) <= BWD_RTOL
+
+
+def test_backward_plan_splits_only_a_short_grid():
+    """The one walk over L where its blocks (a batch row and 128 / lanes
+    channels each) fill the card at once: on an H100 (132 SMs, two chunk
+    kernel blocks each, 264 slots) falcon-mamba-7b's train shape (512
+    blocks) walks, two groups a block; hymba-1.5b's (100 blocks) splits
+    L, BWD_GROUPS a block."""
+    slots = 132 * 2
+    assert sk.WALK_GROUPS == 2
+    assert sk.bwd_plan(1, 8192, 16, slots) == (False, 2)
+    assert sk.bwd_plan(2, 8192, 16, slots) == (False, sk.WALK_GROUPS)
+    assert sk.bwd_plan(1, 1600, 16, slots) == (True, sk.BWD_GROUPS)
+    assert sk.bwd_plan(1, 16 * 263, 16, slots) == (True, sk.BWD_GROUPS)
+    assert sk.bwd_plan(1, 16 * 264, 16, slots) == (False, 1)
+    assert sk.bwd_plan(64, 8192, 16, slots) == (False, sk.WALK_GROUPS)
+    assert sk.bwd_plan(1, 5, 3, slots) == (True, sk.BWD_GROUPS)
+    # a card that holds more blocks at once splits a wider grid; one that
+    # holds fewer walks it
+    assert sk.bwd_plan(1, 8192, 16, 132 * 4) == (True, sk.BWD_GROUPS)
+    assert sk.bwd_plan(1, 8192, 16, 132) == (False, 2)
+
+
+def test_backward_scratch_shapes():
+    """The backward's scratch as the source's comment lays it out: the
+    carries (split only) and dA partials as the checkpoints (one dA
+    partial a batch row for the one walk), the dB / dC partials one a
+    block of ``groups`` x 128 / lanes channels."""
+    for (B, L, E, N), split, groups, nblk in (
+            ((1, 4096, 1600, 16), True, 8, 13),
+            ((1, 4096, 8192, 16), False, 2, 256),
+            ((2, 45, 130, 1), True, 8, 1), ((1, 9, 5, 3), False, 1, 1)):
+        carry, part, dA_part = sk._bwd_scratch(B, L, E, N, split, groups,
+                                               "cpu")
+        chunks = -(-L // sk.ckpt_chunk(N))
+        assert (carry is not None) == split
+        if split:
+            assert carry.shape == (B, chunks, E, N)
+        assert dA_part.shape == (B, chunks if split else 1, E, N)
+        assert part.shape == (2, B, L, nblk, N)
+        assert sk.bwd_blocks(E, N, groups) == nblk
+
+
 def test_build_names_the_kernel_source():
     src = pathlib.Path(build.__file__).parent / build.SOURCES["selective_scan"]
     assert src.name == "selective_scan.cu" and src.exists()
     text = src.read_text()
     assert re.search(r'extern "C" int selective_scan\(', text)
     assert re.search(r'extern "C" int selective_scan_bwd\(', text)
+    # the backward's two kernels on their own (timing): the carry pass and
+    # the chunk kernel
+    assert re.search(r'extern "C" int selective_scan_bwd_carry\(', text)
+    assert re.search(r'extern "C" int selective_scan_bwd_chunks\(', text)
+    # the plan's blocks an SM come from the CUDA runtime, not a copied count
+    assert re.search(r'extern "C" int selective_scan_bwd_occupancy\(int N, '
+                     r'int\* blocks\)', text)
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor(" in text
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--fmad=false" in build.NVCC_FLAGS
     # the accurate expf: no fast exp, no fast-math build
     assert "expf(" in text and "__expf(" not in text
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
     assert f"kMaxState = {MAX_STATE};" in text
+    assert f"constexpr int kBwdGroups = {sk.BWD_GROUPS};" in text
+    assert f"constexpr int kWalkGroups = {sk.WALK_GROUPS};" in text
+    # the carry pass's steps a group, cut to the chunk, divide both chunk
+    # sizes and go 4 to a load
+    steps = int(re.search(r"constexpr int kCarrySteps = (\d+);",
+                          text).group(1))
+    for chunk in (16, 32):
+        assert chunk % min(steps, chunk) == 0 and min(steps, chunk) % 4 == 0
     # ckpt_chunk copies Split<N>::CHUNK; the backward's two reduction
     # kernels sum in index order, with no float atomics
     assert "CHUNK = 2048 / CPB < 32 ? 2048 / CPB : 32;" in text
     assert "atomicAdd" not in text
     # the ctypes signatures: forward seven pointers (h_ckpt may be null),
-    # five ints, the stream; backward thirteen pointers, four ints, the
-    # stream
-    assert len(sk._SIGNATURE) == 13 and len(sk._BWD_SIGNATURE) == 18
+    # five ints, the stream; backward fourteen pointers (the carries'
+    # scratch added), six ints (split and groups added), the stream; its
+    # carry pass five pointers and four ints, its chunk kernel twelve and
+    # six, and the stream
+    assert len(sk._SIGNATURE) == 13 and len(sk._BWD_SIGNATURE) == 21
+    assert len(sk._BWD_CARRY_SIGNATURE) == 10
+    assert len(sk._BWD_CHUNKS_SIGNATURE) == 19
