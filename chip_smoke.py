@@ -102,7 +102,32 @@ these phases and fails (non-zero exit, no result line) on any error:
   model grad  a 2-layer hymba-1.5b at full width on 512 tokens: the
            card's loss and gradient (the scan kernels) against the CPU's
            (the chunked scan under autograd) from the same params, each
-           leaf within 1e-4 x its max.
+           leaf within 1e-4 x its max;
+  paper fedavg  paper Fig 7 on the logistic regression (5 clients, d =
+           124): L2GD at agg_scale 1 (400 steps) against FedAvg (200
+           rounds), gap < 0.1; FedAvg with the flat QSGD compressed
+           difference (qsgd_fused, one launch a client and round) and
+           FedOpt (100 rounds each); error feedback with top-k inside
+           L2GD against plain top-k; a 3 x 3 (p, lambda) grid of natural
+           rollouts (natural_pack, natural_reduce, natural_fused); every
+           run on the card against the port's CPU run: equal ledgers, xi
+           traces and branch counts, final losses within 1e-3;
+  fedavg lm  stablelm-1.6b at full width and depth (f32, remat, dense
+           attention), 2 clients x one 4096-token sequence a round:
+           run_fedavg 2 rounds with the leafwise QSGD difference and its
+           EF memory (44 qsgd_dequantized launches), run_fedopt 2 rounds
+           (server Adam, exact deltas, no kernel): seconds a round, a
+           profile of a FedAvg round, peak <= 70 GB, the ledger exact;
+  async width  the width trainer (8 clients x d = 411,060,224, packed
+           uplink) on the async fault engine, QSGD then natural: the null
+           plan equal in value to the synchronous run (flat and packed
+           downlink); a chaos run (latency, drops, crashes, quorum 0.75,
+           participation 0.75, stragglers folded at staleness weights
+           0.5 and 0.25 by the reduce kernel): events conserved, the
+           ledger from the delivery counts, peak <= 70 GB; participation
+           0.5: half a round's bits; the chaos run at d = 1,057,408 on
+           the card against the CPU (equal events and ledger; natural
+           params equal in value, QSGD within one level).
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -222,6 +247,19 @@ TRAIN_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
 # the reduced models' gradients hold 2e-5 against jax.grad on the CPU
 MODEL_GRAD_LAYERS, MODEL_GRAD_S = 2, 512
 MODEL_GRAD_RTOL = 1e-4
+# phase paper fedavg: benchmarks/bench_fig7_fedavg_recovery.py's sizes (5
+# clients, L2GD 400 steps, FedAvg 200 rounds; the compressed FedAvg and
+# FedOpt half as many) and a 3 x 3 (p, lambda) grid of 100-step rollouts
+FIG7_N, FIG7_STEPS, FIG7_ROUNDS = 5, 400, 200
+GRID_PS, GRID_LAMS, GRID_STEPS = (0.2, 0.5, 0.8), (0.5, 2.0, 10.0), 100
+# phase fedavg lm: rounds of FedAvg and of FedOpt on stablelm-1.6b
+FEDAVG_ROUNDS = 2
+# phase async width: the chaos run's forced xi (5 fresh rounds) and the
+# reduced tree of its card-against-CPU check (vocab, d_model, d_ff,
+# layers): d = 5120 * 128 + 128 + 2 * (4 * 128^2 + 3 * 128 * 352 + 2 * 128)
+CHAOS_XI = [0, 1] * 5
+ASYNC_DIMS = (5120, 128, 352, 2)
+ASYNC_D = 1_057_408
 
 
 def log(msg):
@@ -555,11 +593,13 @@ def phase_leafwise(dev):
 # phase width: the trainer at stablelm-1.6b width
 # --------------------------------------------------------------------------
 
-def width_tree(n, make):
-    """The stacked parameter tree, every leaf from ``make(shape)``."""
-    L, D, F = LAYERS, D_MODEL, D_FF
+def width_tree(n, make, dims=None):
+    """The stacked parameter tree, every leaf from ``make(shape)``; ``dims``
+    (vocab, d_model, d_ff, layers) default to stablelm-1.6b's at 4
+    layers."""
+    V, D, F, L = dims or (VOCAB, D_MODEL, D_FF, LAYERS)
     return {
-        "embed": {"table": make((n, VOCAB, D))},
+        "embed": {"table": make((n, V, D))},
         "final_norm": {"scale": make((n, D))},
         "layers": {
             "attn": {k: make((n, L, D, D)) for k in ("wq", "wk", "wv", "wo")},
@@ -571,20 +611,25 @@ def width_tree(n, make):
     }
 
 
-def width_objective(dev, n):
+def width_objective(dev, n, dims=None, host_seeds=False):
     """(seeded leaf maker, targets tree, grad_fn) of the width phases:
     f_i(w) = 0.5 ||w - a_i||^2 over every leaf (the quadratic fixture of
-    tests/conftest.py), targets a_i ~ N(0, 1) from seed 1."""
+    tests/conftest.py), targets a_i ~ N(0, 1) from seed 1; ``dims`` as in
+    width_tree.  ``host_seeds`` draws on the CPU and moves the values to
+    ``dev``, so that a card run and a CPU run start from the same ones."""
     import torch
     from repro_torch.core.tree import tree_map
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if host_seeds else dev)
 
     def seeded(seed, scale):
         gen.manual_seed(seed)
+        if host_seeds:
+            return lambda shape: torch.randn(shape, generator=gen) \
+                .mul_(scale).to(dev)
         return lambda shape: torch.randn(shape, generator=gen, device=dev) \
             .mul_(scale)
 
-    targets = width_tree(n, seeded(1, 1.0))
+    targets = width_tree(n, seeded(1, 1.0), dims)
 
     def grad_fn(params, batch):
         # the norm avoids a squared temporary
@@ -2194,6 +2239,542 @@ def phase_model_grad(dev):
         f"{worst:.3g} x its max (bound {MODEL_GRAD_RTOL})")
 
 
+# --------------------------------------------------------------------------
+# phase paper fedavg: Fig 7 (FedAvg as L2GD at agg_scale 1), FedOpt, the
+# compressed-difference FedAvg, error feedback and the (p, lambda) grid on
+# the logistic-regression fixture, the card against the port on the CPU
+# --------------------------------------------------------------------------
+
+def fig7_problem(device):
+    """(X, Y, stacked grad_fn, one client's grad_fn, mean loss of a stacked
+    w, mean loss of a global w) of benchmarks/bench_fig7_fedavg_recovery.py
+    (logistic regression, 5 clients, d = 124, seed 0) on ``device``."""
+    import torch
+    from repro_torch.data import logreg_loss_and_grad, make_logreg_data
+
+    data = make_logreg_data(n_clients=FIG7_N, seed=0)
+    X = torch.from_numpy(data.features).to(device)
+    Y = torch.from_numpy(data.labels).to(device)
+
+    def grad_fn(p, b):
+        loss, g = logreg_loss_and_grad(p["w"], b[0], b[1], 0.01)
+        return loss, {"w": g}
+
+    def mean_loss(w):
+        return float(torch.mean(logreg_loss_and_grad(w, X, Y, 0.01)[0]))
+
+    return X, Y, grad_fn, mean_loss
+
+
+def paper_fedavg_runs(device):
+    """Every run of the phase on ``device``: {name: (run, final loss)} and
+    the grid's (states, traces, per-cell final losses)."""
+    import torch
+    from repro_torch.core import (L2GDHyper, hyper_grid, make_compressor,
+                                  prng, rollout_l2gd_grid)
+    from repro_torch.fl import run_fedavg, run_fedopt, run_l2gd
+
+    X, Y, grad_fn, mean_loss = fig7_problem(device)
+    n, p, eta = FIG7_N, 0.5, 0.5
+    hp = L2GDHyper(eta=eta, lam=n * p / eta, p=p, n=n)
+    check(abs(float(hp.agg_scale) - 1.0) < 1e-6, "agg_scale")
+    out = {}
+    run = run_l2gd(prng.PRNGKey(0), {"w": torch.zeros(n, 124)}, grad_fn, hp,
+                   lambda k: (X, Y), FIG7_STEPS, device=device)
+    out["l2gd"] = (run, mean_loss(run.state.params["w"]))
+    batches = lambda r, i: [(X[i], Y[i])]
+    lr = eta / (n * (1 - p))
+    for name, fn, kw in (
+            ("fedavg", run_fedavg, {}),
+            ("fedavg qsgd", run_fedavg,
+             {"compressor": make_compressor("qsgd")}),
+            ("fedopt", run_fedopt, {"server_lr": 0.05})):
+        rounds = FIG7_ROUNDS if name == "fedavg" else FIG7_ROUNDS // 2
+        fed = fn(prng.PRNGKey(1), {"w": torch.zeros(124)}, grad_fn, batches,
+                 n, rounds, local_lr=lr, device=device, **kw)
+        out[name] = (fed, mean_loss(fed.params["w"][None]))
+    rule = lambda P, L: np.minimum(0.4, n * P / L)
+    hp_grid, _ = hyper_grid(GRID_PS, GRID_LAMS, rule, n)
+    comp = make_compressor("natural")
+    states, traces = rollout_l2gd_grid(
+        prng.PRNGKey(2), {"w": torch.zeros(n, 124, device=device)}, hp_grid,
+        (X, Y), grad_fn=grad_fn, steps=GRID_STEPS, client_comp=comp,
+        master_comp=comp, batch_axis=None)
+    losses = [mean_loss(w) for w in states.params["w"]]
+    return out, (states, traces, losses)
+
+
+def ef_quadratic(device, use_ef, steps=3000, tail=500):
+    """tests/test_extensions.py's error-feedback check on ``device``: L2GD
+    on the quadratic (8 clients, d = 32) with top-k 10% and (``use_ef``)
+    the EF memory or without; the relative distance of the tail-averaged
+    models from x*."""
+    import torch
+    from repro_torch.core import (L2GDHyper, aggregation_update,
+                                  compressed_average, local_update,
+                                  make_compressor, prng)
+    from repro_torch.core.extensions import ef_average, init_ef_memory
+
+    n, d = 8, 32
+    A = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, d)).astype(np.float32)).to(device)
+    hp = L2GDHyper(eta=0.3, lam=1.0, p=0.3, n=n)
+    comp, ident = make_compressor("topk", fraction=0.1), \
+        make_compressor("identity")
+    xstar = (A + hp.lam * A.mean(0)) / (1 + hp.lam)
+    rng = np.random.default_rng(0)
+    params = {"w": torch.zeros(n, d, device=device)}
+    mem = init_ef_memory(params)
+    key = prng.PRNGKey(1)
+    cache = {"w": torch.zeros(d, device=device)}
+    avg, xi_prev = torch.zeros(n, d, device=device), 1
+    for t in range(steps):
+        key, sub = prng.split(key)
+        xi = int(rng.random() < hp.p)
+        if xi == 0:
+            params = local_update(params, {"w": params["w"] - A}, hp)
+        else:
+            if xi_prev == 0:
+                if use_ef:
+                    cache, mem = ef_average(sub, params, mem, comp, ident)
+                else:
+                    cache = compressed_average(sub, params, comp, ident)
+            params = aggregation_update(params, cache, hp)
+        xi_prev = xi
+        if t >= steps - tail:
+            avg += params["w"]
+    return float(torch.linalg.norm(avg / tail - xstar)
+                 / torch.linalg.norm(xstar))
+
+
+def phase_paper_fedavg(dev):
+    """Paper Fig 7 and the rest of the paper's protocol on the card: L2GD
+    at agg_scale 1 (400 steps) against FedAvg (200 rounds at the matched
+    local rate; the gap < 0.1 as benchmarks/bench_fig7_fedavg_recovery.py
+    asserts), the compressed-difference FedAvg with flat QSGD (one
+    qsgd_fused launch a client and round), FedOpt, error feedback with
+    top-k inside L2GD against plain top-k, and a 3 x 3 (p, lambda) grid of
+    natural-compressed rollouts (auto plans: natural_pack and
+    natural_reduce up, natural_fused down, one each a fresh round).  Each
+    run on the card against the same run of the port on the CPU: equal
+    ledgers, xi traces and branch counts, final losses within
+    PAPER_LOSS_RTOL."""
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    reset_launches()        # the paper fedavg main path starts here
+    (gpu, (gstates, gtraces, glosses)), gpu_s = timed(
+        lambda: paper_fedavg_runs(dev))
+    launches = dict(LAUNCHES)   # and ends here
+    t0 = time.perf_counter()
+    cpu, (cstates, ctraces, closses) = paper_fedavg_runs("cpu")
+    cpu_s = time.perf_counter() - t0
+    for name, (run, loss) in gpu.items():
+        crun, closs = cpu[name]
+        check(run.ledger == crun.ledger, f"{name}: ledgers differ")
+        if name == "l2gd":
+            same_protocol(run, crun, "fig7 l2gd")
+        check(np.isfinite(loss) and abs(loss - closs)
+              <= PAPER_LOSS_RTOL * abs(closs),
+              f"{name}: final loss {loss} vs CPU {closs}")
+    gap = abs(gpu["l2gd"][1] - gpu["fedavg"][1])
+    check(gap < 0.1, f"fig7 gap {gap}")
+    check(gpu["fedopt"][1] < gpu["fedopt"][0].losses[0][1],
+          "fedopt: the loss did not fall")
+    for f in ("xis", "branches", "n_local", "n_agg_comm", "n_agg_cached"):
+        check(np.array_equal(getattr(gtraces, f), getattr(ctraces, f)),
+              f"grid {f} differ")
+    check(np.all(np.abs(np.asarray(glosses) - np.asarray(closses))
+                 <= PAPER_LOSS_RTOL * np.abs(np.asarray(closses))),
+          f"grid losses {glosses} vs CPU {closses}")
+    fresh = int(np.sum(gtraces.n_agg_comm))
+    want = {"qsgd_fused": FIG7_N * FIG7_ROUNDS // 2,
+            "natural_pack": fresh, "natural_reduce": fresh,
+            "natural_fused": fresh}
+    check(launches == want, f"paper fedavg launches {launches}, the path "
+          f"implies {want}")
+    t0 = time.perf_counter()
+    ef = {(d, use): ef_quadratic(d, use) for d in (dev, "cpu")
+          for use in (True, False)}
+    ef_s = time.perf_counter() - t0
+    for d in (dev, "cpu"):
+        check(ef[(d, True)] < ef[(d, False)],
+              f"error feedback on {d}: {ef[(d, True)]} vs plain top-k "
+              f"{ef[(d, False)]}")
+    log(f"phase paper fedavg: fig7 L2GD at agg_scale 1 ({FIG7_STEPS} steps) "
+        f"{gpu['l2gd'][1]:.6f} (CPU {cpu['l2gd'][1]:.6f}) against FedAvg "
+        f"({FIG7_ROUNDS} rounds) {gpu['fedavg'][1]:.6f} (CPU "
+        f"{cpu['fedavg'][1]:.6f}): gap {gap:.4f} (< 0.1); FedAvg with "
+        f"flat QSGD {gpu['fedavg qsgd'][1]:.6f} ({FIG7_ROUNDS // 2} "
+        f"rounds, bits/n {gpu['fedavg qsgd'][0].ledger.bits_per_client:.6e}); "
+        f"FedOpt {gpu['fedopt'][1]:.6f} (start "
+        f"{gpu['fedopt'][0].losses[0][1]:.6f}); grid 3 x 3 natural, "
+        f"{GRID_STEPS} steps a cell, {fresh} fresh rounds, final losses "
+        f"{[round(v, 4) for v in glosses]}; card {gpu_s:.1f} s, CPU "
+        f"{cpu_s:.1f} s; error feedback (top-k 10%) / plain top-k "
+        f"distance to x*: card {ef[(dev, True)]:.4f} / "
+        f"{ef[(dev, False)]:.4f}, CPU {ef[('cpu', True)]:.4f} / "
+        f"{ef[('cpu', False)]:.4f} ({ef_s:.1f} s); launches {launches}")
+
+
+# --------------------------------------------------------------------------
+# phase fedavg lm: FedAvg and FedOpt on stablelm-1.6b at full width and
+# depth
+# --------------------------------------------------------------------------
+
+def phase_fedavg_lm(dev):
+    """stablelm-1.6b at full width and depth, f32, remat on, dense
+    attention, 2 clients x one 4096-token sequence of the token stream a
+    round: run_fedavg 2 rounds (one local SGD step a client) with the
+    leafwise QSGD compressed difference and its EF memory (one
+    qsgd_dequantized launch a leaf, client and round: 44), then run_fedopt
+    2 rounds (Adam on the server, exact deltas: no kernel).  Seconds a
+    round, a profile of one more FedAvg round (the draws' share), peak
+    memory; the ledger exact, params and losses finite, FedOpt's params
+    not FedAvg's, peak <= 70 GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import QSGD, make_plan, prng
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import TokenStream
+    from repro_torch.fl import run_fedavg, run_fedopt
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import param_shapes, stacked_grad_fn
+    from repro_torch.models import init_params
+
+    cfg = get_config("stablelm-1.6b")
+    check(cfg.remat and cfg.attn_impl == "dense", "the phase's configuration")
+    n = TRAIN_CLIENTS
+    stacked = stacked_grad_fn(cfg)
+
+    def grad_fn(p, b):
+        # one client: the stacked gradient at a client axis of 1 (views)
+        losses, grads = stacked(tree_map(lambda a: a[None], p),
+                                tree_map(lambda a: a[None], b))
+        return losses[0], tree_map(lambda g: g[0], grads)
+
+    stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
+                         seq=TRAIN_S)
+    batches = lambda r, i: [{"tokens": stream.batch_at(r)[i]}]
+    shapes = param_shapes(cfg)
+    up_bits = make_plan(QSGD(), shapes, transport="leafwise").round_bits()
+    down_bits = 32.0 * STABLELM_PARAMS
+    stamps = []
+
+    def stamp(params):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return 0.0
+
+    def fed(fn, rounds, **kw):
+        stamps.clear()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        run = fn(prng.PRNGKey(4), init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, dev), grad_fn,
+            batches, n, rounds, local_lr=0.05, eval_fn=stamp, eval_every=1,
+            device=dev, **kw)
+        return run, [float(t) for t in np.diff(stamps)]
+
+    plan = make_plan(QSGD(), transport="leafwise")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()            # the FedAvg main path starts here
+    avg, avg_s = fed(run_fedavg, FEDAVG_ROUNDS, compressor=plan)
+    launches = dict(LAUNCHES)   # and ends here
+    avg_peak = torch.cuda.max_memory_allocated(dev)
+    want = {"qsgd_dequantized": FEDAVG_ROUNDS * n * STABLELM_LEAVES}
+    check(launches == want, f"fedavg lm launches {launches}, the path "
+          f"implies {want}")
+    check(avg.ledger.rounds == FEDAVG_ROUNDS
+          and avg.ledger.uplink_bits_per_client == FEDAVG_ROUNDS * up_bits
+          and avg.ledger.downlink_bits_per_client
+          == FEDAVG_ROUNDS * down_bits, "fedavg lm ledger")
+    check(all(np.isfinite(v) for _, v in avg.losses), "fedavg lm losses")
+    for leaf in tree_leaves(avg.params):
+        check(bool(torch.isfinite(leaf).all()), "fedavg lm params")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()            # the FedOpt path: exact deltas, no kernel
+    opt, opt_s = fed(run_fedopt, FEDAVG_ROUNDS, server_lr=1e-3)
+    check(not LAUNCHES, f"fedopt lm launched {dict(LAUNCHES)}")
+    opt_peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(v) for _, v in opt.losses), "fedopt lm losses")
+    differ = False
+    for a, b in zip(tree_leaves(opt.params), tree_leaves(avg.params)):
+        check(bool(torch.isfinite(a).all()), "fedopt lm params")
+        differ = differ or not torch.equal(a, b)
+    check(differ, "fedopt's params equal fedavg's")
+    check(max(avg_peak, opt_peak) <= TRAIN_PEAK,
+          f"fedavg lm peak {avg_peak / 1e9:.2f} / {opt_peak / 1e9:.2f} GB")
+    log(f"phase fedavg lm: stablelm-1.6b, 24 layers, {n} clients x one "
+        f"{TRAIN_S}-token sequence a round, one local SGD step a client; "
+        f"FedAvg (leafwise QSGD difference, EF memory) seconds a round "
+        f"{[round(t, 3) for t in avg_s]}, mean client losses "
+        f"{[round(v, 5) for _, v in avg.losses]}, peak "
+        f"{avg_peak / 1e9:.2f} GB, launches {launches}; FedOpt (Adam, exact "
+        f"deltas) seconds a round {[round(t, 3) for t in opt_s]}, losses "
+        f"{[round(v, 5) for _, v in opt.losses]}, peak "
+        f"{opt_peak / 1e9:.2f} GB; bits/n a round {up_bits:.0f} up + "
+        f"{down_bits:.0f} down")
+    del avg, opt
+    torch.cuda.empty_cache()
+    out = []
+    (wall_ms, by_kind, count), prof_s = timed(lambda: train_profile(
+        lambda: out.append(fed(run_fedavg, 1, compressor=plan))))
+    log(train_line("fedavg lm (qsgd) one round", wall_ms, by_kind, count)
+        + f" (the profiled call {prof_s:.1f} s)")
+    del out
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# phase async width: partial participation and the async fault engine on
+# the width trainer
+# --------------------------------------------------------------------------
+
+def host_copy(tree):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda a: a.cpu(), tree)
+
+
+def equal_by_value(tree, host, dev):
+    """Every leaf of ``tree`` equals ``host``'s (on the CPU) in value:
+    -0.0 == +0.0, as the keystone compares."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    return all(torch.equal(a, b.to(dev))
+               for a, b in zip(tree_leaves(tree), tree_leaves(host)))
+
+
+def async_width_run(dev, name, down_transport, xi, *, faults=None,
+                    participation=None, seeded, targets, grad_fn, n,
+                    dims=None):
+    """One run_l2gd of the width trainer (packed uplink): (run, ms a step,
+    peak bytes, launches)."""
+    import torch
+    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    comp = make_compressor(name)
+    one = width_tree(1, lambda s: torch.empty(s[1:], device="meta"), dims)
+    up = make_plan(comp, one, transport="packed")
+    down = make_plan(comp, one, transport=down_transport)
+    before = dict(LAUNCHES)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = run_l2gd(prng.PRNGKey(0), width_tree(n, seeded(0, 0.02), dims),
+                   grad_fn, L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n),
+                   lambda k: targets, len(xi), plan=(up, down), xi_trace=xi,
+                   participation=participation, faults=faults, device=dev)
+    peak = 0
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+    ms = (time.perf_counter() - t0) / len(xi) * 1e3
+    launches = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                if v - before.get(k, 0)}
+    return run, ms, peak, launches
+
+
+def width_launches(name, down_transport, fresh, late_folds=0):
+    """The kernels a width run launches: the packed uplink's pack (one
+    launch for all clients) and a weighted reduce a fresh round, plus
+    ``late_folds`` reduces of stragglers into the delay buffer, the
+    downlink's fused kernel (flat) or pack and, for QSGD, unpack (packed;
+    natural merges in plain PyTorch)."""
+    p = "qsgd" if name == "qsgd" else "natural"
+    want = {f"{p}_pack": fresh, f"{p}_reduce": fresh + late_folds}
+    if down_transport == "flat":
+        want[f"{p}_fused"] = fresh
+    else:
+        want[f"{p}_pack"] += fresh
+        if name == "qsgd":
+            want["qsgd_unpack"] = fresh
+    return want
+
+
+def chaos_plan():
+    from repro_torch.fl import FaultPlan, geometric_latency_probs
+    return FaultPlan(max_delay=2, latency_probs=geometric_latency_probs(1.0, 3),
+                     drop_rate=0.1, crash_rate=0.05, quorum=0.75,
+                     staleness_decay=0.5)
+
+
+def chaos_late_folds(n, xi, participation):
+    """The straggler reduces of a chaos run: one for each fresh round and
+    delay at which a straggler lands, as the engine schedules them on the
+    host from the run's fault draws and participation masks (the protocol
+    key of async_width_run)."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.core.async_engine import arrival_schedule
+    from repro_torch.core.rollout import participant_count, window_masks
+    from repro_torch.fl.faults import fault_draws
+
+    plan, key, steps = chaos_plan(), prng.PRNGKey(0), np.arange(len(xi))
+    lats, drps, crss = fault_draws(prng.split(key)[0], steps, n, plan)
+    masks = window_masks(key, n, participation, 0, len(xi))
+    q = plan.quorum_count(participant_count(n, participation))
+    folds = 0
+    for k in steps[1:]:
+        if xi[k] == 1 and xi[k - 1] == 0:           # a fresh round opens
+            _, _, late, eff, _ = arrival_schedule(
+                np.asarray(masks[k], np.float32), lats[k], drps[k], crss[k],
+                q, plan)
+            folds += len(set(eff[late > 0].tolist()))
+    return folds
+
+
+def check_faults(run, n, rounds, part, up_bits, down_bits, what):
+    """Conservation of the fault events and the ledger against a hand
+    count from ``run.fault_stats``."""
+    st = run.fault_stats
+    check(st["sent"] == st["delivered"] + st["dropped"] + st["evicted"]
+          + st["rejected"], f"{what}: events not conserved {st}")
+    check(st["sent"] + st["crashed"] == rounds * part,
+          f"{what}: sent + crashed {st}")
+    check(run.ledger.rounds == rounds
+          and run.ledger.uplink_bits_per_client == st["sent"] / n * up_bits
+          and run.ledger.downlink_bits_per_client
+          == st["sent"] / n * down_bits, f"{what}: ledger {run.ledger}")
+
+
+def phase_async_width(dev):
+    """The width trainer (stablelm-1.6b's tree at 4 of 24 layers, d =
+    411,060,224 a client, 8 clients, packed uplink) on the async fault
+    engine and with partial participation, QSGD and then natural:
+    (a) run_l2gd(faults=FaultPlan()) against the synchronous run on the
+    card, flat and packed downlink, forced xi [0, 1, 1, 0, 1]: params
+    equal in value, ledger, xi trace and branch counts exact; (b) chaos:
+    10 steps, xi [0, 1] x 5, the fault plan of chaos_plan() and
+    participation 0.75 (6 of 8 clients), packed downlink: the events
+    conserved, the ledger equal to a hand count from run.fault_stats, at
+    least one straggler folded at a weight below 1 (the weighted reduce
+    kernel), params finite, peak <= 70 GB; (c) participation 0.5 alone,
+    flat downlink: the ledger charges 4/8 of a round; (d) (b) at a reduced
+    width (d = 1,057,408) on the card against the port on the CPU: equal
+    fault_stats, xi trace and ledger; params within one downlink level
+    (QSGD) or equal in value (natural, whose kernels are bit-exact)."""
+    import torch
+    from repro_torch.core import make_compressor, make_plan
+    from repro_torch.core.rollout import participant_count
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import FaultPlan
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    n = WIDTH_CLIENTS
+    seeded, targets, grad_fn = width_objective(dev, n)
+    kw = dict(seeded=seeded, targets=targets, grad_fn=grad_fn, n=n)
+    one = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
+    for name in ("qsgd", "natural"):
+        comp = make_compressor(name)
+        up_bits = make_plan(comp, one, transport="packed").round_bits()
+        ms, want, lines = {}, {}, []
+        reset_launches()        # this codec's async main path starts here
+        for down in ("flat", "packed"):
+            down_bits = make_plan(comp, one, transport=down).round_bits()
+            sync, ms[f"sync {down}"], _, got = async_width_run(
+                dev, name, down, TRAIN_XI, **kw)
+            want[f"sync {down}"] = (got, width_launches(name, down, 2))
+            host = host_copy(sync.state.params)
+            protocol = (list(sync.xis), sync.n_local, sync.n_agg_comm,
+                        sync.n_agg_cached, sync.ledger)
+            del sync
+            null, ms[f"null {down}"], _, got = async_width_run(
+                dev, name, down, TRAIN_XI, faults=FaultPlan(), **kw)
+            want[f"null {down}"] = (got, width_launches(name, down, 2))
+            check((list(null.xis), null.n_local, null.n_agg_comm,
+                   null.n_agg_cached, null.ledger) == protocol,
+                  f"{name} {down}: null plan protocol or ledger differs")
+            check(null.fault_stats["sent"] == null.fault_stats["fresh"]
+                  == 2 * n, f"{name}: null plan events {null.fault_stats}")
+            check(equal_by_value(null.state.params, host, dev),
+                  f"{name} {down}: the null plan's params differ from the "
+                  "synchronous run's")
+            del null, host
+        part = participant_count(n, 0.75)
+        chaos, ms["chaos"], peak, got = async_width_run(
+            dev, name, "packed", CHAOS_XI, faults=chaos_plan(),
+            participation=0.75, **kw)
+        want["chaos"] = (got, width_launches(
+            name, "packed", 5, chaos_late_folds(n, CHAOS_XI, 0.75)))
+        down_bits = make_plan(comp, one, transport="packed").round_bits()
+        check_faults(chaos, n, 5, part, up_bits, down_bits, f"{name} chaos")
+        check(chaos.fault_stats["stale"] >= 1, f"{name} chaos: no straggler "
+              f"folded at a weight below 1 {chaos.fault_stats}")
+        check(peak <= TRAIN_PEAK, f"{name} chaos peak {peak / 1e9:.2f} GB")
+        for leaf in tree_leaves(chaos.state.params):
+            check(bool(torch.isfinite(leaf).all()), "non-finite params")
+        stats = chaos.fault_stats
+        del chaos
+        sampled, ms["participation 0.5"], _, got = async_width_run(
+            dev, name, "flat", TRAIN_XI, participation=0.5, **kw)
+        want["participation 0.5"] = (got, width_launches(name, "flat", 2))
+        flat_bits = make_plan(comp, one, transport="flat").round_bits()
+        check(sampled.ledger.rounds == 2
+              and sampled.ledger.uplink_bits_per_client == 2 * up_bits / 2
+              and sampled.ledger.downlink_bits_per_client
+              == 2 * flat_bits / 2, f"{name}: participation 0.5 ledger")
+        del sampled
+        launches = dict(LAUNCHES)   # and ends here
+        for what, (got, expect) in want.items():
+            check(got == expect, f"{name} {what}: launches {got}, the path "
+                  f"implies {expect}")
+        torch.cuda.empty_cache()
+        log(f"phase async width ({name}): {n} clients x d={WIDTH_D}, packed "
+            f"uplink; ms a step (first-call costs included): " +
+            ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) +
+            f"; null plan == synchronous (flat, packed downlink) by value; "
+            f"chaos (10 steps, 5 fresh rounds, {part} of {n} clients, "
+            f"max_delay 2, decay 0.5): {stats}, peak {peak / 1e9:.2f} GB; "
+            f"launches {launches} (chaos {want['chaos'][0]})")
+        phase_async_reduced(dev, name)
+    del targets
+    torch.cuda.empty_cache()
+
+
+def phase_async_reduced(dev, name):
+    """(d): the chaos run at ASYNC_DIMS on the card and on the CPU."""
+    import torch
+    from repro_torch.core import flatbuf
+    from repro_torch.core.tree import tree_leaves, tree_map
+
+    n = WIDTH_CLIENTS
+    runs = {}
+    for device in (dev, "cpu"):
+        seeded, targets, grad_fn = width_objective(
+            device, n, ASYNC_DIMS, host_seeds=True)
+        runs[device] = async_width_run(
+            device, name, "packed", CHAOS_XI, faults=chaos_plan(),
+            participation=0.75, seeded=seeded, targets=targets,
+            grad_fn=grad_fn, n=n, dims=ASYNC_DIMS)[0]
+    gpu, cpu = runs[dev], runs["cpu"]
+    same_protocol(gpu, cpu, f"{name} async reduced")
+    check(gpu.fault_stats == cpu.fault_stats,
+          f"{name} async reduced: fault_stats {gpu.fault_stats} vs "
+          f"{cpu.fault_stats}")
+    worst, level = 0.0, 0.0
+    for a, b in zip(tree_leaves(gpu.state.params),
+                    tree_leaves(cpu.state.params)):
+        worst = max(worst, float(torch.max(torch.abs(a.cpu() - b))))
+        check(name == "qsgd" or torch.equal(a.cpu(), b),
+              "natural async reduced: params differ from the CPU's")
+    if name == "qsgd":
+        # one level of the downlink quantizer: the largest bucket norm of
+        # the mean model, raveled as the flat engine ravels it, / levels
+        mean = tree_map(lambda a: a.mean(0), cpu.state.params)
+        layout = flatbuf.layout_of(mean, 2048)
+        level = float(torch.linalg.vector_norm(flatbuf.bucketize(
+            flatbuf.ravel(layout, mean), 2048), dim=1).max()) / 127
+    check(worst <= level, f"{name} async reduced: max |gpu - cpu| {worst} "
+          f"> one level {level}")
+    log(f"phase async width ({name}, reduced d={ASYNC_D}): card against CPU "
+        f"equal xi trace, branch counts, ledger and fault_stats "
+        f"{gpu.fault_stats}; max |w_gpu - w_cpu| {worst:.3g} (bound "
+        f"{'one level ' + format(level, '.3g') if name == 'qsgd' else 0})")
+
+
 def _key_paths(tree, path=""):
     """The nested dict ``tree`` with each leaf replaced by its key path."""
     if isinstance(tree, dict):
@@ -2270,6 +2851,9 @@ def main():
         torch.cuda.empty_cache()
     rows.append(phase_scan_bwd_width(dev, train_launches["hymba-1.5b"]))
     phase_model_grad(dev)
+    phase_paper_fedavg(dev)
+    phase_fedavg_lm(dev)
+    phase_async_width(dev)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

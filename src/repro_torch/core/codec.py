@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Optional
 
 import numpy as np
@@ -49,6 +50,24 @@ __all__ = [
 ]
 
 TRANSPORTS = ("leafwise", "flat", "packed")
+
+#: "argument not given" marker of the deprecated ``flat=`` keywords
+_UNSET = object()
+
+
+def _legacy_transport(flat, where: str) -> Optional[str]:
+    """The ``flat=`` deprecation shim of the legacy keyword sites
+    (``compressors.tree_apply``, ``tree_wire_bits``): warn with the plan
+    spelling and map the boolean to a transport name (None stays None =
+    auto)."""
+    warnings.warn(
+        f"{where} is deprecated; build a CompressionPlan once per model "
+        "(repro_torch.core.codec.make_plan(comp, params, transport="
+        "'flat'|'leafwise'|'packed')) and use plan.apply / "
+        "plan.round_bits()", DeprecationWarning, stacklevel=3)
+    if flat is None:
+        return None
+    return "flat" if flat else "leafwise"
 
 
 def _nelem(shape) -> int:

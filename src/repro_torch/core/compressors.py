@@ -47,9 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import flatbuf, prng
-from repro_torch.core.codec import (BernoulliPayload, DensePayload,
-                                    NaturalPayload, QSGDPayload,
-                                    SparsePayload, TernPayload, index_bits,
+from repro_torch.core.codec import (_UNSET, BernoulliPayload,
+                                    DensePayload, NaturalPayload,
+                                    QSGDPayload, SparsePayload, TernPayload,
+                                    _legacy_transport, index_bits, make_plan,
                                     spec_tensor)
 from repro_torch.kernels.bits import (natural_merge, natural_split,
                                       pack_bits, unpack_bits)
@@ -58,7 +59,8 @@ from repro_torch.kernels.qsgd.kernel import qsgd_dequantized
 from repro_torch.kernels.qsgd.ref import qsgd_unpack_ref, quantize_with_noise
 
 __all__ = ["Compressor", "Identity", "QSGD", "Natural", "TernGrad",
-           "Bernoulli", "RandK", "TopK", "make_compressor"]
+           "Bernoulli", "RandK", "TopK", "make_compressor", "tree_apply",
+           "tree_wire_bits", "joint_omega"]
 
 
 def _nelem(shape) -> int:
@@ -480,3 +482,37 @@ def make_compressor(name: str, **kwargs) -> Compressor:
         raise ValueError(f"unknown compressor {name!r}; have "
                          f"{sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
+
+
+# --------------------------------------------------------------------------
+# tree wrappers (thin shims over CompressionPlan)
+# --------------------------------------------------------------------------
+
+def tree_apply(comp: Compressor, key, tree, *, flat=_UNSET):
+    """Apply a compressor to a whole tree: ``make_plan(comp).apply(key,
+    tree)`` with auto transport (the flat-buffer engine for qsgd /
+    natural, leafwise otherwise).  Keys (n, 2) compress a tree with a
+    leading client axis n, one key per client (the reference's ``vmap``
+    of this function).  ``flat=`` is a deprecated shim; pin transports
+    on a plan instead."""
+    transport = None
+    if flat is not _UNSET:
+        transport = _legacy_transport(flat, "tree_apply(..., flat=)")
+    return make_plan(comp, transport=transport).apply(key, tree)
+
+
+def tree_wire_bits(comp: Compressor, tree, *, flat=_UNSET,
+                   transport=None) -> float:
+    """Exact wire bits to send a compressed tree once — the plan's
+    ``round_bits()`` (the ``nbits`` of the payload ``encode`` builds).
+    ``flat=`` is a deprecated shim for ``transport=``."""
+    if flat is not _UNSET:
+        legacy = _legacy_transport(flat, "tree_wire_bits(..., flat=)")
+        transport = transport if transport is not None else legacy
+    return make_plan(comp, tree, transport=transport).round_bits()
+
+
+def joint_omega(omegas) -> float:
+    """Lemma 1: the joint operator C = (C_1,...,C_n) has omega =
+    max_i omega_i."""
+    return max(omegas)

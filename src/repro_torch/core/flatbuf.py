@@ -15,7 +15,10 @@ raveled buffer is (n, d).
   flat_tree_apply               — fused whole-tree C(x) (flat transport)
   pack_tree / unpack_tree       — whole-tree wire payloads (QSGDPayload,
                                   NaturalPayload), bit-exact against
-                                  flat_tree_apply
+                                  flat_tree_apply; unpack_tree_qsgd also
+                                  takes a hand-built QSGD payload
+  payload_wire_bits / packed_wire_bits
+                                — exact wire sizes
   pack_tree_qsgd / pack_tree_natural
                                 — codec-specific encoders
   narrow_tree_qsgd / widen_tree_qsgd
@@ -50,9 +53,10 @@ __all__ = [
     "FlatLayout", "layout_of", "ravel", "unravel", "bucketize",
     "unbucketize", "seeds_of", "supports_flat", "supports_fused_reduce",
     "flat_tree_apply", "pack_tree", "pack_tree_qsgd", "pack_tree_natural",
-    "unpack_tree", "narrow_tree_qsgd", "widen_tree_qsgd", "payload_spec",
-    "payload_finite_mask", "sanitize_payload", "reduce_payload_acc",
-    "reduce_payload_mean",
+    "unpack_tree", "unpack_tree_qsgd", "narrow_tree_qsgd", "widen_tree_qsgd",
+    "payload_spec", "payload_finite_mask", "sanitize_payload",
+    "reduce_payload_acc", "reduce_payload_mean", "payload_wire_bits",
+    "packed_wire_bits",
 ]
 
 _LANE = 128          # natural buckets; sub-bucket models pad to this
@@ -191,9 +195,23 @@ def _clamp_bucket(bucket: int, d: int) -> int:
 def flat_tree_apply(comp, key, tree, *, bucket: int = None):
     """Compress one model's tree in ONE fused launch: ravel -> bucketize
     -> kernel -> unravel.  Bit-exact vs ``unpack_tree(pack_tree(...))``
-    under the same key."""
+    under the same key.  Keys (n, 2) compress a tree whose leaves carry
+    a leading client axis n, one launch a client (the reference's
+    ``vmap``: each client's buffer is raveled and keyed on its own)."""
     if not supports_flat(comp):
         raise ValueError(f"no flat engine for compressor {comp!r}")
+    keys = np.asarray(key, np.uint32)
+    if keys.ndim > 1:
+        leaves, treedef = tree_flatten(tree)
+        batch = keys.shape[:-1]
+        rows = [flat_tree_apply(
+            comp, k, tree_unflatten(treedef, [a.reshape((-1,) + tuple(
+                a.shape[len(batch):]))[i] for a in leaves]), bucket=bucket)
+            for i, k in enumerate(keys.reshape(-1, 2))]
+        return tree_unflatten(treedef, [
+            torch.stack(parts).reshape(tuple(a.shape))
+            for parts, a in zip(zip(*(tree_flatten(r)[0] for r in rows)),
+                                leaves)])
     bucket = int(bucket or _engine_bucket(comp))
     layout = layout_of(tree, bucket)
     if layout.d == 0:
@@ -269,6 +287,18 @@ def pack_tree_natural(key, tree, *, bucket: int = _LANE):
         return payload, layout
     exps, signs = natural_pack(x2d, seeds_of(keys))
     return NaturalPayload(exps, signs, layout=layout), layout
+
+
+def unpack_tree_qsgd(payload: QSGDPayload, layout: FlatLayout = None, *,
+                     levels: int = 127):
+    """Dequantize a QSGD payload back to the tree — bit-exact vs the
+    output of :func:`flat_tree_apply` under the same key.  ``layout`` /
+    ``levels`` are read only for hand-built payloads (2-D codes and
+    norms); engine payloads carry their own."""
+    if getattr(payload, "layout", None) is not None:
+        return unpack_tree(payload)
+    y2d = qsgd_unpack(payload.codes, payload.norms, levels=levels)
+    return unravel(layout, unbucketize(y2d, layout.d))
 
 
 def unpack_tree(payload):
@@ -434,3 +464,19 @@ def reduce_payload_mean(payload, mask=None):
     acc = reduce_payload_acc(payload, weights)
     safe = torch.where(denom > 0, denom, torch.ones_like(denom))
     return unravel(layout, unbucketize(acc / safe, layout.d))
+
+
+def payload_wire_bits(payload) -> int:
+    """Exact bits moved by a payload — reads ``Payload.nbits``."""
+    return int(payload.nbits)
+
+
+def packed_wire_bits(tree, *, bucket: int = 2048) -> int:
+    """Exact packed QSGD payload size of a tree, without building it: 8
+    bits a code (padding included; a sub-bucket model clamps to the next
+    lane multiple) plus a 32-bit norm a bucket.  An empty tree costs 0."""
+    layout = layout_of(tree, bucket)
+    if layout.d == 0:
+        return 0
+    layout = layout_of(tree, _clamp_bucket(bucket, layout.d))
+    return layout.padded * 8 + layout.n_buckets * 32

@@ -39,7 +39,7 @@ from repro_torch.core.codec import as_plan
 from repro_torch.core.compressors import Identity
 from repro_torch.core.tree import tree_map
 
-__all__ = ["L2GDHyper", "L2GDState", "init_state", "l2gd_step",
+__all__ = ["L2GDHyper", "L2GDState", "init_state", "make_hyper", "l2gd_step",
            "local_update", "aggregation_update", "draw_xi"]
 
 _F32 = np.float32
@@ -47,7 +47,9 @@ _F32 = np.float32
 
 @dataclasses.dataclass(frozen=True)
 class L2GDHyper:
-    """Meta-parameters of Algorithm 1 (Python or numpy scalars)."""
+    """Meta-parameters of Algorithm 1: Python or numpy scalars, or (for a
+    grid, :func:`repro_torch.core.rollout.rollout_l2gd_grid`) same-shaped
+    numpy arrays, validated elementwise."""
 
     eta: Any            # stepsize
     lam: Any            # personalization penalty lambda
@@ -55,9 +57,10 @@ class L2GDHyper:
     n: int              # number of clients
 
     def __post_init__(self):
-        if not 0.0 < float(self.p) < 1.0:
+        p, lam = np.asarray(self.p), np.asarray(self.lam)
+        if not bool(np.all((p > 0.0) & (p < 1.0))):
             raise ValueError(f"p must be in (0,1), got {self.p}")
-        if float(self.lam) < 0.0:
+        if not bool(np.all(lam >= 0.0)):
             raise ValueError("lambda must be >= 0")
 
     @property
@@ -67,6 +70,13 @@ class L2GDHyper:
     @property
     def agg_scale(self) -> np.float32:
         return _F32(self.eta) * _F32(self.lam) / (_F32(self.n) * _F32(self.p))
+
+
+def make_hyper(eta, lam, p, n: int) -> L2GDHyper:
+    """Build helper for (possibly array-valued) hypers: scalars or
+    same-shaped arrays for ``eta``/``lam``/``p``, range-checked
+    elementwise."""
+    return L2GDHyper(eta=eta, lam=lam, p=p, n=int(n))
 
 
 class L2GDState(NamedTuple):
@@ -126,13 +136,29 @@ def _mean_loss(losses: torch.Tensor) -> torch.Tensor:
     return client_mean(losses.to(torch.float32))
 
 
+def aggregation_loss(params, batch, grad_fn: Callable,
+                     loss_fn: Optional[Callable] = None) -> torch.Tensor:
+    """The mean client loss of an aggregation step's pre-update params:
+    ``loss_fn`` under ``torch.no_grad``, or ``grad_fn``'s losses (its
+    gradients dropped at once)."""
+    if loss_fn is None:
+        return _mean_loss(grad_fn(params, batch)[0])
+    with torch.no_grad():
+        return _mean_loss(loss_fn(params, batch))
+
+
 def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
               hp: L2GDHyper, client_comp=Identity(), master_comp=Identity(),
-              *, local_steps: int = 1, loss_fn: Optional[Callable] = None):
+              *, participation_mask=None, local_steps: int = 1,
+              loss_fn: Optional[Callable] = None):
     """One step of Algorithm 1.
 
     ``xi_k`` is this step's Bernoulli(p) draw (a host int), ``key`` the
-    step's compressor key (two uint32 words).  ``local_steps`` is the
+    step's compressor key (two uint32 words).  ``participation_mask``
+    (optional (n,) 0/1 float32 tensor) is this step's sampled
+    participant subset (DESIGN.md §9): only its clients enter the
+    average and move in the aggregation update; local steps are
+    unaffected; ``None`` is full participation.  ``local_steps`` is the
     LoCoDL burst H >= 1: a local step runs H gradient passes on its
     batch; aggregation steps are unaffected.  ``loss_fn`` (optional)
     gives the aggregation branches' losses under ``torch.no_grad``.
@@ -155,16 +181,14 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
     # aggregation: the loss of the pre-update params; without a loss_fn
     # the gradients of this evaluation are dropped before the aggregation
     # allocates
-    if loss_fn is None:
-        losses = grad_fn(state.params, batch)[0]
-    else:
-        with torch.no_grad():
-            losses = loss_fn(state.params, batch)
+    loss = aggregation_loss(state.params, batch, grad_fn, loss_fn)
     if branch == 1:
         target = compressed_average(key, state.params, as_plan(client_comp),
-                                    as_plan(master_comp))
+                                    as_plan(master_comp),
+                                    mask=participation_mask)
     else:
         target = state.cache
-    new_params = aggregation_update(state.params, target, hp)
+    new_params = aggregation_update(state.params, target, hp,
+                                    mask=participation_mask)
     new_state = L2GDState(new_params, target, 1, state.step + 1)
-    return new_state, {"loss": _mean_loss(losses), "branch": branch}
+    return new_state, {"loss": loss, "branch": branch}

@@ -13,11 +13,13 @@ split(key)``, step k draws ``xi_k = bernoulli(fold_in(xi_key, k), p)``
 and compresses with ``fold_in(noise_key, k)``.
 
 The ledger charges ``uplink_plan.round_bits()`` per client and
-``downlink_plan.round_bits()`` per round (DESIGN.md §3).
+``downlink_plan.round_bits()`` per round (DESIGN.md §3); a sampled round
+(``participation=``) costs s/n of that, and a faulty one (``faults=``,
+the async engine of :mod:`repro_torch.core.async_engine`) is charged
+from its realized delivery counts.
 
-Not ported yet (they raise ``NotImplementedError``): participation
-sampling, the async fault engine, fleets and checkpoints — see
-ROADMAP.md.
+Not ported yet (they raise ``NotImplementedError``): fleets and
+checkpoints (``checkpoint_policy=``, ``resume_from=``) — see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 from repro_torch.core.codec import CompressionPlan, as_plan
 from repro_torch.core.compressors import Identity
 from repro_torch.core.l2gd import L2GDHyper, init_state, l2gd_step
-from repro_torch.core.rollout import rollout_l2gd, window_streams
+from repro_torch.core.rollout import (participant_count, rollout_l2gd,
+                                      window_masks, window_streams)
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.fl.ledger import BitsLedger
 from repro_torch.kernels.dispatch import resolve_device
@@ -54,7 +57,7 @@ class L2GDRun:
     n_agg_comm: int = 0
     n_agg_cached: int = 0
     xis: Optional[np.ndarray] = None   # realized xi trace (both modes)
-    fault_stats: Optional[dict] = None  # faults are not ported: always None
+    fault_stats: Optional[dict] = None  # {event: total} when faults= given
 
 
 def _resolve_plans(client_comp, master_comp, plan, one_client):
@@ -107,15 +110,33 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     ``xi_trace`` forces the protocol realization; ``eval_fn(params)`` runs
     every ``eval_every`` steps (at chunk boundaries in scan mode);
     ``loss_fn(params, batch) -> losses (n,)`` (optional) gives the
-    aggregation steps' losses without a backward."""
+    aggregation steps' losses without a backward.
+
+    ``participation`` (optional fraction f in (0, 1]) samples s =
+    ``participant_count(n, f)`` participants for every aggregation step
+    (the same masks in both modes); the ledger charges each round at
+    s/n.  ``faults`` (optional :class:`repro_torch.fl.faults.FaultPlan`)
+    runs the protocol on the async fault engine
+    (:func:`repro_torch.core.async_engine.rollout_l2gd_async`; scan mode
+    and ``local_steps == 1`` only, as in the reference): the ledger is
+    replayed from the realized delivery counts, honouring
+    ``faults.charge_dropped``, and ``run.fault_stats`` totals the event
+    counters.  ``FaultPlan()`` (the null plan) equals ``faults=None`` in
+    value."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
-    for name, value in (("participation", participation), ("faults", faults),
-                        ("checkpoint_policy", checkpoint_policy),
+    for name, value in (("checkpoint_policy", checkpoint_policy),
                         ("resume_from", resume_from)):
         if value is not None:
             raise NotImplementedError(f"run_l2gd({name}=) is not ported "
                                       "yet; see ROADMAP.md")
+    if faults is not None and mode != "scan":
+        raise ValueError("faults= requires mode='scan': the async engine "
+                         "is the rollout (repro_torch.core.async_engine)")
+    if faults is not None and int(local_steps) != 1:
+        raise ValueError("local_steps > 1 is not supported on the async "
+                         "fault engine yet (its round clock assumes one "
+                         "gradient pass per local step)")
     device = resolve_device(device)
     key = np.asarray(key, np.uint32)
     params = tree_map(lambda a: torch.as_tensor(a).to(device), params_stacked)
@@ -149,11 +170,11 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     if mode == "host":
         _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
                   down_plan, up_bits, down_bits, eval_fn, eval_every,
-                  xi_trace, local_steps, loss_fn)
+                  xi_trace, participation, local_steps, loss_fn)
     else:
         _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
                   down_plan, up_bits, down_bits, eval_fn, eval_every, chunk,
-                  xi_trace, local_steps, loss_fn)
+                  xi_trace, participation, faults, local_steps, loss_fn)
     return run
 
 
@@ -167,22 +188,31 @@ def _take_state(run: L2GDRun):
 
 def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
               down_plan, up_bits, down_bits, eval_fn, eval_every, xi_trace,
-              local_steps, loss_fn):
+              participation, local_steps, loss_fn):
     """Per-step reference loop: one blocking loss fetch per step."""
     xis, subs = window_streams(key, hp.p, 0, steps, xi_trace)
+    n = int(hp.n)
+    masks = window_masks(key, n, participation, 0, steps)
+    scale = 1.0 if participation is None else \
+        participant_count(n, participation) / n
+    device = tree_leaves(run.state.params)[0].device
     xi_prev = 1  # Algorithm 1 input: xi_{-1} = 1
     for k in range(steps):
         xi = int(xis[k])
+        mask = None if masks is None else \
+            torch.from_numpy(masks[k]).to(device)
         run.state, metrics = l2gd_step(_take_state(run), batch_at(k), xi,
                                        subs[k], grad_fn, hp, up_plan,
-                                       down_plan, local_steps=local_steps,
+                                       down_plan, participation_mask=mask,
+                                       local_steps=local_steps,
                                        loss_fn=loss_fn)
         run.losses.append((k, float(metrics["loss"])))
         if xi == 0:
             run.n_local += 1
         elif xi_prev == 0:
             run.n_agg_comm += 1
-            run.ledger.record_round(up_bits, down_bits, step=k)
+            run.ledger.record_round(scale * up_bits, scale * down_bits,
+                                    step=k)
         else:
             run.n_agg_cached += 1
         xi_prev = xi
@@ -193,9 +223,18 @@ def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
 
 def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
               down_plan, up_bits, down_bits, eval_fn, eval_every, chunk,
-              xi_trace, local_steps, loss_fn):
+              xi_trace, participation, faults, local_steps, loss_fn):
     """Chunked rollout: the chunk boundary is the only place the host
-    reads device data (losses, eval_fn)."""
+    reads device data (losses, fault events, eval_fn).  With ``faults``
+    the chunks are async rollouts, the server's delay buffer threaded
+    across them like the state, and the ledger replays the realized
+    delivery counts."""
+    if faults is not None:
+        from repro_torch.core.async_engine import (EVENT_FIELDS,
+                                                   init_async_state,
+                                                   rollout_l2gd_async)
+        agg = init_async_state(run.state.params, up_plan, faults)
+        totals = {name: 0 for name in EVENT_FIELDS}
     if chunk is None:
         if eval_fn is not None:
             chunk = eval_every
@@ -215,23 +254,40 @@ def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
                                *[batch_at(k)
                                  for k in range(done, done + length)])
         forced = None if xi_trace is None else xi_trace[done:done + length]
-        run.state, trace = rollout_l2gd(
-            key, _take_state(run), hp, batches, forced, grad_fn=grad_fn,
-            steps=length, client_comp=up_plan, master_comp=down_plan,
-            batch_axis=None if const else 0, local_steps=local_steps,
-            loss_fn=loss_fn)
+        kw = dict(grad_fn=grad_fn, steps=length, client_comp=up_plan,
+                  master_comp=down_plan, batch_axis=None if const else 0,
+                  participation=participation, loss_fn=loss_fn)
+        if faults is None:
+            run.state, trace = rollout_l2gd(
+                key, _take_state(run), hp, batches, forced,
+                local_steps=local_steps, **kw)
+        else:
+            run.state, agg, trace = rollout_l2gd_async(
+                key, _take_state(run), hp, batches, forced,
+                fault_plan=faults, agg_state=agg, **kw)
 
-        # the chunk boundary: ONE fetch of the losses
+        # the chunk boundary: ONE fetch of the losses (and the events)
         losses = trace.losses.cpu().numpy()
         xis_all.append(trace.xis)
         run.losses.extend((done + i, float(losses[i])) for i in range(length))
         run.n_local += trace.n_local
         run.n_agg_comm += trace.n_agg_comm
         run.n_agg_cached += trace.n_agg_cached
-        xi_prev = run.ledger.replay_xi_trace(trace.xis, up_bits, down_bits,
-                                             xi_prev=xi_prev,
-                                             start_step=done)
+        if faults is None:
+            xi_prev = run.ledger.replay_xi_trace(
+                trace.xis, up_bits, down_bits, xi_prev=xi_prev,
+                start_step=done, participation=participation)
+        else:
+            events = trace.events.cpu().numpy()
+            for i, name in enumerate(EVENT_FIELDS):
+                totals[name] += int(events[:, i].sum())
+            xi_prev = run.ledger.replay_fault_trace(
+                trace.xis, events[:, 0], events[:, 1], up_bits, down_bits,
+                xi_prev=xi_prev, start_step=done,
+                charge_dropped=faults.charge_dropped)
         done += length
         if eval_fn is not None and done % eval_every == 0:
             run.evals.append((done, float(eval_fn(run.state.params))))
     run.xis = np.concatenate(xis_all)
+    if faults is not None:
+        run.fault_stats = totals

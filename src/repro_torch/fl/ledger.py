@@ -14,6 +14,12 @@ A round happens exactly on each local->aggregation transition
 (xi_k = 1, xi_{k-1} = 0); :meth:`BitsLedger.replay_xi_trace` rebuilds the
 ledger from a realized xi trace, bit for bit the one a per-step loop
 records.
+
+Partial participation (DESIGN.md §9): a round that samples s =
+``participant_count(n, f)`` clients sends s uplinks and s broadcasts, so
+it costs s/n of a full round per client on both directions.  The async
+fault engine's rounds (DESIGN.md §11) are charged from their realized
+delivery counts by :meth:`BitsLedger.replay_fault_trace`.
 """
 from __future__ import annotations
 
@@ -56,15 +62,57 @@ class BitsLedger:
 
     def replay_xi_trace(self, xis, uplink_bits_one_client: float,
                         downlink_bits: float, *, xi_prev: int = 1,
-                        start_step: int = 0) -> int:
+                        start_step: int = 0,
+                        participation: float | None = None) -> int:
         """Charge one round on each local->aggregation transition of the
         trace; ``xi_prev`` defaults to Algorithm 1's input xi_{-1} = 1 and
         ``start_step`` offsets the recorded steps, so chunked replays
-        concatenate into one history.  Returns the trace's last xi."""
+        concatenate into one history.  ``participation`` (optional
+        fraction f) charges each sampled round at s/n of a full round on
+        both directions, s = ``participant_count(n_clients, f)``.
+        Returns the trace's last xi."""
         up_bits = per_client_uplink(uplink_bits_one_client, self.n_clients)
+        scale = 1.0
+        if participation is not None:
+            from repro_torch.core.rollout import participant_count
+            scale = participant_count(self.n_clients,
+                                      participation) / self.n_clients
         for i, xi in enumerate(int(x) for x in xis):
             if xi == 1 and xi_prev == 0:
-                self.record_round(up_bits, downlink_bits,
+                self.record_round(scale * up_bits, scale * downlink_bits,
                                   step=start_step + i)
+            xi_prev = xi
+        return xi_prev
+
+    def replay_fault_trace(self, xis, sent, delivered,
+                           uplink_bits_one_client: float,
+                           downlink_bits: float, *, xi_prev: int = 1,
+                           start_step: int = 0,
+                           charge_dropped: bool = True) -> int:
+        """Replay an async fault trace (:mod:`repro_torch.core.
+        async_engine`) into the ledger — the delivery-charging policy of
+        DESIGN.md §11.  ``sent`` / ``delivered`` are the per-step event
+        counts (``AsyncRolloutTrace.events`` columns 0 and 1).  Rounds
+        happen on local->aggregation transitions as in
+        :meth:`replay_xi_trace`; a round costs
+
+          * uplink:   (sent/n) * round_bits under ``charge_dropped=True``
+            (dropped and evicted payloads used the clients' bandwidth),
+            (delivered/n) under ``False``;
+          * downlink: (sent/n) * round_bits (every alive participant
+            receives the broadcast; crashed clients are never charged).
+
+        With no faults this is :meth:`replay_xi_trace` bit for bit.
+        Returns the final xi."""
+        n = self.n_clients
+        up_bits = per_client_uplink(uplink_bits_one_client, n)
+        for i, xi in enumerate(int(x) for x in xis):
+            if xi == 1 and xi_prev == 0:
+                up_count = int(sent[i]) if charge_dropped \
+                    else int(delivered[i])
+                self.record_round(
+                    (up_count / n) * up_bits,
+                    (int(sent[i]) / n) * downlink_bits,
+                    step=start_step + i)
             xi_prev = xi
         return xi_prev

@@ -14,8 +14,9 @@ link), ready CompressionPlans passed through.  The clients' gradient is
 autograd of ``models.loss_fn`` for one client after another over the
 stacked parameter tree (the reference's ``vmap`` of ``value_and_grad``);
 the aggregation branches evaluate the loss without a backward.  The
-serve builders run without autograd.  The shard_map ``average_fn``
-variants, fleets, the async and sharded rollouts come with their slices
+serve builders run without autograd.  ``build_async_rollout_fn`` is the
+LM face of the async fault engine.  The shard_map ``average_fn``
+variants, fleets and the sharded rollouts are not ported yet
 (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
@@ -33,7 +34,8 @@ from repro_torch.models import loss_fn as model_loss_fn
 
 __all__ = ["param_shapes", "stacked_param_shapes", "stacked_grad_fn",
            "stacked_loss_fn", "build_train_step", "build_rollout_fn",
-           "build_prefill_step", "build_serve_step"]
+           "build_async_rollout_fn", "build_prefill_step",
+           "build_serve_step"]
 
 
 def param_shapes(cfg: ArchConfig):
@@ -159,6 +161,35 @@ def build_rollout_fn(cfg: ArchConfig, hp: L2GDHyper,
                             steps=length, client_comp=up_plan,
                             master_comp=down_plan, local_steps=local_steps,
                             loss_fn=loss_fn)
+
+    return rollout
+
+
+def build_async_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, fault_plan=None,
+                           client_comp=Identity(), master_comp=Identity(),
+                           plans=None, length: int = 8):
+    """:func:`build_rollout_fn`'s face of the async fault engine
+    (:func:`repro_torch.core.async_engine.rollout_l2gd_async`): ``length``
+    faulty steps a call, the fault events drawn from the plan's fourth
+    stream (``fault_plan=None`` is the null plan).  Returns
+    ``rollout(state, agg, batches, key) -> (state, agg,
+    AsyncRolloutTrace)``: it threads the L2GDState and the server's delay
+    buffer (build the first with :func:`repro_torch.core.async_engine.
+    init_async_state`; both are consumed); the host replays ``trace.xis``
+    and ``trace.events`` into the ledger
+    (:meth:`repro_torch.fl.ledger.BitsLedger.replay_fault_trace`)."""
+    from repro_torch.core.async_engine import rollout_l2gd_async
+    from repro_torch.fl.faults import FaultPlan
+    if fault_plan is None:
+        fault_plan = FaultPlan()
+    up_plan, down_plan = _plans(cfg, client_comp, master_comp, None, plans)
+    grad_fn, loss_fn = stacked_grad_fn(cfg), stacked_loss_fn(cfg)
+
+    def rollout(state: L2GDState, agg, batches, key):
+        return rollout_l2gd_async(key, state, hp, batches, grad_fn=grad_fn,
+                                  fault_plan=fault_plan, steps=length,
+                                  client_comp=up_plan, master_comp=down_plan,
+                                  agg_state=agg, loss_fn=loss_fn)
 
     return rollout
 

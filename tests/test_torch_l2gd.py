@@ -272,8 +272,7 @@ def test_run_l2gd_needs_cuda_by_default():
                  lambda k: torch.zeros(2, 3), 2)
 
 
-@pytest.mark.parametrize("option", ["participation", "faults",
-                                    "checkpoint_policy", "resume_from"])
+@pytest.mark.parametrize("option", ["checkpoint_policy", "resume_from"])
 def test_unported_driver_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_l2gd(prng.PRNGKey(0), {"w": torch.zeros(2, 3)}, _quad_torch,
@@ -305,6 +304,24 @@ def test_port_loads_no_jax_and_no_reference():
                        lambda k: (X, Y), 20, client_comp=q, master_comp=q,
                        device="cpu")
         assert run.ledger.rounds > 0
+        import repro_torch.optim, repro_torch.core.theory
+        import repro_torch.core.extensions, repro_torch.data.partition
+        import repro_torch.configs.logreg_a1a
+        from repro_torch.fl import (FaultPlan, geometric_latency_probs,
+                                    run_fedavg, run_fedopt)
+        faults = FaultPlan(max_delay=2, drop_rate=0.2, quorum=0.5,
+                           latency_probs=geometric_latency_probs(1.0, 3))
+        run = run_l2gd(prng.PRNGKey(0), {"w": torch.zeros(3, 124)}, grad_fn,
+                       L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=3),
+                       lambda k: (X, Y), 20, client_comp=q, master_comp=q,
+                       participation=0.7, faults=faults, device="cpu")
+        assert run.fault_stats["sent"] > 0
+        fed = run_fedavg(prng.PRNGKey(1), {"w": torch.zeros(124)}, grad_fn,
+                         lambda r, i: [(X[i], Y[i])], 3, 4, 0.3,
+                         compressor=q, device="cpu")
+        assert fed.ledger.rounds == 4
+        run_fedopt(prng.PRNGKey(1), {"w": torch.zeros(124)}, grad_fn,
+                   lambda r, i: [(X[i], Y[i])], 3, 2, 0.3, device="cpu")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
