@@ -42,9 +42,11 @@ these phases and fails (non-zero exit, no result line) on any error:
            build_serve_step into the KV caches, then 16 greedy tokens;
            decode logits held against forward's, the greedy tokens
            against forward's argmax on the extended sequences;
-  flash width  the kernel at the prefill shapes against the bound of its
-           route (three split-TF32 passes on the tensor cores) and the
-           CUDA-core float32 bound, its plain version and
+  flash width  the kernel at the prefill shapes of stablelm-1.6b,
+           granite-moe-1b-a400m (GQA, H = 16, Kv = 8) and
+           moonshot-v1-16b-a3b (D = 128) against the bound of its route
+           (three split-TF32 passes on the tensor cores) and the CUDA-core
+           float32 bound, its plain version and
            scaled_dot_product_attention; then once at the prefill_32k
            length, checked on the last 256 query rows of two heads;
   selective_scan  the scan kernel against its plain version on the card
@@ -85,7 +87,8 @@ these phases and fails (non-zero exit, no result line) on any error:
            aggregation step;
   train width  each codec's kernel on that run's largest leaf (2 x
            276,824,064 elements) against its plain version and its
-           bound, and the threefry draw that feeds it;
+           bound, and the threefry draw that feeds it (again after each
+           MoE train run below, on its expert stack);
   train (Mamba)  hymba-1.5b at full width and depth (32 hybrid layers,
            leafwise natural) and falcon-mamba-7b at full width and 8 of
            its 64 layers (leafwise QSGD), as the train phase: the scan
@@ -116,8 +119,8 @@ these phases and fails (non-zero exit, no result line) on any error:
            attention), 2 clients x one 4096-token sequence a round:
            run_fedavg 2 rounds with the leafwise QSGD difference and its
            EF memory (44 qsgd_dequantized launches), run_fedopt 2 rounds
-           (server Adam, exact deltas, no kernel): seconds a round, a
-           profile of a FedAvg round, peak <= 70 GB, the ledger exact;
+           (server Adam, exact deltas, no kernel): seconds a round,
+           peak <= 70 GB, the ledger exact;
   async width  the width trainer (8 clients x d = 411,060,224, packed
            uplink) on the async fault engine, QSGD then natural: the null
            plan equal in value to the synchronous run (flat and packed
@@ -127,7 +130,41 @@ these phases and fails (non-zero exit, no result line) on any error:
            ledger from the delivery counts, peak <= 70 GB; participation
            0.5: half a round's bits; the chaos run at d = 1,057,408 on
            the card against the CPU (equal events and ledger; natural
-           params equal in value, QSGD within one level).
+           params equal in value, QSGD within one level);
+  moe prefill / serve  granite-moe-1b-a400m at full width and depth,
+           then moonshot-v1-16b-a3b and deepseek-v2-lite-16b at full width
+           and 12 layers (f32, seeded random weights) on B = 2 sequences
+           of 4096 tokens: build_prefill_step (GQA with attn_impl="flash":
+           24 / 12 flash launches, 12 at D = 128; MLA: the dense latent
+           prefill, no kernel), a profile with the MoE layer's spans
+           (router, expert GEMMs, dispatch / combine), the dropped share
+           at capacity factor 1.25, forward with flash against dense; then
+           the serve phase at the capacity factor n_experts / k (nothing
+           drops), deepseek's through the latent caches.  Each pair of
+           runs that should agree (flash and dense, decode and forward)
+           is held twice: the second run on its own routes, on the tokens
+           that precede their sequence's first differing route; then
+           taking the first run's routes, on every token, its flipped
+           routes counted and held to a Poisson bound (flip_bound);
+  route seeds  granite-moe-1b-a400m's flash-against-dense flips at four
+           more seeds of its weights, each held to that bound;
+  train (MoE)  the train phase for granite-moe-1b-a400m at full width and
+           depth (natural, then QSGD: 48 launches each) and
+           deepseek-v2-lite-16b at 3 layers (QSGD: 112), two local steps
+           from one state bit-identical, profiles with the MoE spans;
+           each run's kernel then on its expert stack as train width;
+  moe grad  a 2-layer granite-moe-1b-a400m at full width on 512 tokens:
+           the card's loss and gradient against the CPU's, routes first
+           (the recompute routes as the forward; flips counted);
+  fleet width  the width cell under bench_fleet's three cohorts
+           (identity leafwise, natural flat, QSGD levels 4 narrow packed):
+           a uniform fleet equal in value to its single plan on the
+           synchronous engine and the async engine's chaos plan; the mixed
+           fleet on both, the ledger charging sum_i round_bits(i) a round,
+           the pack and reduce launches of each wire cohort, peak <= 70
+           GB; the mixed fleet's mean against the plain codecs client by
+           client under the key schedule, its levels-4 QSGD pack held
+           and timed; three rounds of the bandwidth controller.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -237,7 +274,9 @@ MAMBA_TRAIN = (("hymba-1.5b", None, "natural"),
                ("falcon-mamba-7b", 8, "qsgd"))
 TRAIN_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
                 ("hymba-1.5b", None): 1_352_246_400,
-                ("falcon-mamba-7b", 8): 1_108_840_448}
+                ("falcon-mamba-7b", 8): 1_108_840_448,
+                ("granite-moe-1b-a400m", None): 1_334_628_352,
+                ("deepseek-v2-lite-16b", 3): 1_460_420_096}
 # phase model grad: 2-layer hymba-1.5b at full width, one sequence of 512
 # tokens, the card's gradient (the scan kernels) against the CPU's (the
 # chunked scan under autograd) from the same params: max |d| over max
@@ -247,6 +286,57 @@ TRAIN_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
 # the reduced models' gradients hold 2e-5 against jax.grad on the CPU
 MODEL_GRAD_LAYERS, MODEL_GRAD_S = 2, 512
 MODEL_GRAD_RTOL = 1e-4
+# phases moe prefill / serve: the MoE and MLA family at full width, each
+# (arch, layers) with its parameter count: granite-moe-1b-a400m at full
+# depth; moonshot-v1-16b-a3b (48 layers: 114 GB) and deepseek-v2-lite-16b
+# (27 layers: 62 GB) at 12 layers, their first 12 (deepseek's dense first
+# layer and 11 MoE layers)
+MOE_SERVE = {("granite-moe-1b-a400m", None): 1_334_628_352,
+             ("moonshot-v1-16b-a3b", 12): 7_389_890_560,
+             ("deepseek-v2-lite-16b", 12): 6_724_050_944}
+# flash against dense logits of a MoE model, x max |logit|.  Set after
+# the first run on the card measured 2.8e-5 x at granite's 24 layers,
+# with the routes forced equal (stablelm's 1e-5 holds 24 dense layers):
+# every layer's gates move with their inputs, so the attention's 2e-6
+# differences grow layer by layer; the kernel itself is held to FLASH_TOL
+# on the last layer's own operands
+MOE_LOGIT_RTOL = 1e-4
+# a route that an ulp flips between two runs of the same function (flash
+# against dense attention, decode against forward, the card against the
+# CPU) is counted; flips are near-ties, so their count over P (token,
+# slot) pairs is held to a Poisson bound, mean ROUTE_FLIP_RATE x P plus
+# five of its standard deviations (flip_bound).  The rate is 3.7 x the
+# pooled reading of six comparisons on the H100 (120 of 2,231,232 pairs:
+# granite flash vs dense 74 of 1,572,864, moonshot 42 of 589,824, granite
+# decode vs forward 4 of 30,336, moonshot 0 of 11,376, deepseek 0 of
+# 10,428, moe grad 0 of 16,384; the largest single share 1.3e-4, on 4
+# flips), set before granite's flash vs dense at seeds 1-4 read 88-112
+# flips each.  Routes that differ for a cause other than an ulp flip a
+# large share (a wrong order: 94%)
+ROUTE_FLIP_RATE = 2e-4
+# phase route seeds: granite's flash-against-dense flips at more seeds of
+# its weights (phase moe prefill reads seed 0)
+ROUTE_ARCH, ROUTE_SEEDS = "granite-moe-1b-a400m", (1, 2, 3, 4)
+# phases train (MoE): granite-moe-1b-a400m at full width and depth with
+# each codec, deepseek-v2-lite-16b at its first 3 layers (the dense one
+# and 2 MoE layers: two clients at 27 layers exceed the card); the last
+# field: profile a local and a fresh step (granite's natural run only:
+# the profiler's pass over a fresh step's 120,000 kernels takes ~40 s)
+MOE_TRAIN = (("granite-moe-1b-a400m", None, "natural", True),
+             ("granite-moe-1b-a400m", None, "qsgd", False),
+             ("deepseek-v2-lite-16b", 3, "qsgd", False))
+# phase moe grad: a 2-layer granite-moe-1b-a400m at full width on one
+# sequence of MODEL_GRAD_S tokens, the bound of phase model grad
+MOE_GRAD_ARCH = "granite-moe-1b-a400m"
+# phase fleet width: the width cell's 8 clients in benchmarks/
+# bench_fleet.py's three cohorts (client i in cohort i mod 3)
+FLEET_ASSIGNMENT = tuple(i % 3 for i in range(8))
+# phase flash width: (arch, B, S, H, Kv, D) of each prefill the kernel
+# runs at a model's size: stablelm's (the kernel's row), granite's GQA,
+# moonshot's D = 128
+FLASH_SHAPES = (("stablelm-1.6b", PREFILL_B, PREFILL_S, 32, 32, 64),
+                ("granite-moe-1b-a400m", PREFILL_B, PREFILL_S, 16, 8, 64),
+                ("moonshot-v1-16b-a3b", PREFILL_B, PREFILL_S, 16, 16, 128))
 # phase paper fedavg: benchmarks/bench_fig7_fedavg_recovery.py's sizes (5
 # clients, L2GD 400 steps, FedAvg 200 rounds; the compressed FedAvg and
 # FedOpt half as many) and a 3 x 3 (p, lambda) grid of 100-step rollouts
@@ -1211,7 +1301,14 @@ def phase_prefill(dev):
     return cfg, params, tokens, launches
 
 
-def phase_serve(dev, cfg, params, tokens):
+def phase_serve(dev, cfg, params, tokens, moe=False):
+    """Teacher-forced prompt and greedy tokens through the caches, held
+    against forward.  ``moe``: decode's routes are recorded on the device
+    in the timed loop (no sync), the MoE spans join the decode profile,
+    and forward runs twice: on its own routes, held against decode on
+    the tokens whose routes agree (the flips counted), then taking
+    decode's routes, held on every token."""
+    import contextlib
     import torch
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
     from repro_torch.launch.steps import build_serve_step
@@ -1220,34 +1317,67 @@ def phase_serve(dev, cfg, params, tokens):
     prompt = tokens[:, :PROMPT]
     serve = build_serve_step(cfg)
     caches = init_caches(cfg, PREFILL_B, PROMPT + GENERATE, device=dev)
-    reset_launches()            # the serve main path starts here
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prompt_logits = []
-    for i in range(PROMPT):
-        logits, caches = serve(params, caches, i,
-                               {"tokens": prompt[:, i:i + 1]})
-        prompt_logits.append(logits)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    generated = [torch.argmax(prompt_logits[-1], -1)]
-    gen_logits = []
-    for i in range(PROMPT, PROMPT + GENERATE - 1):
-        logits, caches = serve(params, caches, i,
-                               {"tokens": generated[-1][:, None]})
-        gen_logits.append(logits)
-        generated.append(torch.argmax(logits, -1))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    routes = Routes() if moe else contextlib.nullcontext()
+    with routes:
+        reset_launches()            # the serve main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prompt_logits = []
+        for i in range(PROMPT):
+            logits, caches = serve(params, caches, i,
+                                   {"tokens": prompt[:, i:i + 1]})
+            prompt_logits.append(logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        generated = [torch.argmax(prompt_logits[-1], -1)]
+        gen_logits = []
+        for i in range(PROMPT, PROMPT + GENERATE - 1):
+            logits, caches = serve(params, caches, i,
+                                   {"tokens": generated[-1][:, None]})
+            gen_logits.append(logits)
+            generated.append(torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     check(not LAUNCHES, f"{cfg.name} decode launched {dict(LAUNCHES)}")
-    log(profile_line(f"{cfg.name} decode step", *device_profile(lambda: serve(
-        params, caches, PROMPT + GENERATE - 1,
-        {"tokens": generated[-1][:, None]}))))
+    spans = Spans() if moe else contextlib.nullcontext()
+    with spans:
+        wall, by_kind, count = device_profile(lambda: serve(
+            params, caches, PROMPT + GENERATE - 1,
+            {"tokens": generated[-1][:, None]}))
+    log(profile_line(f"{cfg.name} decode step", wall, by_kind, count)
+        + (f"; {spans.shares(wall)}" if moe else ""))
     generated = torch.stack(generated, 1)
-    with torch.no_grad():
-        full, _ = forward(params, cfg, {"tokens": torch.cat(
-            [prompt, generated[:, :-1]], 1)})
     decoded = torch.stack(prompt_logits + gen_logits, 1)
+    batch = {"tokens": torch.cat([prompt, generated[:, :-1]], 1)}
+    extra = ""
+    forced = contextlib.nullcontext()
+    if moe:
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        with torch.no_grad(), Routes() as own:
+            full, _ = forward(params, cfg, batch)
+        flips, clean = route_agreement(routes, own, n_moe)
+        err, agree = clean_err(decoded, full, clean)
+        check(err <= DECODE_TOL, f"{cfg.name} decode vs forward on the "
+              f"{agree} tokens whose routes agree: {err:.3g}")
+        extra = (f"; capacity factor {cfg.capacity_factor:g} (nothing "
+                 f"drops: {own.dropped} of {own.assigned} dropped); "
+                 f"forward on its own routes: {flips}, the {agree} of "
+                 f"{clean.numel()} tokens before a sequence's first "
+                 f"differing route within {err:.3g}")
+        check(own.dropped == 0, f"{cfg.name}: forward dropped "
+              f"{own.dropped} assignments at the no-drop capacity")
+        del full
+        forced = Routes(force=[t for t, _ in routes.by_layer(n_moe)])
+    with torch.no_grad(), forced:
+        full, _ = forward(params, cfg, batch)
+    if moe:
+        extra += "; forward on decode's routes: " + forced.check_flips(
+            f"{cfg.name} decode vs forward (forced)")
+    if cfg.mixer == "mla":
+        c_kv, k_rope = caches[0]
+        floats = c_kv.shape[-1] + k_rope.shape[-1]
+        extra += (f"; latent cache {floats} floats = "
+                  f"{floats * c_kv.element_size()} bytes a token and layer")
     err = float(torch.max(torch.abs(decoded - full)))
     check(err <= DECODE_TOL, f"{cfg.name} decode vs forward logits {err:.3g}")
     # each greedy token is forward's argmax where the top-2 gap is clear
@@ -1262,73 +1392,94 @@ def phase_serve(dev, cfg, params, tokens):
         f"per decode step); decode vs forward logits max |d| {err:.3g} "
         f"(<= {DECODE_TOL:g}; at the prompt positions "
         f"{float(torch.max(torch.abs(decoded - full)[:, :PROMPT])):.3g}); "
-        f"tokens {generated[0, :8].tolist()}...")
+        f"tokens {generated[0, :8].tolist()}...{extra}")
 
 
 # --------------------------------------------------------------------------
 # flash at the prefill shapes and at 32k: time, bound, plain, library
 # --------------------------------------------------------------------------
 
-def flash_bound_ms(B, H, S, D):
+def flash_bound_ms(B, H, S, D, Kv=None):
     """Causal (S = T), f32 inputs: (pairs, route ms, CUDA-core ms, bytes
     ms).  The kernel's route: 3 split-TF32 passes of 4 D flops per visible
     pair on the tensor cores, or one exp a pair on the special-function
     units if that is larger.  Beside it the CUDA-core float32 bound (4 D
     flops a pair at 67 TFLOP/s), which only a design on the CUDA cores is
-    held to; and q, k, v and the output read / written once."""
+    held to; and q, k, v (Kv heads) and the output read / written once."""
+    Kv = H if Kv is None else Kv
     pairs = B * H * S * (S + 1) // 2
     tf32_ms = FLASH_PASSES * 4 * D * pairs / PEAK_TF32_OPS_PER_S * 1e3
     exp_ms = pairs / PEAK_SFU_OPS_PER_S * 1e3
     f32_ms = 4 * D * pairs / PEAK_F32_OPS_PER_S * 1e3
-    bytes_ms = 4 * B * S * H * D * 4 / PEAK_BYTES_PER_S * 1e3
+    bytes_ms = (2 * H + 2 * Kv) * B * S * D * 4 / PEAK_BYTES_PER_S * 1e3
     return pairs, max(tf32_ms, exp_ms), f32_ms, bytes_ms
 
 
-def phase_flash_width(dev, launches):
+def flash_shape(dev, gen, arch, B, S, H, Kv, D):
+    """The kernel at one prefill shape (causal f32): checked against its
+    plain version and timed against its route bound, the plain version
+    and scaled_dot_product_attention (given K / V repeated to H heads
+    outside the timed call).  Returns (max |kernel - plain|, ms, plain
+    ms, library ms, bound ms, bound_by)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    B, S, H, D = PREFILL_B, PREFILL_S, 32, 64
-    gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
-               for _ in range(3))
+    q = torch.randn((B, S, H, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, S, Kv, D), generator=gen, device=dev)
+            for _ in range(2))
     out = flash_attention_op(q, k, v)
     plain = fk._plain(q, k, v, True, None)
     err = float(torch.max(torch.abs(out - plain)))
-    check(err <= FLASH_TOL, f"flash at the prefill shapes: {err:.3g}")
+    check(err <= FLASH_TOL, f"flash at {arch}'s prefill shape: {err:.3g}")
     del plain
     ms = time_ms(lambda: flash_attention_op(q, k, v), reps=10)
     plain_ms = time_ms(lambda: fk._plain(q, k, v, True, None), reps=3,
                        warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_err = float(torch.max(torch.abs(lib.transpose(1, 2) - out)))
+    qt = q.transpose(1, 2)
+    kt, vt = (torch.repeat_interleave(t, H // Kv, dim=2).transpose(1, 2)
+              for t in (k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), reps=10)
-    pairs, ops_ms, f32_ms, bytes_ms = flash_bound_ms(B, H, S, D)
-    log(f"time flash_attention (B={B} S=T={S} H={H} D={D} causal f32): "
-        f"{ms:.3f} ms (route bound {ops_ms:.3f} ms: {pairs:,} pairs, "
-        f"{FLASH_PASSES} x {4 * D * pairs / 1e9:.1f} GFLOP of TF32 or "
-        f"{pairs:.3g} exps; bytes {bytes_ms:.3f} ms; {ops_ms / ms:.0%} of "
-        f"it; CUDA-core f32 bound {f32_ms:.3f} ms, the kernel at "
-        f"{ms / f32_ms:.2f}x it); plain version {plain_ms:.1f} ms; "
-        f"scaled_dot_product_attention {library_ms:.3f} ms (the kernel at "
-        f"{ms / library_ms:.2f}x it; max |d| {lib_err:.3g} from the "
-        f"kernel); kernel vs plain max |d| {err:.3g}")
+    lib_err = float(torch.max(torch.abs(F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True).transpose(1, 2) - out)))
+    pairs, ops_ms, f32_ms, bytes_ms = flash_bound_ms(B, H, S, D, Kv)
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    log(f"time flash_attention at {arch}'s prefill shape (B={B} S=T={S} "
+        f"H={H} Kv={Kv} D={D} causal f32): {ms:.3f} ms (route bound "
+        f"{ops_ms:.3f} ms: {pairs:,} pairs, {FLASH_PASSES} x "
+        f"{4 * D * pairs / 1e9:.1f} GFLOP of TF32 or {pairs:.3g} exps; "
+        f"bytes {bytes_ms:.3f} ms; {ops_ms / ms:.0%} of it; CUDA-core f32 "
+        f"bound {f32_ms:.3f} ms, the kernel at {ms / f32_ms:.2f}x it); plain "
+        f"version {plain_ms:.1f} ms; scaled_dot_product_attention "
+        f"{library_ms:.3f} ms (the kernel at {ms / library_ms:.2f}x it; max "
+        f"|d| {lib_err:.3g} from the kernel); kernel vs plain max |d| "
+        f"{err:.3g}")
+    return (err, ms, plain_ms, library_ms, max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_flash_width(dev, launches):
+    """The kernel at FLASH_SHAPES (its row: stablelm-1.6b's), then at
+    the prefill_32k length."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = [flash_shape(dev, gen, *shape) for shape in FLASH_SHAPES]
+    err, ms, plain_ms, library_ms, bound_ms, bound_by = results[0]
     row = {"name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
            "replaces": FLASH_REPLACES,
            "launches": launches.get("flash_attention", 0),
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms}
-    del q, k, v, qt, kt, vt, out, lib
-    torch.cuda.empty_cache()
 
-    # prefill_32k: one sequence of 32768 tokens
+    # prefill_32k: one sequence of 32768 tokens at stablelm's heads
+    H, D = FLASH_SHAPES[0][3], FLASH_SHAPES[0][5]
     q, k, v = (torch.randn((1, LONG_S, H, D), generator=gen, device=dev)
                for _ in range(3))
     out = flash_attention_op(q, k, v)
@@ -1996,7 +2147,7 @@ def train_line(what, wall_ms, by_kind, count):
                       if v or k not in ("scan", "scan_bwd")))
 
 
-def phase_train(dev, name, arch="stablelm-1.6b", layers=None):
+def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
     """``arch`` at full width (and ``layers`` of its layers, all by
     default), 2 clients x one 4096-token sequence, f32, remat on, dense
     attention: build_train_step with leafwise ``name`` compression both
@@ -2006,8 +2157,9 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None):
     client for each step's loss and again in each local step's recompute
     (remat), its backward once a layer and client in each local step; no
     other kernel runs.  Then one local and one fresh aggregation step
-    under the profiler.  Returns the trained stacked params and the
-    launch counts."""
+    under the profiler (``profile``).  Returns the trained stacked params
+    and the launch counts."""
+    import contextlib
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -2063,7 +2215,7 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None):
     kernel = LEAFWISE_KERNELS[name]
     check(branches == [0, 1, 2, 0, 1], f"branches {branches}")
     want = {kernel: 2 * 2 * leaves}
-    if cfg.mixer != "gqa":      # every layer of both families has a scan
+    if cfg.mixer in ("mamba", "hybrid"):    # a scan in every layer
         local = branches.count(0)
         want["selective_scan"] = n * cfg.n_layers * (len(TRAIN_XI) + local)
         want["selective_scan_bwd"] = n * cfg.n_layers * local
@@ -2086,18 +2238,33 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None):
         f"{peak / 1e9:.2f} GB; bits/n {ledger.bits_per_client:.6e} "
         f"({ledger.rounds} rounds x {bits:.0f} bits a message each way); "
         f"launches {launches}")
+    moe = cfg.ffn == "moe"
+    if moe:
+        check(local_steps_identical(step, state, batches[5], keys[5]),
+              f"train {arch} ({name}): two local steps from one state "
+              "differ")
+        log(f"train {arch} ({name}): two local steps from one state "
+            "bit-identical")
     for what, k in (("local step", 5), ("fresh aggregation step", 6)):
+        if not profile:
+            break
         out = []
-        log(train_line(f"train {arch} ({name}) {what}", *train_profile(
-            lambda: out.append(step(state, batches[k], xis[k], keys[k])))))
+        spans = Spans() if moe else contextlib.nullcontext()
+        with spans:
+            wall, by_kind, count = train_profile(
+                lambda: out.append(step(state, batches[k], xis[k], keys[k])))
+        log(train_line(f"train {arch} ({name}) {what}", wall, by_kind, count)
+            + (f"; {spans.shares(wall)}" if moe else ""))
         state = out[0][0]
     return state.params, launches
 
 
-def phase_train_width(dev, params, launches, name, norm_ulps):
-    """The phase's kernel on the run's largest leaf (w_gate, 2 x
-    276,824,064 elements) against its plain version and its bound, with
-    the draw that feeds it timed at two chunk sizes."""
+def phase_train_width(dev, arch, params, launches, name, norm_ulps):
+    """The phase's kernel on the run's largest leaf, w_gate (stablelm-
+    1.6b: 2 x 276,824,064 elements; granite-moe-1b-a400m's expert stack:
+    2 x 402,653,184; deepseek-v2-lite-16b's at 3 layers: 2 x
+    369,098,752), against its plain version and its bound, with the draw
+    that feeds it timed at two chunk sizes."""
     import torch
     from repro_torch.core import flatbuf, prng
     from repro_torch.kernels.natural.kernel import natural_compress_2d
@@ -2159,7 +2326,7 @@ def phase_train_width(dev, params, launches, name, norm_ulps):
     ops_ms = (11 * xs.numel() / PEAK_F32_OPS_PER_S if name == "qsgd" else
               6 * xs.numel() / PEAK_I32_OPS_PER_S) * 1e3
     log(f"time {kernel} ({tuple(xs.shape)}, the largest leaf of the train "
-        f"run): {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms, "
+        f"run of {arch}): {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms, "
         f"{nbytes / 1e9:.3f} GB; {bytes_ms / ms:.0%} of the memory "
         f"roofline); plain version {plain_ms:.1f} ms; its threefry noise "
         f"draw " + ", ".join(f"{v:.1f} ms (chunk {c})"
@@ -2428,9 +2595,9 @@ def phase_fedavg_lm(dev):
     leafwise QSGD compressed difference and its EF memory (one
     qsgd_dequantized launch a leaf, client and round: 44), then run_fedopt
     2 rounds (Adam on the server, exact deltas: no kernel).  Seconds a
-    round, a profile of one more FedAvg round (the draws' share), peak
-    memory; the ledger exact, params and losses finite, FedOpt's params
-    not FedAvg's, peak <= 70 GB."""
+    round, peak memory; the ledger exact, params and losses finite,
+    FedOpt's params not FedAvg's, peak <= 70 GB.  (No round runs under
+    the profiler: the profiler's 60-80 s are kept for the MoE phases.)"""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import QSGD, make_plan, prng
@@ -2515,13 +2682,6 @@ def phase_fedavg_lm(dev):
         f"{opt_peak / 1e9:.2f} GB; bits/n a round {up_bits:.0f} up + "
         f"{down_bits:.0f} down")
     del avg, opt
-    torch.cuda.empty_cache()
-    out = []
-    (wall_ms, by_kind, count), prof_s = timed(lambda: train_profile(
-        lambda: out.append(fed(run_fedavg, 1, compressor=plan))))
-    log(train_line("fedavg lm (qsgd) one round", wall_ms, by_kind, count)
-        + f" (the profiled call {prof_s:.1f} s)")
-    del out
     torch.cuda.empty_cache()
 
 
@@ -2775,6 +2935,726 @@ def phase_async_reduced(dev, name):
         f"{'one level ' + format(level, '.3g') if name == 'qsgd' else 0})")
 
 
+# --------------------------------------------------------------------------
+# the MoE and MLA family: routes, spans, prefill / serve, train, grad
+# --------------------------------------------------------------------------
+
+def flip_bound(pairs):
+    """The most flips ROUTE_FLIP_RATE allows among ``pairs`` (token,
+    slot) pairs: a Poisson mean and five of its standard deviations."""
+    mean = ROUTE_FLIP_RATE * pairs
+    return mean + 5 * mean ** 0.5
+
+
+class Routes:
+    """Record the top-k experts of every ``models.moe._route`` call and
+    the kept set of every dispatch (``_positions``), on the device: no
+    call syncs, the counts are read after the run.  With ``force`` (the
+    top-k of an earlier run, call by call) every call takes those experts
+    and counts where its own differ (the flipped (token, slot) pairs):
+    the gates are this run's, gathered at the forced experts and
+    normalized as ``_route`` does (bit for bit ``_route``'s own values
+    where nothing flips)."""
+
+    def __init__(self, force=None):
+        self.force, self.topi, self.keep, self.flipped = force, [], [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.saved = (moe._route, moe._positions)
+        route, positions = self.saved
+
+        def routed(x, router, k):
+            gates, topv, topi = route(x, router, k)
+            if self.force is not None:
+                want = self.force[len(self.topi)].to(topi.device) \
+                    .reshape(topi.shape)
+                self.flipped.append((want != topi).sum())
+                topi = want
+                topv = torch.gather(gates, -1, topi)
+                topv = topv / torch.clamp(
+                    torch.sum(topv, dim=-1, keepdim=True), min=1e-9)
+            self.topi.append(topi)
+            return gates, topv, topi
+
+        def recorded(topi, n_experts, capacity):
+            out = positions(topi, n_experts, capacity)
+            self.keep.append(out[2])
+            return out
+
+        moe._route, moe._positions = routed, recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route, moe._positions = self.saved
+
+    @property
+    def pairs(self):
+        return sum(t.numel() for t in self.topi)
+
+    @property
+    def flips(self):
+        return sum(int(f) for f in self.flipped)
+
+    @property
+    def assigned(self):
+        return sum(k.numel() for k in self.keep)
+
+    @property
+    def dropped(self):
+        return sum(int((~k).sum()) for k in self.keep)
+
+    def by_layer(self, n_moe):
+        """[(topi (G, S, k), keep (G, k, S))] a MoE layer: the run's
+        calls, step-major (decode: a call a step and layer), joined along
+        the tokens."""
+        import torch
+        steps_ = len(self.topi) // n_moe
+        calls = range(n_moe)
+        topi = [torch.cat([self.topi[s * n_moe + i] for s in range(steps_)],
+                          1) for i in calls]
+        keep = [torch.cat([self.keep[s * n_moe + i].reshape(
+            self.topi[s * n_moe + i].shape[0],
+            self.topi[s * n_moe + i].shape[2], -1)
+            for s in range(steps_)], 2) for i in calls]
+        return list(zip(topi, keep))
+
+    def check_flips(self, what):
+        return flips_line(what, self.flips, self.pairs)
+
+
+def flips_line(what, flips, pairs):
+    bound = flip_bound(pairs)
+    check(flips <= bound, f"{what}: {flips} of {pairs} (token, slot) routes "
+          f"flipped, more than the bound {bound:.1f}")
+    return (f"{flips} of {pairs} (token, slot) routes flipped (bound "
+            f"{bound:.1f})")
+
+
+def route_agreement(first, second, n_moe):
+    """Two unforced runs over the same sequences: (the line counting the
+    (token, slot) routes that differ, the (G, S) mask of the tokens that
+    agree: their routes and kept slots equal in every MoE layer, and
+    those of every earlier token of their sequence).  Under causal
+    attention no difference reaches those tokens, so their values differ
+    by rounding alone.  The count takes in the cascades (a token whose
+    expert flipped routes its later layers afresh), so only a forced run
+    counts the flips themselves (``Routes(force=...)``)."""
+    import torch
+    differ_pairs = pairs = 0
+    differ = None
+    for (ta, ka), (tb, kb) in zip(first.by_layer(n_moe),
+                                  second.by_layer(n_moe)):
+        tb, kb = tb.to(ta.device), kb.to(ta.device)
+        differ_pairs += int((ta != tb).sum())
+        pairs += ta.numel()
+        d = (ta != tb).any(-1) | (ka != kb).any(1)
+        differ = d if differ is None else differ | d
+    clean = torch.cumsum(differ.to(torch.int32), dim=1) == 0
+    return (f"{differ_pairs} of {pairs} (token, slot) routes differ "
+            "(cascades included)"), clean
+
+
+def clean_err(a, b, clean):
+    """max |a - b| over the tokens ``clean`` marks ((G, S) of (G, S, V)
+    logits) and their count."""
+    diff = (a - b).abs_().masked_fill_(~clean[..., None], 0.0)
+    return float(diff.max()), int(clean.sum())
+
+
+class Spans:
+    """CUDA events around every call of the MoE layer's parts (one
+    stream: the device time between a call's events is its own): the
+    router (``_route``), the expert products (``_experts_apply``), the
+    whole gather dispatch (``_moe_gather``) and the dispatch's backward
+    gathers (``_RowGather.backward``).  ``shares(wall_ms)`` is the line,
+    dispatch / combine being the dispatch less the router and experts."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.events = {"moe": [], "router": [], "experts": [], "bwd": []}
+        self.saved = [(moe, "_moe_gather"), (moe, "_route"),
+                      (moe, "_experts_apply"), (moe._RowGather, "backward")]
+        self.raw = [vars(owner)[name] for owner, name in self.saved]
+        for (owner, name), raw, label in zip(self.saved, self.raw,
+                                             self.events):
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+            def wrapped(*args, _fn=fn, _label=label, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    # a remat recompute may stop early by raising
+                    end.record()
+                    self.events[_label].append((start, end))
+
+            setattr(owner, name, staticmethod(wrapped)
+                    if isinstance(raw, staticmethod) else wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), raw in zip(self.saved, self.raw):
+            setattr(owner, name, raw)
+
+    def shares(self, wall_ms):
+        import torch
+        torch.cuda.synchronize()
+        ms = {k: sum(s.elapsed_time(e) for s, e in v)
+              for k, v in self.events.items()}
+        parts = {"router": ms["router"], "expert GEMMs": ms["experts"],
+                 "dispatch / combine": ms["moe"] - ms["router"]
+                 - ms["experts"], "dispatch backward": ms["bwd"]}
+        return "moe spans: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / wall_ms:.1%})" for k, v in parts.items()
+            if v or k != "dispatch backward")
+
+
+def phase_moe_prefill(dev, arch, layers):
+    """``arch`` at full width (``layers`` of its layers; all by default),
+    f32, seeded random weights, on B = 2 sequences of 4096 tokens:
+    build_prefill_step (GQA configs with attn_impl="flash": one flash
+    launch a layer; MLA: the dense latent prefill, no kernel), its
+    profile with the MoE spans, the dropped share at the configured
+    capacity factor, then forward with flash against forward with dense
+    attention (MLA: the step against forward's last position): dense on
+    its own routes, held on the tokens whose routes agree (the flips
+    counted), then dense taking flash's routes, held on every token.
+    Returns (cfg, params, tokens, launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import forward, init_params, param_count
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    flash = cfg.mixer == "gqa"
+    if flash:
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_s = timed(lambda: init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    n_params = MOE_SERVE[(arch, layers)]
+    check(param_count(params) == n_params, f"{arch} parameter count")
+    tokens = torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=PREFILL_B,
+        seq=PREFILL_S).batch_at(0)[0]).long().to(dev)
+    batch = {"tokens": tokens}
+    prefill = build_prefill_step(cfg)
+    reset_launches()            # this prefill main path starts here
+    with Routes() as routes:
+        last, first_s = timed(lambda: prefill(params, batch))
+    launches = dict(LAUNCHES)   # and ends here
+    want = {"flash_attention": cfg.n_layers} if flash else {}
+    check(launches == want, f"{arch} prefill launches {launches}, the path "
+          f"implies {want}")
+    check(last.shape == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()), f"{arch} prefill logits")
+    dropped = routes.dropped / routes.assigned
+    _, prefill_s = timed(lambda: prefill(params, batch))
+    peak = torch.cuda.max_memory_allocated(dev)
+    with Spans() as spans:
+        wall, by_kind, count = device_profile(lambda: prefill(params, batch))
+    log(profile_line(f"{arch} prefill step", wall, by_kind, count) + "; "
+        + spans.shares(wall))
+    seen, restore = [], None
+    if flash:   # forward keeps the last layer's attention operands
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        restore = flash_ops.flash_attention_op
+
+        def keep_last(q, k, v, **kw):
+            out = restore(q, k, v, **kw)
+            seen[:] = [(q, k, v, kw, out)]
+            return out
+
+        flash_ops.flash_attention_op = keep_last
+    try:
+        with torch.no_grad(), Routes() as first:
+            logits, fwd_s = timed(lambda: forward(params, cfg, batch)[0])
+    finally:
+        if restore is not None:
+            flash_ops.flash_attention_op = restore
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    step_err = float(torch.max(torch.abs(logits[:, -1] - last)))
+    check(step_err <= 1e-5 * float(last.abs().max()),
+          f"{arch} prefill step vs forward's last position: {step_err:.3g}")
+    line = f"step vs forward's last position max |d| {step_err:.3g}"
+    if flash:
+        dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        reset_launches()
+        with torch.no_grad(), Routes() as second:
+            dense, dense_s = timed(lambda: forward(params, dense_cfg,
+                                                   batch)[0])
+        check(not LAUNCHES, f"dense forward launched {dict(LAUNCHES)}")
+        flips, clean = route_agreement(first, second, n_moe)
+        scale = float(dense.abs().max())
+        own_err, agree = clean_err(logits, dense, clean)
+        check(own_err <= MOE_LOGIT_RTOL * scale, f"{arch} flash vs dense on "
+              f"the {agree} tokens whose routes agree: {own_err:.3g} > "
+              f"{MOE_LOGIT_RTOL:g} x {scale:.3g}")
+        del dense, second
+        with torch.no_grad(), Routes(force=first.topi) as third:
+            dense = forward(params, dense_cfg, batch)[0]
+        forced = third.check_flips(f"{arch} flash vs dense (forced)")
+        diff = torch.abs(logits - dense)
+        err = float(diff.max())
+        p999 = float(torch.quantile(diff.flatten()[::97], 0.999))
+        q, k, v, kw, out = seen.pop()
+        plain = fk._plain(q, k, v, kw["causal"], kw["window"])
+        layer_err = float(torch.max(torch.abs(out - plain)))
+        layer_bound = FLASH_TOL * max(1.0, float(plain.abs().max()))
+        del q, k, v, out, plain, diff
+        line += (f"; forward flash {fwd_s:.3f} s, dense {dense_s:.3f} s; "
+                 f"dense on its own routes: {flips}, logits max |d| on the "
+                 f"{agree} of {clean.numel()} tokens before a sequence's "
+                 f"first differing route {own_err:.3g} = "
+                 f"{own_err / scale:.3g} x max |logit| {scale:.3g}; dense "
+                 f"on flash's routes: {forced}, logits max |d| {err:.3g} = "
+                 f"{err / scale:.3g} x (bound {MOE_LOGIT_RTOL:g} x; 99.9th "
+                 f"percentile {p999:.3g}); layer "
+                 f"{cfg.n_layers - 1} kernel vs plain on its own operands "
+                 f"max |d| {layer_err:.3g}")
+        log(f"{arch}: {line}")
+        check(layer_err <= layer_bound, f"{arch} layer {cfg.n_layers - 1} "
+              f"flash vs plain: {layer_err:.3g} > {layer_bound:.3g}")
+        check(err <= MOE_LOGIT_RTOL * scale, f"{arch} flash vs dense "
+              f"logits: {err:.3g} > {MOE_LOGIT_RTOL:g} x {scale:.3g}")
+        del dense
+    del logits
+    log(f"phase moe prefill: {arch}, {cfg.n_layers} layers, {n_params:,} "
+        f"params (init {init_s:.2f} s), {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_token}, {cfg.n_shared_experts} shared, mixer "
+        f"{cfg.mixer}; B={PREFILL_B} S={PREFILL_S}: prefill step "
+        f"{first_s:.3f} s first, {prefill_s:.3f} s second, peak "
+        f"{peak / 1e9:.2f} GB; dropped assignments at capacity factor "
+        f"{cfg.capacity_factor:g}: {routes.dropped} of {routes.assigned} "
+        f"({dropped:.4%}); {line}; launches {launches}")
+    return cfg, params, tokens, launches
+
+
+def phase_moe_serve(dev, cfg, params, tokens):
+    """The serve phase at the capacity factor n_experts / k, where a
+    prefill group's capacity is S and nothing drops (decode's groups
+    never drop), so decode and forward compute the same function; the
+    forward takes decode's routes where an ulp flips one.  MLA reports
+    its latent cache's bytes a token and layer."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    phase_serve(dev, cfg, params, tokens, moe=True)
+
+
+def phase_route_seeds(dev):
+    """ROUTE_ARCH at full width and depth at each of ROUTE_SEEDS of its
+    weights, on the prefill batch: hidden with flash attention, then with
+    dense attention taking flash's routes, the flips counted and held to
+    flip_bound (phase moe prefill reads seed 0)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import hidden, init_params
+
+    cfg = dataclasses.replace(get_config(ROUTE_ARCH), attn_impl="flash")
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    batch = {"tokens": torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=PREFILL_B,
+        seq=PREFILL_S).batch_at(0)[0]).long().to(dev)}
+    lines = []
+    for seed in ROUTE_SEEDS:
+        params = init_params(torch.Generator(device=dev).manual_seed(seed),
+                             cfg)
+        with torch.no_grad(), Routes() as first:
+            hidden(params, cfg, batch)
+        with torch.no_grad(), Routes(force=first.topi) as second:
+            hidden(params, dense_cfg, batch)
+        lines.append(f"seed {seed}: " + second.check_flips(
+            f"{ROUTE_ARCH} seed {seed} flash vs dense"))
+        del params, first, second
+    torch.cuda.empty_cache()
+    log(f"phase route seeds: {ROUTE_ARCH}, {cfg.n_layers} layers, "
+        f"B={PREFILL_B} S={PREFILL_S}, flash against dense attention: "
+        + "; ".join(lines))
+
+
+def phase_moe_grad(dev):
+    """One client's loss and gradient of MOE_GRAD_ARCH at full width and
+    MODEL_GRAD_LAYERS layers (remat on) on one sequence of MODEL_GRAD_S
+    tokens, on the card and on the CPU from the same params.  The routes
+    are compared first: the card's recompute must route as its forward
+    did, and the CPU takes the card's routes where an ulp flips one (the
+    flips counted and bounded).  Each leaf within MODEL_GRAD_RTOL x its
+    max."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_config(MOE_GRAD_ARCH),
+                              n_layers=MODEL_GRAD_LAYERS)
+    params = init_params(torch.Generator(device=dev).manual_seed(3), cfg)
+    leaves, treedef = tree_flatten(params)
+    names = tree_flatten(_key_paths(params))[0]
+    del params
+    tokens = torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=1,
+        seq=MODEL_GRAD_S).batch_at(0)[0]).long()
+
+    def grads(device, force=None):
+        own = [a.detach().to(device).requires_grad_() for a in leaves]
+        with Routes(force) as routes:
+            loss, metrics = loss_fn(tree_unflatten(treedef, own), cfg,
+                                    {"tokens": tokens.to(device)})
+            got = torch.autograd.grad(loss, own)
+        return loss.detach(), float(metrics["aux"].detach()), got, routes
+
+    reset_launches()
+    (loss, aux, got, card), gpu_s = timed(lambda: grads(dev))
+    check(not LAUNCHES, f"moe grad launched {dict(LAUNCHES)}")
+    n = cfg.n_layers
+    check(len(card.topi) == 2 * n and all(
+        torch.equal(card.topi[i], card.topi[2 * n - 1 - i])
+        for i in range(n)), "the recompute routed otherwise than the forward")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_aux, want, cpu = grads("cpu", [t.cpu() for t in card.topi])
+    cpu_s = time.perf_counter() - t0
+    flips = cpu.check_flips("moe grad, card vs CPU")
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    check(loss_rel <= MODEL_GRAD_RTOL, f"moe loss {loss_rel:.3g}")
+    worst, at = 0.0, None
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(a).all()), "non-finite gradient")
+        rel = float(torch.max(torch.abs(a.cpu() - b))) \
+            / max(float(b.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, at = rel, i
+    check(worst <= MODEL_GRAD_RTOL, f"moe gradient leaf {names[at]}: "
+          f"{worst:.3g} x max |cpu| > {MODEL_GRAD_RTOL}")
+    log(f"phase moe grad: {MOE_GRAD_ARCH} at full width, {n} layers (remat "
+        f"{cfg.remat}), one sequence of {MODEL_GRAD_S} tokens: the card "
+        f"({gpu_s:.2f} s; no kernel) against the CPU ({cpu_s:.1f} s): "
+        f"{flips} (the CPU took the card's); loss within {loss_rel:.3g} "
+        f"(aux {aux:.6f} / {cpu_aux:.6f}), the worst of {len(want)} leaves "
+        f"{names[at]} within {worst:.3g} x its max (bound "
+        f"{MODEL_GRAD_RTOL})")
+
+
+def local_steps_identical(step, state, batch, key):
+    """Two local steps from one state: every param bit-identical."""
+    import torch
+    from repro_torch.core.tree import tree_leaves
+    a = step(state, batch, 0, key)[0].params
+    b = step(state, batch, 0, key)[0].params
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+# --------------------------------------------------------------------------
+# phase fleet width: heterogeneous fleets and the bandwidth controller on
+# the width cell
+# --------------------------------------------------------------------------
+
+def fleet_run(dev, up, xi, *, faults=None, participation=None, seeded,
+              targets, grad_fn, n, down=None):
+    """One run_l2gd of the width trainer with uplink ``up`` (a plan or a
+    fleet) and an identity downlink: (run, ms a step, peak bytes,
+    launches)."""
+    import torch
+    from repro_torch.core import Identity, L2GDHyper, prng
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES
+
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = run_l2gd(prng.PRNGKey(0), width_tree(n, seeded(0, 0.02)),
+                   grad_fn, L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n),
+                   lambda k: targets, len(xi), client_comp=up,
+                   master_comp=down or Identity(), xi_trace=xi,
+                   participation=participation, faults=faults, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(xi) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                if v - before.get(k, 0)}
+    torch.cuda.empty_cache()    # the next run's wire buffers differ
+    return run, ms, peak, launches
+
+
+def fleet_plain_check(dev, fleet, params):
+    """The mixed fleet's mean on the card (``fleet_mean``: the wire
+    cohorts' pack and reduce kernels) against a plain computation on the
+    same inputs: client i alone under ``fleet.plan_for(i)`` with key i of
+    ``split(k, n)`` (the reference's key schedule) through the plain
+    versions of the codecs on the card, summed cohort by cohort in the
+    fleet's order, one division.  The QSGD cohort's pack (levels 4) is
+    held as phase width kernels holds the pack: the kernel's buffer and
+    seed words equal client i's own, its codes bit-exact given its
+    bucket norms, the norms within NORM_ULPS of the plain sum.  The plain
+    decode takes the kernel's norms, so the means agree within float32
+    rounding, 8 eps x sum_i |C_i(x_i)| / n an element.  Then that pack
+    timed against its bound and its plain version.  Returns the line."""
+    import torch
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.fl import fleet_mean
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.natural import kernel as nk
+    from repro_torch.kernels.natural import ops as nops
+    from repro_torch.kernels.qsgd import kernel as qk
+    from repro_torch.kernels.qsgd import ops as qops
+    from repro_torch.kernels.qsgd import ref
+
+    n = fleet.n_clients
+    keys = prng.split(prng.PRNGKey(11), n)
+    seen, pack = [], flatbuf.qsgd_pack
+
+    def recorded(x, seeds, *, levels):
+        out = pack(x, seeds, levels=levels)
+        seen.append((x, np.asarray(seeds, np.uint32), levels) + tuple(out))
+        return out
+
+    flatbuf.qsgd_pack = recorded
+    try:
+        mean = fleet_mean(fleet, keys, params)
+    finally:
+        flatbuf.qsgd_pack = pack
+    check(len(seen) == 1, f"fleet mean: {len(seen)} QSGD packs")
+    x, seeds, levels, codes, norms = seen.pop()
+    before = dict(dispatch.LAUNCHES)
+    plain_route = (qk, qops, nk, nops)
+    saved = [m.use_kernel for m in plain_route]
+    for m in plain_route:
+        m.use_kernel = lambda *tensors: False
+    total = absum = None
+    norm_ulps = flipped = 0
+    try:
+        for c in fleet.used_cohorts:
+            plan, part = fleet.cohorts[c], None
+            for j, i in enumerate(fleet.clients_of(c)):
+                tree = tree_map(lambda a: a[i], params)
+                if plan.codec.name == "qsgd":
+                    layout = flatbuf.layout_of(tree, x.shape[-1])
+                    xi = flatbuf.bucketize(flatbuf.ravel(layout, tree),
+                                           x.shape[-1])
+                    si = flatbuf.seeds_of(keys[i])
+                    check(torch.equal(xi, x[j])
+                          and np.array_equal(si, seeds[j]), f"fleet mean: "
+                          f"the QSGD pack's row {j} is not client {i}'s")
+                    given, _ = ref.qsgd_pack_ref(xi, si, levels=levels,
+                                                 norms=norms[j])
+                    check(torch.equal(given, codes[j]), f"qsgd_pack levels "
+                          f"{levels}: client {i}'s codes given the norms")
+                    own, own_norms = ref.qsgd_pack_ref(xi, si, levels=levels)
+                    norm_ulps = max(norm_ulps, ulps(own_norms, norms[j]))
+                    flipped += int((own != codes[j]).sum())
+                    del xi, own, own_norms
+                    ci = flatbuf.unravel(layout, flatbuf.unbucketize(
+                        ref.qsgd_unpack_ref(given, norms[j], levels=levels),
+                        layout.d))
+                else:
+                    ci = plan.apply(keys[i], tree)
+                ci = tree_map(lambda a: a.to(torch.float32), ci)
+                if part is None:
+                    part = tree_map(torch.clone, ci)
+                else:
+                    tree_map(lambda t, a: t.add_(a), part, ci)
+                if absum is None:
+                    absum = tree_map(torch.abs, ci)
+                else:
+                    tree_map(lambda t, a: t.add_(a.abs()), absum, ci)
+                del ci
+            if total is None:
+                total = part
+            else:
+                tree_map(lambda t, a: t.add_(a), total, part)
+            del part
+    finally:
+        for m, fn in zip(plain_route, saved):
+            m.use_kernel = fn
+    check(dict(dispatch.LAUNCHES) == before, "the plain fleet mean launched "
+          "a kernel")
+    check(norm_ulps <= NORM_ULPS, f"qsgd_pack levels {levels}: norms "
+          f"{norm_ulps} ulps off")
+    eps = float(np.finfo(np.float32).eps)
+    err = rel = 0.0
+    for m, t, a in zip(tree_leaves(mean), tree_leaves(total),
+                       tree_leaves(absum)):
+        d = torch.abs(m - t / n)
+        tol = 8 * eps * a / n
+        check(bool(torch.all(d <= tol)), "the fleet mean differs from the "
+              "plain computation beyond float32 rounding")
+        err = max(err, float(d.max()))
+        rel = max(rel, float((d / torch.clamp(a / n, min=1e-30)).max()))
+    del mean, total, absum
+    nc, nb, b = x.shape
+    ms = time_ms(lambda: qk.qsgd_pack(x, seeds, levels=levels), reps=10)
+    plain_ms = time_ms(lambda: [ref.qsgd_pack_ref(x[j], seeds[j],
+                                                  levels=levels)
+                                for j in range(nc)], reps=1, warmup=1)
+    nbytes = nc * nb * b * 5 + nc * nb * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 10 * nc * nb * b / PEAK_F32_OPS_PER_S * 1e3
+    del x, codes, norms
+    torch.cuda.empty_cache()
+    return (f"mean of the mixed fleet against the plain codecs client by "
+            f"client (key schedule split(k, {n})): max |d| {err:.3g}, "
+            f"{rel:.3g} x sum_i |C_i| / n (bound {8 * eps:.3g}); qsgd_pack "
+            f"at levels {levels} ({nc}, {nb}, {b}): codes bit-exact given "
+            f"the kernel's norms, norms within {norm_ulps} ulps, {flipped} "
+            f"codes of {nc * nb * b} differ under the plain "
+            f"norms; {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms, "
+            f"{nbytes / 1e9:.3f} GB; {bytes_ms / ms:.0%} of the memory "
+            f"roofline), plain version {plain_ms:.1f} ms")
+
+
+def phase_fleet_width(dev):
+    """The width cell (stablelm-1.6b's tree at 4 layers, d = 411,060,224,
+    8 clients, the quadratic objective) under benchmarks/bench_fleet.py's
+    three-cohort mix (identity leafwise, natural flat, QSGD levels 4 on
+    the narrow packed wire; client i in cohort i mod 3), identity
+    downlink: (a) a uniform fleet equals its single plan in value on the
+    synchronous engine and on the async engine's chaos plan (the entry
+    points unwrap it to that plan, resolve_uplink, so this holds that
+    they do); (b) the mixed fleet on both engines: the ledger charges
+    sum_i round_bits(i) a full round (the chaos run from its delivery
+    counts), a natural pack and a QSGD pack a fresh round and a reduce a
+    fold for each wire cohort, peak <= 70 GB; after the synchronous run,
+    the fleet's mean of its final params against the plain codecs
+    (fleet_plain_check); (c) three controller rounds on a fleet with two
+    adjustable QSGD cohorts: the chosen levels, the budget kept."""
+    import torch
+    from repro_torch.core import Identity, make_compressor, make_plan
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import (BandwidthBudgetController, FleetPlan,
+                                as_fleet_plan)
+    from repro_torch.fl.ledger import BitsLedger, per_client_uplink
+    from repro_torch.kernels.dispatch import reset_launches
+
+    n = WIDTH_CLIENTS
+    seeded, targets, grad_fn = width_objective(dev, n)
+    kw = dict(seeded=seeded, targets=targets, grad_fn=grad_fn, n=n)
+    one = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
+    mixed = FleetPlan(cohorts=(
+        make_plan(Identity(), one, transport="leafwise"),
+        make_plan(make_compressor("natural"), one, transport="flat"),
+        make_plan(make_compressor("qsgd", levels=4), one,
+                  transport="packed", narrow=True)),
+        assignment=FLEET_ASSIGNMENT)
+    vec = mixed.round_bits_vector()
+    lines, ms = [], {}
+    reset_launches()        # the fleet main path starts here
+    # (a) the uniform-fleet keystone on both engines
+    single = make_plan(make_compressor("qsgd", levels=4), one,
+                       transport="packed", narrow=True)
+    for engine, faults, xi in (("sync", None, TRAIN_XI),
+                               ("async chaos", chaos_plan(), CHAOS_XI)):
+        part = None if faults is None else 0.75
+        ref, ms[f"{engine} single plan"], _, _ = fleet_run(
+            dev, single, xi, faults=faults, participation=part, **kw)
+        host = host_copy(ref.state.params)
+        ledger = ref.ledger.history
+        del ref
+        uni, ms[f"{engine} uniform fleet"], _, _ = fleet_run(
+            dev, as_fleet_plan(single, n), xi, faults=faults,
+            participation=part, **kw)
+        check(equal_by_value(uni.state.params, host, dev)
+              and uni.ledger.history == ledger, f"fleet width {engine}: "
+              "the uniform fleet differs from its single plan")
+        del uni, host
+    # (b) the mixed fleet
+    for engine, faults, xi in (("sync", None, TRAIN_XI),
+                               ("async chaos", chaos_plan(), CHAOS_XI)):
+        part = None if faults is None else 0.75
+        run, ms[f"{engine} mixed"], peak, got = fleet_run(
+            dev, mixed, xi, faults=faults, participation=part, **kw)
+        fresh = run.n_agg_comm
+        mean = per_client_uplink(vec, n)
+        if faults is None:
+            check(run.ledger.uplink_bits_per_client * n
+                  == run.ledger.rounds * sum(vec) and run.ledger.rounds == 2,
+                  f"fleet width sync: ledger {run.ledger}")
+            late = 0
+        else:
+            st = run.fault_stats
+            check(st["sent"] == st["delivered"] + st["dropped"]
+                  + st["evicted"] + st["rejected"], f"fleet chaos: events "
+                  f"not conserved {st}")
+            # each round adds (sent_r / n) * mean: the sum of the rounds'
+            # products, within float64 rounding of the product of the sum
+            got_bits = run.ledger.uplink_bits_per_client
+            want_bits = st["sent"] / n * mean
+            check(run.ledger.rounds == 5
+                  and abs(got_bits - want_bits) <= 1e-12 * want_bits,
+                  f"fleet chaos: ledger {run.ledger} against the fleet's "
+                  f"vector ({want_bits})")
+            check(st["stale"] >= 1, f"fleet chaos: no straggler {st}")
+            late = chaos_late_folds(n, xi, part)
+        want = {"natural_pack": fresh, "qsgd_pack": fresh,
+                "natural_reduce": fresh + late, "qsgd_reduce": fresh + late}
+        check(got == want, f"fleet width {engine}: launches {got}, the "
+              f"path implies {want}")
+        check(peak <= TRAIN_PEAK, f"fleet width {engine}: peak "
+              f"{peak / 1e9:.2f} GB")
+        for leaf in tree_leaves(run.state.params):
+            check(bool(torch.isfinite(leaf).all()), "non-finite params")
+        if faults is None:
+            lines.append(fleet_plain_check(dev, mixed, run.state.params))
+        lines.append(f"{engine}: {run.ledger.rounds} rounds, uplink "
+                     f"{run.ledger.uplink_bits_per_client * n:.6e} bits "
+                     f"in all (sum_i round_bits(i) = {sum(vec):.6e} a full "
+                     f"round), peak {peak / 1e9:.2f} GB, launches {got}"
+                     + ("" if faults is None else f", events "
+                        f"{run.fault_stats}"))
+        del run
+    # (c) the controller: two adjustable QSGD cohorts and a natural one
+    fleet = FleetPlan(cohorts=(
+        make_plan(make_compressor("qsgd"), one, transport="flat"),
+        make_plan(make_compressor("qsgd"), one, transport="packed"),
+        make_plan(make_compressor("natural"), one, transport="flat")),
+        assignment=FLEET_ASSIGNMENT)
+    budget = 0.5 * fleet.total_round_bits()
+    ctrl = BandwidthBudgetController(budget_bits_per_round=budget)
+    ledger, chosen = BitsLedger(n), []
+    for _ in range(3):
+        fleet = ctrl.next_fleet(fleet, ledger)
+        chosen.append([p.codec.levels for p in fleet.cohorts[:2]])
+        run, _, _, _ = fleet_run(dev, fleet, TRAIN_XI, **kw)
+        ledger.replay_xi_trace(run.xis, fleet.round_bits_vector(), 0.0)
+        check(all(np.isfinite(v) for _, v in run.losses),
+              "controller run losses")
+        del run
+    check(ledger.rounds == 6, f"controller rounds {ledger.rounds}")
+    del targets
+    torch.cuda.empty_cache()
+    log(f"phase fleet width: {n} clients x d={WIDTH_D}, cohorts "
+        f"{mixed.mix} (assignment {FLEET_ASSIGNMENT}), identity downlink, "
+        f"round_bits {sorted(set(vec))}; uniform fleet == single plan by "
+        f"value (sync, async chaos); " + "; ".join(lines) + "; ms a step "
+        "(first-call costs included): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) +
+        f"; controller (budget {budget:.6e} bits a round): levels of the "
+        f"two QSGD cohorts by round {chosen}, spent "
+        f"{ledger.uplink_bits_per_client * n:.6e} bits in {ledger.rounds} "
+        "rounds")
+
+
+
 def _key_paths(tree, path=""):
     """The nested dict ``tree`` with each leaf replaced by its key path."""
     if isinstance(tree, dict):
@@ -2840,8 +3720,8 @@ def main():
     norm_ulps = phase_dequantize_small(dev)
     for name in ("natural", "qsgd"):
         params, launches = phase_train(dev, name)
-        rows.append(phase_train_width(dev, params, launches, name,
-                                      norm_ulps))
+        rows.append(phase_train_width(dev, "stablelm-1.6b", params,
+                                      launches, name, norm_ulps))
         del params
         torch.cuda.empty_cache()
     train_launches = {}
@@ -2854,6 +3734,19 @@ def main():
     phase_paper_fedavg(dev)
     phase_fedavg_lm(dev)
     phase_async_width(dev)
+    for arch, layers in MOE_SERVE:
+        cfg, params, tokens, _ = phase_moe_prefill(dev, arch, layers)
+        phase_moe_serve(dev, cfg, params, tokens)
+        del params
+        torch.cuda.empty_cache()
+    phase_route_seeds(dev)
+    for arch, layers, name, profile in MOE_TRAIN:
+        params, launches = phase_train(dev, name, arch, layers, profile)
+        phase_train_width(dev, arch, params, launches, name, norm_ulps)
+        del params
+        torch.cuda.empty_cache()
+    phase_moe_grad(dev)
+    phase_fleet_width(dev)
     log(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -165,9 +165,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 #: assigned architectures whose family the port does not run yet -> the
 #: slice of the port that brings that family
 UNPORTED = {
-    "moonshot-v1-16b-a3b": "the MoE slice",
-    "granite-moe-1b-a400m": "the MoE slice",
-    "deepseek-v2-lite-16b": "the MLA and MoE slice",
     "mistral-large-123b": "the multi-device launch slice (123B parameters "
                           "do not fit one card)",
     "internvl2-26b": "the vision-frontend slice",

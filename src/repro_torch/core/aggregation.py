@@ -12,7 +12,9 @@ stacked tree with the n client keys at once: one codec call per leaf,
 each client drawing from its own key.  The key schedule is the
 reference's: ``k_clients, k_master = split(key)``, client i uses
 ``split(k_clients, n)[i]``, and a leafwise plan splits that key over the
-leaves.
+leaves.  A mixed :class:`repro_torch.fl.fleet.FleetPlan` uplink (DESIGN.md
+§13) groups the clients by cohort (:func:`repro_torch.fl.fleet.
+fleet_mean`); a uniform fleet unwraps to its plan first.
 """
 from __future__ import annotations
 
@@ -22,12 +24,23 @@ import numpy as np
 import torch
 
 from repro_torch.core import flatbuf, prng
-from repro_torch.core.codec import as_plan
+from repro_torch.core.codec import CompressionPlan, as_plan
 from repro_torch.core.tree import tree_leaves, tree_map
 
 __all__ = ["compressed_average", "masked_client_mean",
            "stacked_finite_mask", "weighted_client_sum", "client_mean",
            "all_finite"]
+
+
+def _resolve_uplink(comp, transport=None):
+    """Uplink coercion: plans pass through, plain compressors take
+    ``as_plan``, uniform fleets unwrap to their plan, mixed fleets stay
+    fleets.  The fl import happens at call time: ``repro_torch.fl``
+    imports this package."""
+    if isinstance(comp, CompressionPlan):
+        return comp
+    from repro_torch.fl.fleet import resolve_uplink
+    return resolve_uplink(comp, transport)
 
 
 def client_mean(a: torch.Tensor) -> torch.Tensor:
@@ -98,14 +111,22 @@ def compressed_average(key, params_stacked, client_comp, master_comp, *,
     """t = C_M((1/n) sum_j C_j(x_j)) for stacked client params.
 
     ``client_comp`` / ``master_comp`` are CompressionPlans or plain
-    compressors (auto transport).  ``mask`` (optional (n,) 0/1 tensor)
-    restricts the mean to a participant subset."""
-    up_plan = as_plan(client_comp)
+    compressors (auto transport); ``client_comp`` may also be a
+    :class:`repro_torch.fl.fleet.FleetPlan` (per-cohort uplinks).
+    ``mask`` (optional (n,) 0/1 tensor) restricts the mean to a
+    participant subset."""
+    up_plan = _resolve_uplink(client_comp)
     down_plan = as_plan(master_comp)
     n = tree_leaves(params_stacked)[0].shape[0]
     k_clients, k_master = prng.split(key)
     client_keys = prng.split(k_clients, n)
-    if up_plan.transport in ("flat", "packed"):
+    if not isinstance(up_plan, CompressionPlan):
+        from repro_torch.fl.fleet import fleet_mean
+        if up_plan.n_clients != n:
+            raise ValueError(f"fleet covers {up_plan.n_clients} clients; "
+                             f"params are stacked for {n}")
+        ybar = fleet_mean(up_plan, client_keys, params_stacked, mask)
+    elif up_plan.transport in ("flat", "packed"):
         payload = up_plan.encode(client_keys, params_stacked)
         ybar = flatbuf.reduce_payload_mean(payload, mask)
     else:

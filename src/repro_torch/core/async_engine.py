@@ -48,6 +48,12 @@ exact zeros (``-0.0 + 0.0`` is ``+0.0``, hence "in value"), the mean is
 ``reduce_payload_mean``'s ``acc / where(denom > 0, denom, 1)``, and the
 key schedule is the synchronous engine's.
 
+A mixed :class:`repro_torch.fl.fleet.FleetPlan` uplink (DESIGN.md §13)
+encodes cohort by cohort (:func:`repro_torch.fl.fleet.fleet_encode`);
+each cohort folds on its own wire accumulator, and the cohorts' partial
+sums compose in model space, so such a run buffers one-model float32
+leaves (a uniform fleet unwraps to its plan first).
+
 The async state is updated in place (the reference donates it): a
 caller threads the returned one into the next window.
 """
@@ -59,7 +65,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import flatbuf, prng
-from repro_torch.core.aggregation import (all_finite, masked_client_mean,
+from repro_torch.core.aggregation import (_resolve_uplink, all_finite,
+                                          masked_client_mean,
                                           stacked_finite_mask,
                                           weighted_client_sum)
 from repro_torch.core.codec import CompressionPlan, as_plan
@@ -138,20 +145,10 @@ def agg_state_from_tree(tree: dict) -> AsyncAggState:
                          rnd=int(tree["rnd"]))
 
 
-def _resolve_uplink(client_comp) -> CompressionPlan:
-    """Single plans pass through, plain compressors coerce with auto
-    transport; fleet uplinks (the reference's ``fleet_encode`` branch)
-    raise."""
-    if isinstance(client_comp, (list, tuple)) \
-            or hasattr(client_comp, "cohorts"):
-        raise NotImplementedError(
-            "fleet uplinks (fleet_encode) are not ported yet: they come "
-            "with fleets and the controller (ROADMAP.md Queue 1 item 4)")
-    return as_plan(client_comp)
-
-
 def _is_fused(plan) -> bool:
-    return plan.transport in ("flat", "packed")
+    """True for a single flat or packed plan (not a mixed fleet)."""
+    return isinstance(plan, CompressionPlan) \
+        and plan.transport in ("flat", "packed")
 
 
 def init_async_state(params_stacked, client_comp,
@@ -160,12 +157,18 @@ def init_async_state(params_stacked, client_comp,
     the params' device.  The buffer has the uplink's accumulator geometry:
     the (n_buckets, bucket) grid of the flat-engine payload (narrow QSGD
     codes widen before folding, so their grid too) for flat and packed
-    uplinks, one model's leaves (the params' dtypes) for leafwise."""
+    uplinks, one model's leaves (the params' dtypes) for leafwise, one
+    model's float32 leaves for a mixed fleet."""
     up_plan = _resolve_uplink(client_comp)
     ns = fault_plan.n_slots
     leaves = tree_leaves(params_stacked)
     device = leaves[0].device
-    if _is_fused(up_plan):
+    if not isinstance(up_plan, CompressionPlan):
+        buf = tree_map(lambda a: torch.zeros((ns,) + tuple(a.shape[1:]),
+                                             dtype=torch.float32,
+                                             device=device),
+                       params_stacked)
+    elif _is_fused(up_plan):
         d = flatbuf.layout_of(params_stacked, 1, batch_dims=1).d
         spec = flatbuf.payload_spec(up_plan.codec, d, bucket=up_plan.bucket)
         wire = spec.exps if hasattr(spec, "exps") else spec.codes
@@ -238,7 +241,13 @@ def _async_agg_fresh(st: L2GDState, agg: AsyncAggState, key, part, lat, drp,
     stale_w = agg.buf_w[sr]
 
     # ---- encode all n clients (the synchronous key schedule), guard ----
-    if _is_fused(up_plan):
+    fleet = None if isinstance(up_plan, CompressionPlan) else up_plan
+    if fleet is not None:
+        from repro_torch.fl.fleet import (fleet_encode, fleet_finite_mask,
+                                          fleet_weighted_sum)
+        cohorts = fleet_encode(fleet, client_keys, st.params)
+        fin = fleet_finite_mask(cohorts, n)
+    elif _is_fused(up_plan):
         payload = up_plan.encode(client_keys, st.params)
         fin = flatbuf.payload_finite_mask(payload)
         payload = flatbuf.sanitize_payload(payload, fin)
@@ -253,7 +262,10 @@ def _async_agg_fresh(st: L2GDState, agg: AsyncAggState, key, part, lat, drp,
     # ---- fold the quorum cohort + this round's matured slot ----
     tw = torch.sum(wf) + stale_w
     tw_safe = torch.where(tw > 0, tw, torch.ones_like(tw))
-    if _is_fused(up_plan):
+    if fleet is not None:
+        ybar = tree_map(lambda s, b, a: ((s + b[sr]) / tw_safe).to(a.dtype),
+                        fleet_weighted_sum(cohorts, wf), agg.buf, st.params)
+    elif _is_fused(up_plan):
         layout = payload.layout
         total = flatbuf.reduce_payload_acc(payload, wf)
         total.add_(agg.buf[sr])
@@ -302,7 +314,10 @@ def _async_agg_fresh(st: L2GDState, agg: AsyncAggState, key, part, lat, drp,
         w_a = to_dev(lands) * fin
         wt_a = w_a * float(np.float32(decay ** a))   # staleness at fold
         slot = (agg.rnd + a) % ns                 # never == sr for a in 1..D
-        if _is_fused(up_plan):
+        if fleet is not None:
+            tree_map(lambda b, s: b[slot].add_(s.to(b.dtype)), buf,
+                     fleet_weighted_sum(cohorts, wt_a))
+        elif _is_fused(up_plan):
             buf[slot].add_(flatbuf.reduce_payload_acc(payload, wt_a))
         else:
             tree_map(lambda b, s: b[slot].add_(s.to(b.dtype)), buf,
@@ -310,7 +325,9 @@ def _async_agg_fresh(st: L2GDState, agg: AsyncAggState, key, part, lat, drp,
         buf_w[slot] += torch.sum(wt_a)
         buf_cnt[slot] += _isum(w_a)
         delivered_late = delivered_late + _isum(w_a)
-    if _is_fused(up_plan):
+    if fleet is not None:
+        del cohorts
+    elif _is_fused(up_plan):
         del payload
     else:
         del contrib
@@ -397,8 +414,11 @@ def rollout_l2gd_async(key, state: L2GDState, hp: L2GDHyper, batches,
     fault_plan = fault_plan if fault_plan is not None else FaultPlan()
     length = _rollout_length(batches, batch_axis, xi_trace, steps)
     n = int(hp.n)
-    up_plan = _resolve_uplink(client_comp)
+    up_plan = _resolve_uplink(client_comp)   # a plan, or a mixed FleetPlan
     down_plan = as_plan(master_comp)
+    if not isinstance(up_plan, CompressionPlan) and up_plan.n_clients != n:
+        raise ValueError(f"fleet covers {up_plan.n_clients} clients; "
+                         f"hp.n = {n}")
     if agg_state is None:
         agg_state = init_async_state(state.params, up_plan, fault_plan)
     xis, subs = window_streams(key, hp.p, state.step, length, xi_trace)

@@ -401,7 +401,14 @@ def plan_from_spec(spec: dict) -> CompressionPlan:
 
 def as_plan(codec_or_plan, transport: Optional[str] = None,
             params=None) -> CompressionPlan:
-    """Coerce a compressor (or return a plan as-is) to a CompressionPlan."""
+    """Coerce a compressor (or return a plan as-is) to a CompressionPlan.
+    A FleetPlan raises: only uplink arguments take fleets."""
     if isinstance(codec_or_plan, CompressionPlan):
         return codec_or_plan
+    if hasattr(codec_or_plan, "cohorts"):    # FleetPlan (duck-typed: the
+        # core package does not import repro_torch.fl at module scope)
+        raise TypeError(
+            "got a FleetPlan where a single CompressionPlan is expected; "
+            "only uplink arguments accept fleets (repro_torch.fl.fleet."
+            "resolve_uplink) — the downlink C_M is one broadcast plan")
     return make_plan(codec_or_plan, params, transport=transport)

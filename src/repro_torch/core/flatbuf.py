@@ -351,7 +351,7 @@ def narrow_tree_qsgd(payload: QSGDPayload) -> NarrowQSGDPayload:
     :func:`widen_tree_qsgd` restores the int8 codes bit for bit."""
     width = _narrow_width(payload.levels)
     codes = payload.codes
-    mag = torch.abs(codes.to(torch.int32)).to(torch.uint8)
+    mag = torch.abs(codes).to(torch.uint8)    # |code| <= 7: int8 holds it
     sign = (codes < 0).to(torch.uint8)
     fields = (sign << (width - 1)) | mag
     return NarrowQSGDPayload(pack_bits(fields, width), payload.norms,

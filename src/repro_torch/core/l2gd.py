@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.aggregation import client_mean, compressed_average
+from repro_torch.core.aggregation import (_resolve_uplink, client_mean,
+                                          compressed_average)
 from repro_torch.core.codec import as_plan
 from repro_torch.core.compressors import Identity
 from repro_torch.core.tree import tree_map
@@ -183,7 +184,8 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
     # allocates
     loss = aggregation_loss(state.params, batch, grad_fn, loss_fn)
     if branch == 1:
-        target = compressed_average(key, state.params, as_plan(client_comp),
+        target = compressed_average(key, state.params,
+                                    _resolve_uplink(client_comp),
                                     as_plan(master_comp),
                                     mask=participation_mask)
     else:

@@ -16,10 +16,12 @@ The ledger charges ``uplink_plan.round_bits()`` per client and
 ``downlink_plan.round_bits()`` per round (DESIGN.md §3); a sampled round
 (``participation=``) costs s/n of that, and a faulty one (``faults=``,
 the async engine of :mod:`repro_torch.core.async_engine`) is charged
-from its realized delivery counts.
+from its realized delivery counts.  A mixed fleet uplink
+(:class:`repro_torch.fl.fleet.FleetPlan`, DESIGN.md §13) is charged its
+per-client vector ``round_bits_vector()``.
 
-Not ported yet (they raise ``NotImplementedError``): fleets and
-checkpoints (``checkpoint_policy=``, ``resume_from=``) — see ROADMAP.md.
+Not ported yet (they raise ``NotImplementedError``): checkpoints
+(``checkpoint_policy=``, ``resume_from=``) — see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from repro_torch.core.l2gd import L2GDHyper, init_state, l2gd_step
 from repro_torch.core.rollout import (participant_count, rollout_l2gd,
                                       window_masks, window_streams)
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.fl.ledger import BitsLedger
+from repro_torch.fl.fleet import FleetPlan, fleet_from_plans, resolve_uplink
+from repro_torch.fl.ledger import BitsLedger, per_client_uplink
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["L2GDRun", "run_l2gd"]
@@ -61,19 +64,30 @@ class L2GDRun:
 
 
 def _resolve_plans(client_comp, master_comp, plan, one_client):
-    """(uplink, downlink) plans, bound to one client's shapes."""
+    """(uplink, downlink) plans, bound to one client's shapes.  The
+    uplink may be a :class:`repro_torch.fl.fleet.FleetPlan` (as
+    ``client_comp``, ``plan`` or ``plan[0]``), or a length-n sequence of
+    per-client plans (``client_comp``; :func:`repro_torch.fl.fleet.
+    fleet_from_plans`); a uniform fleet unwraps to its single plan at
+    once.  The downlink is always one broadcast plan."""
+    if isinstance(client_comp, (list, tuple)):
+        client_comp = fleet_from_plans(client_comp)
     if plan is None:
-        up_plan, down_plan = as_plan(client_comp), as_plan(master_comp)
+        up_plan = client_comp if isinstance(client_comp, FleetPlan) \
+            else as_plan(client_comp)
+        down_plan = as_plan(master_comp)
     elif isinstance(plan, (tuple, list)):
         up_plan, down_plan = plan
     else:
         up_plan, down_plan = plan, as_plan(master_comp)
-    if not isinstance(up_plan, CompressionPlan) \
+    if not isinstance(up_plan, (CompressionPlan, FleetPlan)) \
             or not isinstance(down_plan, CompressionPlan):
-        raise TypeError("plan must be a CompressionPlan or an (uplink, "
-                        "downlink) pair of them; fleet plans are not "
-                        "ported yet (ROADMAP.md)")
-    if up_plan.specs is None:
+        raise TypeError("plan must be a CompressionPlan (or a FleetPlan "
+                        "uplink) or an (uplink, downlink) pair; the "
+                        "downlink is always a single CompressionPlan")
+    if isinstance(up_plan, FleetPlan):
+        up_plan = resolve_uplink(up_plan.bind(one_client))
+    if isinstance(up_plan, CompressionPlan) and up_plan.specs is None:
         up_plan = up_plan.bind(one_client)
     if down_plan.specs is None:
         down_plan = down_plan.bind(one_client)
@@ -107,6 +121,8 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     batch) -> (losses (n,), grads)`` over the stacked client axis;
     ``batch_fn(step)`` the step's stacked batch (deterministic per step).
     ``plan`` is an uplink CompressionPlan or an (uplink, downlink) pair;
+    ``client_comp`` (or the uplink) may be a FleetPlan or a length-n
+    sequence of per-client plans (heterogeneous fleets);
     ``xi_trace`` forces the protocol realization; ``eval_fn(params)`` runs
     every ``eval_every`` steps (at chunk boundaries in scan mode);
     ``loss_fn(params, batch) -> losses (n,)`` (optional) gives the
@@ -147,7 +163,14 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     up_plan, down_plan = _resolve_plans(client_comp, master_comp, plan,
                                         one_client)
     del one_client   # the plans keep shapes only
-    up_bits, down_bits = up_plan.round_bits(), down_plan.round_bits()
+    if isinstance(up_plan, CompressionPlan):
+        up_bits = up_plan.round_bits()
+    else:   # a mixed fleet charges its per-client vector
+        if up_plan.n_clients != int(hp.n):
+            raise ValueError(f"fleet covers {up_plan.n_clients} clients; "
+                             f"hp.n = {int(hp.n)}")
+        up_bits = up_plan.round_bits_vector()
+    down_bits = down_plan.round_bits()
 
     if xi_trace is not None:
         xi_trace = np.asarray(xi_trace, np.int32)
@@ -195,6 +218,9 @@ def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
     masks = window_masks(key, n, participation, 0, steps)
     scale = 1.0 if participation is None else \
         participant_count(n, participation) / n
+    # the replay's normalization of a fleet's per-client vector, so the
+    # host loop's ledger equals the replayed one bit for bit
+    up_mean = per_client_uplink(up_bits, n)
     device = tree_leaves(run.state.params)[0].device
     xi_prev = 1  # Algorithm 1 input: xi_{-1} = 1
     for k in range(steps):
@@ -211,7 +237,7 @@ def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
             run.n_local += 1
         elif xi_prev == 0:
             run.n_agg_comm += 1
-            run.ledger.record_round(scale * up_bits, scale * down_bits,
+            run.ledger.record_round(scale * up_mean, scale * down_bits,
                                     step=k)
         else:
             run.n_agg_cached += 1

@@ -20,22 +20,41 @@ Partial participation (DESIGN.md §9): a round that samples s =
 it costs s/n of a full round per client on both directions.  The async
 fault engine's rounds (DESIGN.md §11) are charged from their realized
 delivery counts by :meth:`BitsLedger.replay_fault_trace`.
+
+Heterogeneous fleets (DESIGN.md §13): under a mixed
+:class:`repro_torch.fl.fleet.FleetPlan` clients carry different wire
+costs, so every uplink argument also takes a length-n per-client
+sequence (``FleetPlan.round_bits_vector()``).  :func:`per_client_uplink`
+turns it into the per-client mean ``sum_i bits_i / n`` once, and every
+rule above charges that mean: after R full-participation rounds the fleet
+total ``n * uplink_bits_per_client`` is ``R * sum_i round_bits(i)``.  A
+scalar passes through unchanged (the single-plan path).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Sequence, Union
 
 __all__ = ["BitsLedger", "per_client_uplink"]
 
+#: a uniform per-client cost, or one cost per client (length n)
+UplinkBits = Union[float, Sequence[float]]
 
-def per_client_uplink(bits: float, n_clients: int) -> float:
-    """The per-client uplink charge of a uniform plan.  Per-client cost
-    vectors (heterogeneous fleets) are a later slice of the port."""
-    if not isinstance(bits, (int, float)):
-        raise NotImplementedError("per-client uplink vectors (fleets) are "
-                                  "not ported yet; see ROADMAP.md")
-    return float(bits)
+
+def per_client_uplink(bits: UplinkBits, n_clients: int) -> float:
+    """The per-client uplink charge: a scalar passes through, a length-n
+    sequence becomes ``sum_i bits_i / n``, summed left to right in client
+    order (the one association every charging site shares)."""
+    if isinstance(bits, (int, float)):
+        return float(bits)
+    seq = [float(b) for b in bits]
+    if len(seq) != int(n_clients):
+        raise ValueError(f"per-client uplink bits cover {len(seq)} "
+                         f"clients, ledger has {n_clients}")
+    total = 0.0
+    for b in seq:
+        total += b
+    return total / int(n_clients)
 
 
 @dataclasses.dataclass
@@ -60,7 +79,7 @@ class BitsLedger:
             "bits_per_client": self.bits_per_client,
         })
 
-    def replay_xi_trace(self, xis, uplink_bits_one_client: float,
+    def replay_xi_trace(self, xis, uplink_bits_one_client: UplinkBits,
                         downlink_bits: float, *, xi_prev: int = 1,
                         start_step: int = 0,
                         participation: float | None = None) -> int:
@@ -70,7 +89,8 @@ class BitsLedger:
         concatenate into one history.  ``participation`` (optional
         fraction f) charges each sampled round at s/n of a full round on
         both directions, s = ``participant_count(n_clients, f)``.
-        Returns the trace's last xi."""
+        ``uplink_bits_one_client`` is a scalar or a fleet's per-client
+        vector.  Returns the trace's last xi."""
         up_bits = per_client_uplink(uplink_bits_one_client, self.n_clients)
         scale = 1.0
         if participation is not None:
@@ -85,7 +105,7 @@ class BitsLedger:
         return xi_prev
 
     def replay_fault_trace(self, xis, sent, delivered,
-                           uplink_bits_one_client: float,
+                           uplink_bits_one_client: UplinkBits,
                            downlink_bits: float, *, xi_prev: int = 1,
                            start_step: int = 0,
                            charge_dropped: bool = True) -> int:
@@ -102,8 +122,9 @@ class BitsLedger:
           * downlink: (sent/n) * round_bits (every alive participant
             receives the broadcast; crashed clients are never charged).
 
-        With no faults this is :meth:`replay_xi_trace` bit for bit.
-        Returns the final xi."""
+        With no faults this is :meth:`replay_xi_trace` bit for bit.  A
+        fleet's per-client vector charges its mean per counted payload
+        (the event counts are cohort-blind).  Returns the final xi."""
         n = self.n_clients
         up_bits = per_client_uplink(uplink_bits_one_client, n)
         for i, xi in enumerate(int(x) for x in xis):

@@ -15,9 +15,10 @@ autograd of ``models.loss_fn`` for one client after another over the
 stacked parameter tree (the reference's ``vmap`` of ``value_and_grad``);
 the aggregation branches evaluate the loss without a backward.  The
 serve builders run without autograd.  ``build_async_rollout_fn`` is the
-LM face of the async fault engine.  The shard_map ``average_fn``
-variants, fleets and the sharded rollouts are not ported yet
-(ROADMAP.md Queue 1).
+LM face of the async fault engine.  The uplink may be a heterogeneous
+fleet (a FleetPlan or a per-client plan vector, DESIGN.md §13).  The
+shard_map ``average_fn`` variants and the sharded rollouts are not ported
+yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.core.compressors import Identity
 from repro_torch.core.l2gd import L2GDHyper, L2GDState, l2gd_step
 from repro_torch.core.rollout import rollout_l2gd
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.fl.fleet import FleetPlan, fleet_from_plans, resolve_uplink
 from repro_torch.models import blocks, decode_step, hidden, init_params
 from repro_torch.models import loss_fn as model_loss_fn
 
@@ -95,14 +97,16 @@ def stacked_loss_fn(cfg: ArchConfig):
     return loss_fn
 
 
-def _uplink_plan(client_comp, shapes) -> CompressionPlan:
+def _uplink_plan(client_comp, shapes):
     """Plain compressors get the builders' leafwise default, ready
-    CompressionPlans pass through (bound if needed); fleets raise."""
-    if isinstance(client_comp, (list, tuple)) \
-            or hasattr(client_comp, "cohorts"):
-        raise NotImplementedError(
-            "fleet plans are not ported yet: they come with the async "
-            "engine and fleets (ROADMAP.md Queue 1 item 9)")
+    CompressionPlans pass through (bound if needed), and a FleetPlan
+    binds every cohort to the model's shapes and unwraps if uniform; a
+    length-n sequence is a per-client plan vector (deduped into
+    cohorts, the same rule)."""
+    if isinstance(client_comp, (list, tuple)):
+        client_comp = fleet_from_plans(client_comp)
+    if isinstance(client_comp, FleetPlan):
+        return resolve_uplink(client_comp.bind(shapes))
     if isinstance(client_comp, CompressionPlan):
         return client_comp if client_comp.specs is not None \
             else client_comp.bind(shapes)
@@ -113,7 +117,7 @@ def _plans(cfg, client_comp, master_comp, average_fn, plans):
     if average_fn is not None:
         raise NotImplementedError(
             "average_fn (the shard_map aggregation variants) comes with the "
-            "multi-device launch layer (ROADMAP.md Queue 1 item 12)")
+            "multi-device launch slice of the port")
     if plans is not None:
         return tuple(plans)
     shapes = param_shapes(cfg)

@@ -119,11 +119,11 @@ def main(argv=None, device=None):
     if args.engine == "mesh2d" or args.model_shards != 1:
         raise NotImplementedError(
             "--engine mesh2d (the 2-D clients x model mesh) comes with the "
-            "multi-device launch slice (ROADMAP.md Queue 1 item 12)")
+            "multi-device launch slice of the port")
     if args.ckpt or args.ckpt_every or args.ckpt_keep or args.resume:
         raise NotImplementedError(
             "--ckpt, --ckpt-every, --ckpt-keep and --resume come with the "
-            "checkpoint slice (ROADMAP.md Queue 1 item 10)")
+            "checkpoint slice of the port")
     device = resolve_device(device)
 
     base = get_config(args.arch) if args.full \

@@ -1,5 +1,7 @@
-"""GQA attention (optional sliding window and qk-norm) with its KV cache —
-the GQA half of ``repro.models.attention``.
+"""GQA attention (optional sliding window and qk-norm) with its KV cache,
+and DeepSeek-V2's multi-head latent attention (MLA) with its latent
+cache — the counterparts of ``repro.models.attention`` (the encoder /
+cross attention of the encoder-decoder comes with its slice).
 
 Two execution paths:
   * train / prefill: full-sequence causal (optionally windowed) attention,
@@ -10,6 +12,11 @@ Two execution paths:
     into the cache tensors IN PLACE (the reference's
     ``dynamic_update_slice`` returns a new array) and returns the same
     cache object.
+
+MLA has no flash route (the reference has none, and its q/k dim
+nope + rope differs from its v dim): the prefill expands the latent into
+keys and values and takes a dense causal softmax; decode takes the
+absorbed form against the latent cache.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from repro_torch.models.blocks import (apply_rope, dense_init, init_rmsnorm,
                                        rmsnorm)
 
 __all__ = ["NEG_INF", "attention_core", "causal_mask", "init_gqa", "KVCache",
-           "init_kv_cache", "gqa_attention"]
+           "init_kv_cache", "gqa_attention", "init_mla", "MLACache",
+           "init_mla_cache", "mla_attention"]
 
 NEG_INF = -1e30
 
@@ -119,6 +127,18 @@ def _project(params: dict, x, n_heads: int, n_kv: int, head_dim: int):
             (x @ params["wv"]).reshape(B, S, n_kv, head_dim))
 
 
+def _write_cache(tensors, values, idx: int) -> None:
+    """Write ``values`` at positions idx.. of the (B, C, ...) caches."""
+    C, S = tensors[0].shape[1], values[0].shape[1]
+    if idx + S > C:
+        # the reference's dynamic_update_slice would clamp the start
+        # and overwrite the newest slots; the port refuses instead
+        raise IndexError(f"cache of capacity {C} cannot take {S} tokens "
+                         f"at position {idx}")
+    for t, v in zip(tensors, values):
+        t[:, idx:idx + S] = v
+
+
 def gqa_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                   n_heads: int, n_kv: int, head_dim: int, theta: float,
                   window: Optional[int] = None, qk_norm: bool = False,
@@ -157,13 +177,7 @@ def gqa_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
         C = cache.k.shape[1]
         idx = int(cache_index)
         slot = idx % C if ring else idx
-        if slot + S > C:
-            # the reference's dynamic_update_slice would clamp the start
-            # and overwrite the newest slots; the port refuses instead
-            raise IndexError(f"cache of capacity {C} cannot take {S} tokens "
-                             f"at position {idx}")
-        cache.k[:, slot:slot + S] = k
-        cache.v[:, slot:slot + S] = v
+        _write_cache(cache, (k, v), slot)
         slots = torch.arange(C, device=x.device)
         if ring:
             # slot s holds position idx - ((idx - s) mod C); valid once written
@@ -176,4 +190,90 @@ def gqa_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
         out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     else:
         out = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator, d_model: int, n_heads: int, kv_lora: int, dtype, *,
+             device, nope_dim: int = 128, rope_dim: int = 64,
+             v_dim: int = 128) -> dict:
+    def w(shape):
+        return dense_init(generator, shape, dtype, device=device)
+
+    return {
+        "wq": w((d_model, n_heads * (nope_dim + rope_dim))),
+        "w_dkv": w((d_model, kv_lora + rope_dim)),
+        "kv_norm": init_rmsnorm(kv_lora, dtype, device),
+        "w_uk": w((kv_lora, n_heads * nope_dim)),
+        "w_uv": w((kv_lora, n_heads * v_dim)),
+        "wo": w((n_heads * v_dim, d_model)),
+    }
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, C, kv_lora) — the compressed latent
+    k_rope: torch.Tensor  # (B, C, rope_dim) — the one shared rope key
+
+
+def init_mla_cache(batch: int, capacity: int, kv_lora: int, rope_dim: int,
+                   dtype, device) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, capacity, kv_lora), dtype=dtype, device=device),
+        torch.zeros((batch, capacity, rope_dim), dtype=dtype, device=device))
+
+
+def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                  n_heads: int, kv_lora: int, theta: float,
+                  nope_dim: int = 128, rope_dim: int = 64, v_dim: int = 128,
+                  cache: Optional[MLACache] = None,
+                  cache_index: Optional[int] = None):
+    """Latent attention.  Returns (out, cache): the cache is None on the
+    prefill path and written in place on the decode path, whose scores
+    are taken against the cached latent (q absorbed through ``w_uk``) and
+    whose values are expanded from the latent through ``w_uv``."""
+    B, S, _ = x.shape
+    H = n_heads
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+
+    q = (x @ params["wq"]).reshape(B, S, H, nope_dim + rope_dim)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+    q_rope = apply_rope(q_rope, positions, theta)
+
+    dkv = x @ params["w_dkv"]
+    # rmsnorm's default eps, as the reference calls it (not cfg.norm_eps)
+    c_kv = rmsnorm(params["kv_norm"], dkv[..., :kv_lora])         # (B,S,R)
+    # one rope key shared by every head
+    k_rope = apply_rope(dkv[..., None, kv_lora:], positions, theta)[:, :, 0]
+
+    if cache is None:
+        k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, nope_dim)
+        val = (c_kv @ params["w_uv"]).reshape(B, S, H, v_dim)
+        scores = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
+        scores = scores.to(torch.float32) * scale
+        scores = torch.where(causal_mask(S, S, device=x.device), scores,
+                             NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(val.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, val)
+    else:
+        idx = int(cache_index)
+        _write_cache(cache, (c_kv, k_rope), idx)
+        cc, cr = cache
+        C = cc.shape[1]
+        wuk = params["w_uk"].reshape(kv_lora, H, nope_dim)
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wuk)        # absorb
+        scores = (torch.einsum("bshr,btr->bhst", q_abs, cc)
+                  + torch.einsum("bshd,btd->bhst", q_rope, cr))
+        scores = scores.to(torch.float32) * scale
+        valid = (torch.arange(C, device=x.device) <= idx)[None, None, None]
+        scores = torch.where(valid, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cc.dtype)
+        ctx_latent = torch.einsum("bhst,btr->bshr", probs, cc)     # (B,S,H,R)
+        wuv = params["w_uv"].reshape(kv_lora, H, v_dim)
+        out = torch.einsum("bshr,rhd->bshd", ctx_latent, wuv)
+
+    out = out.reshape(B, S, H * v_dim) @ params["wo"]
     return out, cache

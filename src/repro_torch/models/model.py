@@ -1,9 +1,12 @@
-"""Config-driven decoder for the dense GQA, Mamba and hybrid families —
-the counterpart of ``repro.models.model`` for ``mixer`` in {"gqa",
-"mamba", "hybrid"} and ``ffn`` in {"dense", "none"}.
+"""Config-driven decoder for the dense GQA, MoE, MLA, Mamba and hybrid
+families — the counterpart of ``repro.models.model`` for ``mixer`` in
+{"gqa", "mla", "mamba", "hybrid"} and ``ffn`` in {"dense", "moe",
+"none"}.
 
 The parameter tree is the reference's: a dict with a leading layer axis
-on every leaf of ``params["layers"]``, the same keys.  The forward pass
+on every leaf of ``params["layers"]``, the same keys; a config with
+``first_dense_layers`` keeps those layers (dense FFN) in a stack of their
+own, ``params["dense_layers"]``, which runs first.  The forward pass
 loops over the layers in Python (the reference scans), each layer's
 weights one ``unbind`` of the stacked leaves (its backward stacks the
 layer gradients once; a per-layer ``select`` would build a zero tensor
@@ -14,8 +17,11 @@ are recomputed in the backward, as the reference's ``jax.checkpoint`` of
 the layer scan does.  With ``attn_impl="flash"`` and no sliding
 window every attention layer runs the flash-attention kernel and no
 (S, S) mask is built; every Mamba layer's scan runs the selective-scan
-kernel on the card (``models/mamba.py``).  MLA, MoE, frontends and the
-encoder-decoder raise and name the slice of the port that brings them.
+kernel on the card (``models/mamba.py``).  MoE layers return the router's
+aux loss, summed over the layers in the reference's order (the dense
+stack first) into ``loss_fn``'s ``ce + aux_loss_weight * aux``.  The
+frontends and the encoder-decoder raise and name the slice of the port
+that brings them.
 
 Public API:
   init_params(generator, cfg, device)    -> params
@@ -24,7 +30,8 @@ Public API:
   loss_fn(params, cfg, batch)            -> (loss, metrics)
   layer_kinds(cfg)                       -> per-layer static descriptors
   init_caches(cfg, batch, capacity)      -> decode cache list (KV caches,
-                                            Mamba caches, or both a layer)
+                                            MLA latent caches, Mamba caches,
+                                            or KV and Mamba a layer)
   decode_step(params, cfg, caches, index, batch) -> (logits, caches)
 """
 from __future__ import annotations
@@ -40,6 +47,7 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_lib
 
 __all__ = ["init_params", "forward", "hidden", "loss_fn", "layer_kinds",
            "init_caches", "decode_step", "param_count"]
@@ -49,13 +57,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.mixer not in ("gqa", "mamba", "hybrid"):
-        raise NotImplementedError(
-            f"mixer {cfg.mixer!r} is not ported yet: MLA comes with the MoE "
-            "slice")
-    if cfg.ffn not in ("dense", "none") or cfg.first_dense_layers:
-        raise NotImplementedError(
-            f"ffn {cfg.ffn!r} is not ported yet: it comes with the MoE slice")
     if cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
             "encoder-decoder and frontend models are not ported yet: they "
@@ -92,8 +93,14 @@ def layer_kinds(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def _init_mixer(generator, cfg: ArchConfig, dtype, device) -> dict:
-    """gqa: attention; mamba: the Mamba mixer; hybrid: attention (without
-    qk-norm, as the reference's) beside Mamba, each with an output norm."""
+    """gqa: attention; mla: latent attention; mamba: the Mamba mixer;
+    hybrid: attention (without qk-norm, as the reference's) beside Mamba,
+    each with an output norm."""
+    if cfg.mixer == "mla":
+        return {"attn": attn.init_mla(
+            generator, cfg.d_model, cfg.n_heads, cfg.kv_lora_rank, dtype,
+            device=device, nope_dim=cfg.mla_nope_dim,
+            rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim)}
     p = {}
     if cfg.mixer != "mamba":
         p["attn"] = attn.init_gqa(
@@ -115,6 +122,11 @@ def _init_ffn(generator, cfg: ArchConfig, kind: str, dtype, device) -> dict:
         return {"ffn": blocks.init_mlp(generator, cfg.d_model, cfg.d_ff,
                                        dtype, device=device,
                                        fused=cfg.mlp_fused),
+                "ln2": blocks.init_rmsnorm(cfg.d_model, dtype, device)}
+    if kind == "moe":
+        return {"ffn": moe_lib.init_moe(generator, cfg.d_model,
+                                        cfg.n_experts, cfg.n_shared_experts,
+                                        cfg.moe_d_ff, dtype, device=device),
                 "ln2": blocks.init_rmsnorm(cfg.d_model, dtype, device)}
     return {}  # none (Mamba blocks carry their own gated expansion)
 
@@ -145,13 +157,24 @@ def init_params(generator, cfg: ArchConfig, device=None) -> dict:
                          f"{device}: make the generator on the parameters' "
                          "device")
     dtype = _DTYPES[cfg.param_dtype]
-    return {
+    params = {
         "embed": blocks.init_embedding(generator, cfg.vocab_size,
                                        cfg.d_model, dtype, device=device),
         "final_norm": blocks.init_rmsnorm(cfg.d_model, dtype, device),
-        "layers": _stack([_init_layer(generator, cfg, kind, dtype, device)
-                          for kind in layer_kinds(cfg)]),
     }
+    for group, kinds in _groups(cfg):
+        params[group] = _stack([_init_layer(generator, cfg, kind, dtype,
+                                            device) for kind in kinds])
+    return params
+
+
+def _groups(cfg: ArchConfig) -> list:
+    """[(stack name, its layers' kinds)] in the order they run: the
+    ``first_dense_layers`` in "dense_layers" (when there are any), the
+    rest in "layers"."""
+    kinds, n_dense = layer_kinds(cfg), cfg.first_dense_layers
+    return ([("dense_layers", kinds[:n_dense])] if n_dense else []) \
+        + [("layers", kinds[n_dense:])]
 
 
 def param_count(params) -> int:
@@ -207,9 +230,18 @@ def _fuse(lp: dict, a, m):
                   + blocks.rmsnorm(lp["norm_mamba"], m))
 
 
+def _mla(cfg: ArchConfig, p: dict, x, positions, **kw):
+    return attn.mla_attention(
+        p, x, positions, n_heads=cfg.n_heads, kv_lora=cfg.kv_lora_rank,
+        theta=cfg.rope_theta, nope_dim=cfg.mla_nope_dim,
+        rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim, **kw)
+
+
 def _apply_mixer(cfg: ArchConfig, lp: dict, x, positions, mask, impl):
     """The full-sequence mixer of one layer (the reference's
     ``_apply_mixer_train``)."""
+    if cfg.mixer == "mla":
+        return _mla(cfg, lp["attn"], x, positions)[0]
     if cfg.mixer == "mamba":
         return mb.mamba_forward(lp["mixer"], x, d_state=cfg.ssm_state,
                                 chunk=cfg.scan_chunk)
@@ -222,11 +254,25 @@ def _apply_mixer(cfg: ArchConfig, lp: dict, x, positions, mask, impl):
                                          chunk=cfg.scan_chunk))
 
 
-def _apply_ffn(cfg: ArchConfig, lp: dict, x, kind: str):
+def _apply_ffn(cfg: ArchConfig, lp: dict, x, kind: str, with_aux=True):
+    """(x + ffn(x), the layer's aux loss: a 0-d float32 for MoE when
+    ``with_aux``, else None)."""
     if kind == "none":
-        return x
+        return x, None
     h = blocks.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + blocks.mlp(lp["ffn"], h, cfg.activation)
+    if kind == "dense":
+        return x + blocks.mlp(lp["ffn"], h, cfg.activation), None
+    y, aux = moe_lib.moe_ffn(
+        lp["ffn"], h, n_experts=cfg.n_experts, k=cfg.experts_per_token,
+        capacity_factor=cfg.capacity_factor, impl=cfg.moe_impl,
+        n_shared=cfg.n_shared_experts, with_aux=with_aux)
+    return x + y, aux
+
+
+def _add(total, part):
+    """total + part where None stands for zero (adding the reference's
+    zeros changes no bit)."""
+    return part if total is None else total if part is None else total + part
 
 
 def _decoder_layer(cfg: ArchConfig, kind: LayerKind, lp: dict, x, positions,
@@ -240,6 +286,13 @@ def hidden(params, cfg: ArchConfig, batch):
     """The decoder stack up to the final norm: (B, S, d_model) in the
     compute dtype.  ``forward`` unembeds all of it; the prefill step only
     its last position."""
+    return _hidden_aux(params, cfg, batch)[0]
+
+
+def _hidden_aux(params, cfg: ArchConfig, batch):
+    """(``hidden``, the aux loss summed over the layers: each stack's
+    layers from zero in order, then the stacks' sums in order, as the
+    reference's scans carry it; None without MoE)."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     cdt = _DTYPES[cfg.compute_dtype]
@@ -247,34 +300,42 @@ def hidden(params, cfg: ArchConfig, batch):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     impl = _attn_impl_train(cfg)
-    global_mask = local_mask = None     # flash and Mamba build no mask
-    if impl == "dense" and cfg.mixer != "mamba":
+    global_mask = local_mask = None     # flash, MLA, Mamba: no mask here
+    if impl == "dense" and cfg.mixer in ("gqa", "hybrid"):
         global_mask = local_mask = attn.causal_mask(S, S, device=x.device)
         if cfg.sliding_window is not None:
             local_mask = attn.causal_mask(S, S, cfg.sliding_window,
                                           device=x.device)
     remat = _remat(cfg, params)
-    for lp, kind in zip(_layers(params["layers"], cfg.n_layers),
-                        layer_kinds(cfg)):
-        mask = global_mask if kind.is_global else local_mask
-        if remat:
-            x = checkpoint(_decoder_layer, cfg, kind, lp, x, positions, mask,
-                           impl, use_reentrant=False)
-        else:
-            x = _decoder_layer(cfg, kind, lp, x, positions, mask, impl)
-    return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    aux = None
+    for group, kinds in _groups(cfg):
+        group_aux = None
+        for lp, kind in zip(_layers(params[group], len(kinds)), kinds):
+            mask = global_mask if kind.is_global else local_mask
+            if remat:
+                x, layer_aux = checkpoint(_decoder_layer, cfg, kind, lp, x,
+                                          positions, mask, impl,
+                                          use_reentrant=False)
+            else:
+                x, layer_aux = _decoder_layer(cfg, kind, lp, x, positions,
+                                              mask, impl)
+            group_aux = _add(group_aux, layer_aux)
+        aux = _add(aux, group_aux)
+    return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(params, cfg: ArchConfig, batch):
     """batch: {"tokens": (B, S)}.  Returns (logits (B, S, V) float32,
     aux_loss 0-d float32)."""
-    x = hidden(params, cfg, batch)
-    return (blocks.unembed(params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    x, aux = _hidden_aux(params, cfg, batch)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return blocks.unembed(params["embed"], x), aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Next-token cross-entropy (+ the aux loss, zero without MoE)."""
+    """Next-token cross-entropy + ``aux_loss_weight`` x the MoE aux loss
+    (zero without MoE)."""
     logits, aux = forward(params, cfg, batch)
     tokens = batch["tokens"]
     loss = blocks.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
@@ -287,9 +348,10 @@ def loss_fn(params, cfg: ArchConfig, batch):
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
-    """One cache per layer: a KV cache (gqa), a ``MambaCache`` (mamba), or
-    {"attn": KV cache, "mamba": MambaCache} (hybrid).  Windowed layers
-    get ring buffers of size min(window, capacity)."""
+    """One cache per layer: a KV cache (gqa), an ``MLACache`` of the
+    latent (mla), a ``MambaCache`` (mamba), or {"attn": KV cache,
+    "mamba": MambaCache} (hybrid).  Windowed layers get ring buffers of
+    size min(window, capacity)."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
@@ -300,6 +362,11 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
         if cfg.mixer == "gqa":
             caches.append(attn.init_kv_cache(batch, cap, cfg.n_kv_heads,
                                              cfg.hd, dtype, device))
+        elif cfg.mixer == "mla":
+            caches.append(attn.init_mla_cache(batch, capacity,
+                                              cfg.kv_lora_rank,
+                                              cfg.mla_rope_dim, dtype,
+                                              device))
         elif cfg.mixer == "mamba":
             caches.append(mb.init_mamba_cache(batch, cfg.d_inner,
                                               cfg.ssm_state, cfg.ssm_conv,
@@ -316,6 +383,8 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
 
 def _decode_mixer(cfg: ArchConfig, lp: dict, cache, x, pos, index: int,
                   kind: LayerKind):
+    if cfg.mixer == "mla":
+        return _mla(cfg, lp["attn"], x, pos, cache=cache, cache_index=index)
     if cfg.mixer == "mamba":
         return mb.mamba_decode_step(lp["mixer"], x, cache,
                                     d_state=cfg.ssm_state)
@@ -340,11 +409,12 @@ def decode_step(params, cfg: ArchConfig, caches, index, batch):
     x = blocks.embed(params["embed"], tokens).to(_DTYPES[cfg.compute_dtype])
     pos = torch.full(tokens.shape, index, dtype=torch.int64,
                      device=tokens.device)
-    layers = _layers(params["layers"], cfg.n_layers)
+    layers = [lp for group, kinds in _groups(cfg)
+              for lp in _layers(params[group], len(kinds))]
     for i, (lp, kind) in enumerate(zip(layers, layer_kinds(cfg))):
         h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         out, caches[i] = _decode_mixer(cfg, lp, caches[i], h, pos, index,
                                        kind)
-        x = _apply_ffn(cfg, lp, x + out, kind.ffn)
+        x = _apply_ffn(cfg, lp, x + out, kind.ffn, with_aux=False)[0]
     x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return blocks.unembed(params["embed"], x), caches

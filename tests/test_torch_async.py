@@ -440,10 +440,24 @@ def test_async_rejects_non_finite_payloads():
 
 
 def test_fleet_uplinks_raise():
+    """Fleet uplinks run since the fleet slice (tests/test_torch_fleet.py):
+    a mixed fleet buffers one model's float32 leaves.  What still raises
+    is an uplink that only looks like a fleet (it has ``cohorts`` but is
+    no FleetPlan): it reaches ``as_plan``, which refuses it."""
+    from repro_torch.fl import FleetPlan
+
     class Fleet:
         cohorts = ()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="FleetPlan"):
         init_async_state({"w": torch.zeros(N, D)}, Fleet(), FaultPlan())
+    one = {"w": torch.zeros(D)}
+    mixed = FleetPlan(cohorts=(make_plan(Identity(), one),
+                               make_plan(QSGD(levels=7), one,
+                                         transport="packed")),
+                      assignment=(0, 1, 0, 1))
+    agg = init_async_state({"w": torch.zeros(N, D)}, mixed, FaultPlan())
+    assert agg.buf["w"].shape == (FaultPlan().n_slots, D)
+    assert agg.buf["w"].dtype == torch.float32
 
 
 # --------------------------------------------------------------------------
