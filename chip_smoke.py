@@ -165,6 +165,25 @@ these phases and fails (non-zero exit, no result line) on any error:
            GB; the mixed fleet's mean against the plain codecs client by
            client under the key schedule, its levels-4 QSGD pack held
            and timed; three rounds of the bandwidth controller.
+  checkpoint width  the width cell (QSGD packed uplink, flat downlink,
+           4 steps in chunks of 2) with dense snapshots at both chunk
+           boundaries through the CheckpointManager, n clients from the
+           host's MemAvailable and the temp directory's free space (8, 4
+           or 2), resumed from step 2: params and cache equal to the
+           committed snapshot of step 4, ledger, xi trace, losses and
+           counters to the uninterrupted run's; the synchronous engine,
+           then the async engine under the chaos plan at participation
+           0.5; save()'s blocking time, the commits' and the restore's;
+  serve store  stablelm-1.6b at full width and depth, 4 tenants (seeded
+           perturbations of one base) in the DeltaModelStore, qsgd4 then
+           natural: qsgd_pack / natural_pack at ingest, qsgd_unpack at
+           materialize, each tenant equal to the plain decode on the
+           card; the ServingEngine (LRU of 2, batches of 4, 16 + 16
+           tokens) against a hand-run LRU trace, mixed-tenant logits
+           equal to solo logits bit for bit; store.save -> load equal;
+           TTFT, ms a token, residency against dense f32 and bf16.
+
+Each group of phases logs its seconds ("lap ..."), the total the sum.
 
 The last two lines of standard output are one JSON object describing
 the kernels and one JSON object naming the device.
@@ -3655,12 +3674,532 @@ def phase_fleet_width(dev):
 
 
 
+# --------------------------------------------------------------------------
+# checkpoint width: dense snapshots of the width cell, bit-exact resume
+# --------------------------------------------------------------------------
+
+CKPT_XI = [0, 1, 0, 1]          # a fresh round in each of the two chunks
+CKPT_CHUNK = 2
+SERVE_TENANTS, SERVE_CACHE, SERVE_BATCH = 4, 2, 4
+SERVE_PROMPT, SERVE_GEN = 16, 16
+SERVE_SEED_SCALE = 0.01         # a tenant: base + 0.01 x N(0, 1)
+
+
+def mem_available():
+    """(MemAvailable bytes of /proc/meminfo, free bytes of the temp
+    directory, the directory)."""
+    import shutil
+    import tempfile
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    tmp = tempfile.gettempdir()
+    return avail, shutil.disk_usage(tmp).free, tmp
+
+
+class CommitClock:
+    """Seconds each save() blocked the run and each background commit
+    took, from a manager's own calls; ``last`` keeps the host snapshot
+    the last commit wrote."""
+
+    def __init__(self, mgr):
+        self.blocked, self.commit, self.last = [], [], None
+        save, commit = mgr.save, mgr._commit
+
+        def timed_save(*args, **kw):
+            t0 = time.perf_counter()
+            out = save(*args, **kw)
+            self.blocked.append(time.perf_counter() - t0)
+            return out
+
+        def timed_commit(*args):
+            self.last = args[1]
+            t0 = time.perf_counter()
+            out = commit(*args)
+            self.commit.append(time.perf_counter() - t0)
+            return out
+
+        mgr.save, mgr._commit = timed_save, timed_commit
+
+
+def same_run(a, b, what):
+    check(a.losses == b.losses, f"{what}: losses differ")
+    check(a.ledger == b.ledger, f"{what}: ledgers differ")
+    check(list(a.xis) == list(b.xis), f"{what}: xi traces differ")
+    check((a.n_local, a.n_agg_comm, a.n_agg_cached)
+          == (b.n_local, b.n_agg_comm, b.n_agg_cached),
+          f"{what}: branch counts differ")
+    check(a.fault_stats == b.fault_stats, f"{what}: fault totals differ")
+
+
+def phase_checkpoint_width(dev):
+    """The width cell (stablelm-1.6b's tree at full width and 4 of 24
+    layers, QSGD packed uplink, flat downlink) with dense snapshots at
+    every chunk boundary, then resumed from the middle one: the resumed
+    run equals the uninterrupted one bit for bit (params and cache
+    against the host snapshot of the last boundary, which the manager
+    committed; ledger, xi trace, losses, counters; the restore is the
+    resume's own, timed).  The synchronous engine, then the async engine
+    under the chaos plan at participation 0.5.  n from the host's
+    memory: the largest of 8, 4, 2 whose snapshot is under a quarter of
+    MemAvailable and under a third of the temp directory's free space."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointPolicy, resume
+    from repro_torch.core import L2GDHyper, make_compressor, make_plan, prng
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import run_l2gd
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+
+    avail, free, tmp = mem_available()
+    pick = [n for n in (8, 4, 2)
+            if (n + 1) * 4 * WIDTH_D < avail / 4
+            and (n + 1) * 4 * WIDTH_D < free / 3]
+    check(pick, f"host memory {avail / 1e9:.1f} GB / temp space "
+          f"{free / 1e9:.1f} GB hold no snapshot of 3 x {WIDTH_D} floats")
+    n = pick[0]
+    snap_gb = (n + 1) * 4 * WIDTH_D / 1e9
+    log(f"phase checkpoint width: MemAvailable {avail / 1e9:.1f} GB, "
+        f"{tmp} free {free / 1e9:.1f} GB -> n = {n} clients (dense "
+        f"snapshot {snap_gb:.2f} GB)")
+    seeded, targets, grad_fn = width_objective(dev, n)
+    comp = make_compressor("qsgd")
+    one = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
+    plans = (make_plan(comp, one, transport="packed"),
+             make_plan(comp, one, transport="flat"))
+    hp = L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n)
+    load, restores = resume.load_rollout_checkpoint, []
+
+    def timed_load(*args, **kw):         # the driver's restore, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return out
+
+    resume.load_rollout_checkpoint = timed_load
+    launches = {}
+    try:
+        for engine, faults, part in (("sync", None, None),
+                                     ("async", chaos_plan(), 0.5)):
+            root = tempfile.mkdtemp(prefix="ckpt-width-")
+            try:
+                def run(**kw):
+                    return run_l2gd(prng.PRNGKey(0), width_tree(
+                        n, seeded(0, 0.02)), grad_fn, hp, lambda k: targets,
+                        len(CKPT_XI), plan=plans, xi_trace=CKPT_XI,
+                        chunk=CKPT_CHUNK, faults=faults, participation=part,
+                        device=dev, **kw)
+
+                policy = CheckpointPolicy(root)
+                clock = CommitClock(policy.resolve())
+                reset_launches()          # the main path starts here
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                base = run(checkpoint_policy=policy)
+                torch.cuda.synchronize()
+                base_s = time.perf_counter() - t0
+                policy.resolve().close()
+                steps = policy.resolve().all_steps()
+                check(steps == [2, 4], f"{engine}: snapshots at {steps}")
+                mid = steps[0]
+                base.state = None
+                # the host copy of step 4's params and cache, the rest let go
+                last, clock.last = clock.last, None
+                if engine == "async":
+                    check(last["agg"] is not None
+                          and int(last["agg"]["rnd"]) > 0,
+                          "async snapshot carries no delay buffer")
+                want = {"params": tree_leaves(
+                            last["state"]["params"]["dense"]),
+                        "cache": tree_leaves(last["state"]["cache"]),
+                        "step": int(last["state"]["step"])}
+                del last
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                resumed = run(resume_from=root, resume_step=mid)
+                torch.cuda.synchronize()
+                resume_s = time.perf_counter() - t0
+                launches[engine] = dict(LAUNCHES)   # the main path ends here
+                same_run(base, resumed, f"checkpoint width ({engine})")
+                nbytes = {s_: sum(os.path.getsize(os.path.join(dp, f))
+                                  for dp, _, fs in os.walk(os.path.join(
+                                      root, f"step_{s_:010d}")) for f in fs)
+                          for s_ in steps}
+                for tree in ("params", "cache"):
+                    got = tree_leaves(getattr(resumed.state, tree))
+                    check(len(got) == len(want[tree]) and all(
+                        torch.equal(a, b.to(dev))
+                        for a, b in zip(got, want[tree])),
+                        f"checkpoint width ({engine}): resumed {tree} differ "
+                        "from the uninterrupted run's")
+                check(resumed.state.step == want["step"] == len(CKPT_XI),
+                      f"{engine}: step counters")
+                restore_s = restores[-1]
+                log(f"phase checkpoint width ({engine}"
+                    + (", chaos, participation 0.5" if faults else "")
+                    + f"): {n} clients x d={WIDTH_D}, snapshots at {steps}, "
+                    f"{nbytes[mid] / 1e9:.2f} GB each; save() blocked "
+                    f"{', '.join(f'{b:.2f}' for b in clock.blocked)} s of "
+                    f"commits {', '.join(f'{c:.2f}' for c in clock.commit)} s "
+                    f"(snapshot copy + pack + write + fsync); run "
+                    f"{base_s:.2f} s ({len(CKPT_XI)} steps with snapshots), "
+                    f"resumed from step {mid} {resume_s:.2f} s, of which the "
+                    f"restore onto the card {restore_s:.2f} s = "
+                    f"{nbytes[mid] / 1e9 / restore_s:.2f} GB/s; resumed == "
+                    f"uninterrupted bit for bit (params, cache, "
+                    f"ledger, xi, losses{', fault totals' if faults else ''})"
+                    f"; launches {launches[engine]}")
+                del resumed, want, base, clock
+                torch.cuda.empty_cache()
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            check(not os.path.exists(root),
+                  f"{engine}: snapshot directory {root} left behind")
+    finally:
+        resume.load_rollout_checkpoint = load
+    del targets
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# serve store: stablelm-1.6b tenants from the base-plus-delta store
+# --------------------------------------------------------------------------
+
+def serve_tenants(dev, cfg, n, seed=0):
+    """n tenants as seeded perturbations of one seeded base, stacked on
+    the card: x_i = base + SERVE_SEED_SCALE x N(0, 1)."""
+    import torch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import init_params
+    base = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                       dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def stack(a):
+        out = a.unsqueeze(0).repeat((n,) + (1,) * a.dim())
+        for i in range(n):
+            out[i].add_(torch.randn(a.shape, generator=gen, device=dev),
+                        alpha=SERVE_SEED_SCALE)
+        return out
+
+    stacked = tree_map(stack, base)
+    del base
+    return stacked
+
+
+def plain_tenant(store, tid):
+    """The tenant decoded by the plain PyTorch versions on the card (the
+    QSGD unpack's plain version; the natural merge as one client of the
+    plain natural reduce), added to the base as materialize does."""
+    import torch
+    from repro_torch.core.codec import NaturalPayload
+    from repro_torch.core.flatbuf import unbucketize, unravel, widen_tree_qsgd
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.natural.ref import natural_reduce_ref
+    from repro_torch.kernels.qsgd.ref import qsgd_unpack_ref
+    p = store.payload(tid)
+    if isinstance(p, NaturalPayload):
+        y = natural_reduce_ref(p.exps[None], p.signs[None])
+    else:
+        p = widen_tree_qsgd(p) if hasattr(p, "width") else p
+        y = qsgd_unpack_ref(p.codes, p.norms, levels=p.levels)
+    delta = unravel(p.layout, unbucketize(y, p.layout.d))
+    return tree_map(lambda b, d: (b + d.to(torch.float32)).to(b.dtype),
+                    store.base, delta)
+
+
+def lru_trace(capacity, accesses):
+    """(eviction log, hits, misses) of an LRU of ``capacity`` over the
+    tenant access sequence, by hand."""
+    import collections
+    cache, log_, hits, misses = collections.OrderedDict(), [], 0, 0
+    for tid in accesses:
+        if tid in cache:
+            cache.move_to_end(tid)
+            hits += 1
+            continue
+        misses += 1
+        cache[tid] = None
+        while len(cache) > capacity:
+            log_.append(cache.popitem(last=False)[0])
+    return log_, hits, misses
+
+
+def store_equal(a, b, tids):
+    """Payload arrays and static fields equal, tenant by tenant."""
+    import dataclasses
+    import torch
+
+    def fields(p):
+        if hasattr(p, "leaves"):
+            return [x for q in p.leaves for x in fields(q)]
+        return [(f.name, getattr(p, f.name)) for f in dataclasses.fields(p)]
+
+    for tid in tids:
+        fa, fb = fields(a.payload(tid)), fields(b.payload(tid))
+        check(len(fa) == len(fb), f"tenant {tid}: payload fields differ")
+        for (na, va), (nb, vb) in zip(fa, fb):
+            same = torch.equal(va, vb) if isinstance(va, torch.Tensor) \
+                else va == vb
+            check(na == nb and same, f"tenant {tid}: field {na} differs")
+
+
+def serve_ingest_check(stacked, store, key, codec):
+    """The ingest kernel against its plain version at the serve path's
+    shape: tenant i's delta x_i - base, bucketized as the plan does, and
+    its key words seeds_of(fold_in(key, i)) rebuilt here; the stored
+    payload (narrow codes widened first) held in windows at rows 0 and
+    nb - WINDOW, as phase width kernels holds the pack.  QSGD: codes
+    bit-exact given the stored norms, the norms within NORM_ULPS of the
+    plain sum; natural: exponents and signs bit-exact.  Returns the
+    kernel's name, its largest |norm - plain norm| and a log fragment."""
+    import torch
+    from repro_torch.core import flatbuf, prng
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.natural.ref import natural_pack_ref
+    from repro_torch.kernels.qsgd.ref import qsgd_pack_ref
+
+    err, norm_ulps, shape = 0.0, 0, None
+    for i, tid in enumerate(store.tenants):
+        p = store.payload(tid)
+        if hasattr(p, "width"):
+            p = flatbuf.widen_tree_qsgd(p)
+        layout = p.layout
+        delta = tree_map(lambda a, b: (a[i] - b).to(torch.float32),
+                         stacked, store.base)
+        x = flatbuf.bucketize(flatbuf.ravel(layout, delta), layout.bucket)
+        del delta
+        seeds = flatbuf.seeds_of(prng.fold_in(key, i))
+        nb, shape = x.shape[0], tuple(x.shape)
+        for r0 in (0, nb - WINDOW):
+            win = slice(r0, r0 + WINDOW)
+            if codec.startswith("qsgd"):
+                given, _ = qsgd_pack_ref(x[win], seeds, levels=p.levels,
+                                         row_offset=r0, norms=p.norms[win])
+                check(torch.equal(given, p.codes[win]),
+                      f"{codec}: tenant {tid}'s codes, window at {r0}, "
+                      "given the stored norms")
+                _, own = qsgd_pack_ref(x[win], seeds, levels=p.levels,
+                                       row_offset=r0)
+                norm_ulps = max(norm_ulps, ulps(own, p.norms[win]))
+                err = max(err, float(torch.max(torch.abs(own
+                                                         - p.norms[win]))))
+            else:
+                e, s = natural_pack_ref(x[win], seeds, row_offset=r0)
+                check(torch.equal(e, p.exps[win])
+                      and torch.equal(s, p.signs[win]),
+                      f"{codec}: tenant {tid}'s exponents and signs, "
+                      f"window at {r0}")
+        del x
+    if codec.startswith("qsgd"):
+        check(norm_ulps <= NORM_ULPS, f"{codec}: stored norms {norm_ulps} "
+              "ulps from the plain sum")
+        return "qsgd_pack", err, (
+            f"qsgd_pack levels {p.levels} at {shape}, windows at rows 0 and "
+            f"{shape[0] - WINDOW} of every tenant: codes bit-exact given the "
+            f"stored norms, norms within {norm_ulps} ulps (max |d| {err:.3g})")
+    return "natural_pack", err, (
+        f"natural_pack at {shape}, windows at rows 0 and {shape[0] - WINDOW}"
+        " of every tenant: exponents and signs bit-exact")
+
+
+def phase_serve_store(dev):
+    """stablelm-1.6b at full width and depth (1,438,746,624 params, f32):
+    4 tenants, seeded perturbations of one base, stacked on the card
+    (23 GB), ingested into the DeltaModelStore under qsgd4 (QSGD levels
+    7, packed, narrowed to 4-bit codes) and then natural (packed), and
+    served by the ServingEngine (LRU of 2, batches of 4, 16-token prompts
+    from prng.randint, 16 greedy tokens) in map mode: qsgd_pack /
+    natural_pack at ingest (one launch a tenant) and qsgd_unpack at
+    materialize (one a QSGD miss); each tenant's stored payload against
+    the pack's plain version on its own delta and key words
+    (serve_ingest_check); each tenant equal to the plain decode on the
+    card; mixed-tenant logits equal solo logits bit for bit; the
+    LRU against the trace; store.save -> DeltaModelStore.load equal
+    (at full width when 3 x the store fits in a quarter of
+    MemAvailable, else at 4 layers)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import build_plan
+    from repro_torch.serve import DeltaModelStore, Request, ServingEngine
+
+    cfg = get_config("stablelm-1.6b")
+    key = prng.PRNGKey(0)
+    prompts = prng.randint(prng.fold_in(key, 3),
+                           (SERVE_TENANTS, SERVE_PROMPT), 0, cfg.vocab_size)
+    launches, errs = {}, {}
+    for codec in ("qsgd4", "natural"):
+        plan, narrow = build_plan(codec)
+        stacked = serve_tenants(dev, cfg, SERVE_TENANTS)
+        check(sum(a[0].numel() for a in tree_leaves(stacked))
+              == STABLELM_PARAMS, "stablelm-1.6b parameter count")
+        reset_launches()              # the main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = DeltaModelStore.from_params(stacked, plan,
+                                            key=prng.fold_in(key, 1),
+                                            narrow=narrow)
+        torch.cuda.synchronize()
+        ingest_ms = (time.perf_counter() - t0) * 1e3
+        pack = "qsgd_pack" if codec.startswith("qsgd") else "natural_pack"
+        check(LAUNCHES.get(pack, 0) == SERVE_TENANTS,
+              f"{codec}: {pack} launched {LAUNCHES.get(pack, 0)} times at "
+              f"ingest, expected one a tenant")
+        ingest = dict(LAUNCHES)
+        name, err, held = serve_ingest_check(stacked, store,
+                                             prng.fold_in(key, 1), codec)
+        check(dict(LAUNCHES) == ingest, "the plain ingest check launched "
+              "a kernel")
+        errs[name] = max(errs.get(name, 0.0), err)
+        log(f"phase serve store ({codec}): {held}")
+        del stacked
+        torch.cuda.empty_cache()
+        tids = store.tenants
+        requests = [Request(t, tuple(int(v) for v in prompts[i]),
+                            gen=SERVE_GEN) for i, t in enumerate(tids)]
+        engine = ServingEngine(store, cfg, cache_capacity=SERVE_CACHE,
+                               max_batch=SERVE_BATCH)
+        order = [3, 2, 0, 1, 3]       # solo requests after the mixed batch
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        mixed = engine.serve(requests, return_logits=True)
+        mixed_s = time.perf_counter() - t0
+        solo = [engine.serve([requests[i]], return_logits=True)[0]
+                for i in order]
+        served = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                  if v - before.get(k, 0)}
+        launches[codec] = dict(LAUNCHES)   # the main path ends here
+        misses = engine.metrics.misses
+        want_unpack = misses if codec.startswith("qsgd") else 0
+        check(served.get("qsgd_unpack", 0) == want_unpack
+              and set(served) <= {"qsgd_unpack"},
+              f"{codec}: serving launched {served}, expected "
+              f"{want_unpack} qsgd_unpack (one a miss)")
+        want_log, hits, misses = lru_trace(
+            SERVE_CACHE, tids + [tids[i] for i in order])
+        check(engine.metrics.eviction_log == want_log
+              and (engine.metrics.hits, engine.metrics.misses)
+              == (hits, misses), f"{codec}: LRU {engine.metrics.eviction_log}"
+              f" hits {engine.metrics.hits} misses "
+              f"{engine.metrics.misses}, the trace gives {want_log} "
+              f"{hits} {misses}")
+        for r, i in zip(solo, order):
+            m = mixed[i]
+            check(m["tenant"] == r["tenant"] and r["batch_size"] == 1,
+                  "solo request order")
+            check(np.array_equal(m["logits"], r["logits"])
+                  and np.array_equal(m["tokens"], r["tokens"]),
+                  f"{codec}: tenant {r['tenant']} mixed logits differ from "
+                  "solo")
+        check(np.array_equal(solo[0]["logits"], solo[-1]["logits"]),
+              f"{codec}: two solo runs of tenant {tids[3]} differ")
+        check(all(np.isfinite(m["logits"]).all() for m in mixed),
+              f"{codec}: non-finite logits")
+        # materialize: the kernel against the plain decode on the card
+        mat_ms = []
+        for tid in tids:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = store.materialize(tid)
+            torch.cuda.synchronize()
+            mat_ms.append((time.perf_counter() - t0) * 1e3)
+            want = plain_tenant(store, tid)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(got), tree_leaves(want))),
+                  f"{codec}: tenant {tid} differs from the plain decode")
+            del got, want
+        ttft = float(np.median([r["ttft_s"] for r in mixed])) * 1e3
+        per_tok = (mixed[0]["gen_time_s"] - mixed[0]["ttft_s"]) \
+            / (SERVE_GEN - 1) * 1e3
+        solo_tok = float(np.median([
+            (r["gen_time_s"] - r["ttft_s"]) / (SERVE_GEN - 1) * 1e3
+            for r in solo]))
+        mpg = store.models_per_gb()
+        log(f"phase serve store ({codec}): stablelm-1.6b full, "
+            f"{SERVE_TENANTS} tenants; ingest {ingest_ms:.1f} ms "
+            f"({ingest}); residency {mpg:.3f} models/GB = "
+            f"{mpg / store.dense_models_per_gb(32.0):.3f}x dense f32, "
+            f"{mpg / store.dense_models_per_gb(16.0):.3f}x dense bf16 "
+            f"(by cohort {store.models_per_gb_by_cohort()}); mixed batch "
+            f"of {SERVE_TENANTS} ({mixed_s:.2f} s, misses and materialize "
+            f"included): TTFT {ttft:.1f} ms ({SERVE_PROMPT} prompt "
+            f"tokens), {per_tok:.2f} ms a generated token for the batch; "
+            f"solo {solo_tok:.2f} ms a token; materialize "
+            f"{', '.join(f'{v:.1f}' for v in mat_ms)} ms; serving "
+            f"launches {served}; LRU evictions {engine.metrics.eviction_log}"
+            f", hits {engine.metrics.hits}, misses {engine.metrics.misses};"
+            f" mixed == solo logits bit for bit, two solo runs of tenant "
+            f"{tids[3]} equal, tenants == plain decode")
+        del engine, mixed, solo
+        torch.cuda.empty_cache()
+        # persistence
+        avail, free, _ = mem_available()
+        nbytes = store.total_bits() / 8
+        full = 3 * nbytes < avail / 4 and 2 * nbytes < free
+        if not full:
+            del store
+            torch.cuda.empty_cache()
+            small = dataclasses.replace(cfg, n_layers=4)
+            stacked = serve_tenants(dev, small, SERVE_TENANTS)
+            store = DeltaModelStore.from_params(
+                stacked, plan, key=prng.fold_in(key, 1), narrow=narrow)
+            del stacked
+        root = tempfile.mkdtemp(prefix="serve-store-")
+        try:
+            path = os.path.join(root, "store.ckpt")
+            t0 = time.perf_counter()
+            store.save(path)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            back = DeltaModelStore.load(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        check(back.tenants == store.tenants and back.narrow == store.narrow,
+              f"{codec}: loaded store's tenants")
+        store_equal(store, back, store.tenants)
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(back.materialize(tids[1])),
+            tree_leaves(store.materialize(tids[1])))),
+            f"{codec}: loaded store's tenant {tids[1]} differs")
+        log(f"phase serve store ({codec}): store.save -> load at "
+            + ("full width and depth" if full else
+               f"4 layers (3 x {nbytes / 1e9:.2f} GB at full depth exceeds "
+               f"a quarter of MemAvailable {avail / 1e9:.1f} GB)")
+            + f": {size / 1e9:.3f} GB file, save {save_s:.2f} s, load onto "
+            f"the card {load_s:.2f} s; payloads and a materialized tenant "
+            "equal")
+        del store, back
+        torch.cuda.empty_cache()
+    return launches, errs
+
+
 def _key_paths(tree, path=""):
     """The nested dict ``tree`` with each leaf replaced by its key path."""
     if isinstance(tree, dict):
         return {key: _key_paths(val, f"{path}.{key}" if path else key)
                 for key, val in tree.items()}
     return path
+
+
+def add_launches(rows, by_path):
+    """Add the launches of this slice's paths (checkpoint width: both
+    engines; serve store: both codecs) to the kernel rows'."""
+    for row in rows:
+        row["launches"] += sum(counts.get(row["name"], 0)
+                               for counts in by_path.values())
 
 
 def main():
@@ -3688,11 +4227,21 @@ def main():
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
+    laps, mark = {}, [t0]
+
+    def lap(what):
+        """Log the seconds since the last lap (the phases' own times)."""
+        now = time.perf_counter()
+        laps[what], mark[0] = now - mark[0], now
+        log(f"lap {what}: {laps[what]:.1f} s")
+
+    lap("build")
     worst = phase_kernels_small(dev)
     phase_natural_kernels_small(dev)
     phase_paper(dev)
     phase_paper_natural(dev)
     phase_leafwise(dev)
+    lap("kernels, paper, leafwise")
     x, launches = phase_width(dev)
     rows = phase_width_kernels(x, launches, worst)
     del x
@@ -3701,14 +4250,18 @@ def main():
     rows += phase_width_kernels_natural(x, launches)
     del x
     torch.cuda.empty_cache()
+    lap("width")
     phase_flash_small(dev)
+    lap("flash small")
     cfg, params, tokens, launches = phase_prefill(dev)
     phase_serve(dev, cfg, params, tokens)
     del params
     torch.cuda.empty_cache()
     rows.append(phase_flash_width(dev, launches))
+    lap("prefill, serve, flash width")
     phase_scan_small(dev)
     phase_scan_bwd_small(dev)
+    lap("scan small, backward small")
     prefill_launches = {}
     for arch in MAMBA_PARAMS:
         cfg, params, tokens, prefill_launches[arch] = \
@@ -3717,6 +4270,7 @@ def main():
         del params
         torch.cuda.empty_cache()
     rows.append(phase_scan_width(dev, prefill_launches["falcon-mamba-7b"]))
+    lap("mamba prefill, serve, scan width")
     norm_ulps = phase_dequantize_small(dev)
     for name in ("natural", "qsgd"):
         params, launches = phase_train(dev, name)
@@ -3724,30 +4278,49 @@ def main():
                                       launches, name, norm_ulps))
         del params
         torch.cuda.empty_cache()
+    lap("dequantize, train, train width")
     train_launches = {}
     for arch, layers, name in MAMBA_TRAIN:
         params, train_launches[arch] = phase_train(dev, name, arch, layers)
         del params
         torch.cuda.empty_cache()
     rows.append(phase_scan_bwd_width(dev, train_launches["hymba-1.5b"]))
+    lap("train (Mamba), scan backward width")
     phase_model_grad(dev)
+    lap("model grad")
     phase_paper_fedavg(dev)
+    lap("paper fedavg")
     phase_fedavg_lm(dev)
+    lap("fedavg lm")
     phase_async_width(dev)
+    lap("async width")
     for arch, layers in MOE_SERVE:
         cfg, params, tokens, _ = phase_moe_prefill(dev, arch, layers)
         phase_moe_serve(dev, cfg, params, tokens)
         del params
         torch.cuda.empty_cache()
     phase_route_seeds(dev)
+    lap("moe prefill, serve, route seeds")
     for arch, layers, name, profile in MOE_TRAIN:
         params, launches = phase_train(dev, name, arch, layers, profile)
         phase_train_width(dev, arch, params, launches, name, norm_ulps)
         del params
         torch.cuda.empty_cache()
     phase_moe_grad(dev)
+    lap("train (MoE), moe grad")
     phase_fleet_width(dev)
-    log(f"total: {time.perf_counter() - t0:.1f} s")
+    lap("fleet width")
+    slice_launches = phase_checkpoint_width(dev)
+    lap("checkpoint width")
+    serve_launches, serve_errs = phase_serve_store(dev)
+    slice_launches.update(serve_launches)
+    lap("serve store")
+    add_launches(rows, slice_launches)
+    for row in rows:        # the ingest kernels' check at the serve shape
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 serve_errs.get(row["name"], 0.0))
+    log(f"total: {time.perf_counter() - t0:.1f} s; laps "
+        + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ extensions and the convergence-theory calculators."""
 from repro_torch.core.codec import (
     BernoulliPayload, CompressionPlan, DensePayload, NarrowQSGDPayload,
     NaturalPayload, QSGDPayload, SparsePayload, TernPayload, TreePayload,
-    as_plan, decode_payload, make_plan, plan_from_spec, plan_spec,
+    as_plan, decode_payload, index_bits, make_plan, plan_from_spec,
+    plan_spec,
 )
 from repro_torch.core.compressors import (
     QSGD, Bernoulli, Compressor, Identity, Natural, RandK, TernGrad, TopK,
@@ -19,7 +20,10 @@ from repro_torch.core.aggregation import (
     weighted_client_sum,
 )
 from repro_torch.core.flatbuf import (
-    packed_wire_bits, payload_wire_bits, unpack_tree_qsgd,
+    FlatLayout, flat_tree_apply, narrow_tree_qsgd, pack_tree,
+    pack_tree_natural, pack_tree_qsgd, packed_wire_bits, payload_wire_bits,
+    reduce_payload_mean, supports_fused_reduce, unpack_tree,
+    unpack_tree_qsgd, widen_tree_qsgd,
 )
 from repro_torch.core.rollout import (
     RolloutTrace, draw_participation_mask, hyper_grid, participant_count,
@@ -38,13 +42,16 @@ __all__ = [
     "BernoulliPayload", "CompressionPlan", "DensePayload",
     "NarrowQSGDPayload", "NaturalPayload", "QSGDPayload", "SparsePayload",
     "TernPayload", "TreePayload", "as_plan", "decode_payload", "make_plan",
-    "plan_from_spec", "plan_spec", "QSGD", "Bernoulli", "Compressor",
+    "plan_from_spec", "plan_spec", "index_bits", "QSGD", "Bernoulli", "Compressor",
     "Identity", "Natural", "RandK", "TernGrad", "TopK", "make_compressor",
     "tree_apply", "tree_wire_bits", "joint_omega",
     "L2GDHyper", "L2GDState", "aggregation_update", "draw_xi", "init_state",
     "l2gd_step", "local_update", "make_hyper", "compressed_average",
     "masked_client_mean", "stacked_finite_mask", "weighted_client_sum",
     "packed_wire_bits", "payload_wire_bits", "unpack_tree_qsgd",
+    "FlatLayout", "flat_tree_apply", "pack_tree", "pack_tree_qsgd",
+    "pack_tree_natural", "unpack_tree", "narrow_tree_qsgd",
+    "widen_tree_qsgd", "reduce_payload_mean", "supports_fused_reduce",
     "RolloutTrace", "rollout_l2gd", "rollout_l2gd_grid", "hyper_grid",
     "participant_count", "draw_participation_mask", "participation_masks",
     "EVENT_FIELDS", "AsyncAggState", "AsyncRolloutTrace", "fault_totals",

@@ -132,9 +132,10 @@ def fault_totals(trace: AsyncRolloutTrace) -> dict:
 
 def agg_state_to_tree(agg: AsyncAggState) -> dict:
     """:class:`AsyncAggState` as a plain dict tree (the checkpoint form);
-    ``rnd`` is the round clock the slots are indexed modulo."""
+    ``rnd``, the round clock the slots are indexed modulo, as a 0-d int32
+    array, as the reference's."""
     return {"buf": agg.buf, "buf_w": agg.buf_w, "buf_cnt": agg.buf_cnt,
-            "rnd": agg.rnd}
+            "rnd": np.asarray(int(agg.rnd), np.int32)}
 
 
 def agg_state_from_tree(tree: dict) -> AsyncAggState:

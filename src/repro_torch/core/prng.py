@@ -14,6 +14,7 @@ of keys is ``(..., 2)``), and the schedule below reproduces, for
   * ``jax.random.bits`` (32-bit)   -> :func:`random_bits`
   * ``jax.random.uniform`` (f32)   -> :func:`uniform`
   * ``jax.random.bernoulli``       -> :func:`bernoulli`
+  * ``jax.random.randint`` (int32) -> :func:`randint`
 
 Keys are a few bytes, so the schedule runs in numpy ``uint32`` (which
 wraps natively) and never touches the device; the kernels receive the
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "threefry2x32", "split", "fold_in", "random_bits",
-           "uniform", "bernoulli", "tensor_bits", "tensor_uniform",
+           "uniform", "bernoulli", "randint", "tensor_bits", "tensor_uniform",
            "tensor_bernoulli", "permutation"]
 
 _U32 = np.uint32
@@ -139,6 +140,32 @@ def bernoulli(key, p, shape=()) -> np.ndarray:
     """``jax.random.bernoulli(key, p)`` with ``p`` compared in float32,
     as the reference compares the float32 ``hp.p``."""
     return uniform(key, shape) < np.float32(p)
+
+
+def randint(key, shape, minval, maxval) -> np.ndarray:
+    """int32 ``jax.random.randint(key, shape, minval, maxval)``: two
+    32-bit draws a value (from ``split(key)``'s two keys), reduced into
+    the span with the reference's uint32 arithmetic, which wraps:
+    ``(hi % span) * (2^32 % span) + lo % span``, modulo the span, where
+    ``2^32 % span`` is formed as ``((2^16 % span)^2) % span``.  A span
+    that is not a power of two is slightly biased, as in the reference;
+    ``maxval <= minval`` gives ``minval``."""
+    shape = tuple(int(s) for s in shape)
+    lo_b, hi_b = (np.broadcast_to(np.asarray(v, np.int64), shape)
+                  for v in (minval, maxval))
+    for v in (lo_b, hi_b):
+        if v.size and (v.min() < -2 ** 31 or v.max() >= 2 ** 31):
+            raise ValueError("randint bounds must lie in the int32 range")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    lo32 = lo_b.astype(np.int32)
+    span = np.asarray((hi_b - lo_b) & 0xFFFFFFFF, _U32).reshape(-1)
+    span = np.where(hi_b.reshape(-1) <= lo_b.reshape(-1), _U32(1), span)
+    higher, lower = higher.reshape(-1), lower.reshape(-1)
+    mult = np.full_like(span, 1 << 16) % span
+    mult = (mult * mult) % span          # uint32 arrays wrap, as lax.mul
+    offset = ((higher % span) * mult + lower % span) % span
+    return (lo32.reshape(-1) + offset.view(np.int32)).reshape(shape)
 
 
 # --------------------------------------------------------------------------

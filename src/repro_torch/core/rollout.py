@@ -40,7 +40,7 @@ from repro_torch.core.tree import tree_leaves, tree_map
 
 __all__ = ["RolloutTrace", "rollout_l2gd", "rollout_l2gd_grid", "hyper_grid",
            "window_streams", "participant_count", "draw_participation_mask",
-           "participation_masks"]
+           "participation_masks", "state_to_tree", "state_from_tree"]
 
 #: the participation stream's tag: ``fold_in(xi_key, 2**32 - 1)``, disjoint
 #: from the xi stream's nonnegative int32 step folds
@@ -233,3 +233,19 @@ def hyper_grid(ps, lams, eta, n: int):
     E = np.broadcast_to(np.asarray(E, np.float32), P.shape)
     hp = make_hyper(eta=E.ravel(), lam=L.ravel(), p=P.ravel(), n=n)
     return hp, P.shape
+
+
+def state_to_tree(state: L2GDState) -> dict:
+    """:class:`L2GDState` as a plain dict tree — the checkpoint form, with
+    ``xi_prev`` and ``step`` as 0-d int32 arrays, as the reference's.
+    ``step`` is the global step every random stream is keyed by, which
+    is why a restored state continues bit for bit."""
+    return {"params": state.params, "cache": state.cache,
+            "xi_prev": np.asarray(int(state.xi_prev), np.int32),
+            "step": np.asarray(int(state.step), np.int32)}
+
+
+def state_from_tree(tree: dict) -> L2GDState:
+    """Inverse of :func:`state_to_tree` (the scalars back to ints)."""
+    return L2GDState(params=tree["params"], cache=tree["cache"],
+                     xi_prev=int(tree["xi_prev"]), step=int(tree["step"]))

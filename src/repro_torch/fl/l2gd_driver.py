@@ -20,8 +20,12 @@ from its realized delivery counts.  A mixed fleet uplink
 (:class:`repro_torch.fl.fleet.FleetPlan`, DESIGN.md §13) is charged its
 per-client vector ``round_bits_vector()``.
 
-Not ported yet (they raise ``NotImplementedError``): checkpoints
-(``checkpoint_policy=``, ``resume_from=``) — see ROADMAP.md.
+Checkpoints (scan mode, DESIGN.md §14): ``checkpoint_policy=`` (a
+:class:`repro_torch.checkpoint.CheckpointPolicy`) snapshots the chunk
+boundaries' returned carries through the sharded background
+:class:`~repro_torch.checkpoint.CheckpointManager`; ``resume_from=``
+continues from one, bit for bit with the uninterrupted run, since every
+random stream is keyed by the global step the state carries.
 """
 from __future__ import annotations
 
@@ -110,6 +114,8 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
              mode: str = "scan", chunk: Optional[int] = None,
              xi_trace=None, participation: Optional[float] = None,
              faults=None, checkpoint_policy=None, resume_from=None,
+             resume_step: Optional[int] = None,
+             allow_lossy_resume: bool = False,
              local_steps: int = 1, loss_fn: Optional[Callable] = None,
              device=None) -> L2GDRun:
     """Run Algorithm 1 for ``steps`` iterations on ``device`` (default
@@ -138,14 +144,19 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     replayed from the realized delivery counts, honouring
     ``faults.charge_dropped``, and ``run.fault_stats`` totals the event
     counters.  ``FaultPlan()`` (the null plan) equals ``faults=None`` in
-    value."""
+    value.
+
+    Checkpoints (scan mode only): ``checkpoint_policy`` snapshots
+    (state, the async engine's delay buffer, key, ledger, traces,
+    counters) every ``every_n_chunks`` chunk boundaries and at the last
+    one; the run blocks only for the copy to the host, and joins the
+    commit worker before it returns.  ``resume_from`` (a manager, root
+    directory or policy; ``resume_step`` picks a step, default the
+    newest) restores a snapshot and continues; a config or key mismatch
+    raises ``ValueError`` before any step, and a delta snapshot is
+    refused unless ``allow_lossy_resume=True``."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
-    for name, value in (("checkpoint_policy", checkpoint_policy),
-                        ("resume_from", resume_from)):
-        if value is not None:
-            raise NotImplementedError(f"run_l2gd({name}=) is not ported "
-                                      "yet; see ROADMAP.md")
     if faults is not None and mode != "scan":
         raise ValueError("faults= requires mode='scan': the async engine "
                          "is the rollout (repro_torch.core.async_engine)")
@@ -181,6 +192,34 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
         run.xis = np.zeros((0,), np.int32)
         return run
 
+    signature = resume = None
+    if checkpoint_policy is not None or resume_from is not None:
+        if mode != "scan":
+            raise ValueError("checkpoint_policy=/resume_from= require "
+                             "mode='scan' (the host loop has no chunk "
+                             "boundaries to snapshot at)")
+        from repro_torch.checkpoint.resume import rollout_signature
+        signature = rollout_signature(
+            steps=steps, n=int(hp.n), up_bits=up_bits, down_bits=down_bits,
+            participation=participation, faults=faults)
+    if resume_from is not None:
+        from repro_torch.checkpoint.resume import (load_rollout_checkpoint,
+                                                   validate_resume)
+        run.state = None     # the snapshot's state replaces the initial one
+        resume = load_rollout_checkpoint(resume_from, step=resume_step,
+                                         allow_lossy=allow_lossy_resume,
+                                         device=device)
+        validate_resume(resume, signature, key)
+        run.state = resume.state
+        run.ledger = BitsLedger.from_state_dict(resume.ledger_state)
+        run.losses = list(resume.losses)
+        run.evals = list(resume.evals)
+        run.n_local = resume.n_local
+        run.n_agg_comm = resume.n_agg_comm
+        run.n_agg_cached = resume.n_agg_cached
+        run.fault_stats = None if resume.fault_stats is None \
+            else dict(resume.fault_stats)
+
     def to_device(batch):
         return tree_map(lambda a: torch.as_tensor(a).to(device), batch)
 
@@ -197,8 +236,24 @@ def run_l2gd(key, params_stacked, grad_fn: Callable, hp: L2GDHyper,
     else:
         _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
                   down_plan, up_bits, down_bits, eval_fn, eval_every, chunk,
-                  xi_trace, participation, faults, local_steps, loss_fn)
+                  xi_trace, participation, faults, local_steps, loss_fn,
+                  checkpoint_policy, signature, resume)
     return run
+
+
+def _checkpoint_chunk(policy, signature, key, done, xi_prev, state, agg,
+                      run, xis_all) -> None:
+    """Snapshot one chunk boundary under the policy's manager: the
+    RETURNED carries, copied to the host before ``save`` returns, so the
+    background commit never sees the next chunk's in-place writes."""
+    from repro_torch.checkpoint.resume import pack_snapshot
+    tree = pack_snapshot(key=key, done=done, xi_prev=xi_prev, state=state,
+                         ledger=run.ledger, run=run,
+                         xis=np.concatenate(xis_all) if xis_all
+                         else np.zeros((0,), np.int32),
+                         signature=signature, agg=agg, mode=policy.mode,
+                         delta_plan=policy.delta_plan)
+    policy.resolve().save(done, tree, wait=policy.wait)
 
 
 def _take_state(run: L2GDRun):
@@ -249,18 +304,26 @@ def _run_host(run, key, grad_fn, hp, batch_at, steps, up_plan,
 
 def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
               down_plan, up_bits, down_bits, eval_fn, eval_every, chunk,
-              xi_trace, participation, faults, local_steps, loss_fn):
+              xi_trace, participation, faults, local_steps, loss_fn,
+              policy=None, signature=None, resume=None):
     """Chunked rollout: the chunk boundary is the only place the host
-    reads device data (losses, fault events, eval_fn).  With ``faults``
-    the chunks are async rollouts, the server's delay buffer threaded
-    across them like the state, and the ledger replays the realized
-    delivery counts."""
+    reads device data (losses, fault events, eval_fn) and snapshots
+    (``policy``).  With ``faults`` the chunks are async rollouts, the
+    server's delay buffer threaded across them like the state, and the
+    ledger replays the realized delivery counts.  ``resume`` (a
+    RolloutSnapshot) starts from its boundary, the delay buffer too."""
+    agg = None
     if faults is not None:
         from repro_torch.core.async_engine import (EVENT_FIELDS,
                                                    init_async_state,
                                                    rollout_l2gd_async)
-        agg = init_async_state(run.state.params, up_plan, faults)
+        if resume is not None and resume.agg is not None:
+            agg = resume.agg   # stragglers mature on their own rounds
+        else:
+            agg = init_async_state(run.state.params, up_plan, faults)
         totals = {name: 0 for name in EVENT_FIELDS}
+        if resume is not None and resume.fault_stats is not None:
+            totals.update({k: int(v) for k, v in resume.fault_stats.items()})
     if chunk is None:
         if eval_fn is not None:
             chunk = eval_every
@@ -271,6 +334,10 @@ def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
     chunk = max(1, min(int(chunk), steps))
 
     done, xi_prev, xis_all = 0, 1, []
+    if resume is not None:
+        done, xi_prev = resume.done, resume.xi_prev
+        if resume.xis.size:
+            xis_all.append(resume.xis)
     while done < steps:
         length = min(chunk, steps - done)
         if const:
@@ -314,6 +381,20 @@ def _run_scan(run, key, grad_fn, hp, batch_at, const, steps, up_plan,
         done += length
         if eval_fn is not None and done % eval_every == 0:
             run.evals.append((done, float(eval_fn(run.state.params))))
-    run.xis = np.concatenate(xis_all)
+        # the cadence counts GLOBAL chunks, so a resumed run snapshots the
+        # boundaries of the uninterrupted one
+        if policy is not None and \
+                ((done // chunk) % policy.every_n_chunks == 0
+                 or done == steps):
+            if faults is not None:
+                run.fault_stats = dict(totals)
+            _checkpoint_chunk(policy, signature, key, done, xi_prev,
+                              run.state, agg, run, xis_all)
+    if policy is not None:
+        # a failed background commit (the last one too) raises here,
+        # before the run reports success
+        policy.resolve().wait_until_finished()
+    run.xis = np.concatenate(xis_all) if xis_all \
+        else np.zeros((0,), np.int32)
     if faults is not None:
         run.fault_stats = totals

@@ -69,6 +69,31 @@ class BitsLedger:
     def bits_per_client(self) -> float:
         return self.uplink_bits_per_client + self.downlink_bits_per_client
 
+    def state_dict(self) -> dict:
+        """Checkpoint form: every accumulator and the whole per-round
+        history, so a resumed run's ledger equals the uninterrupted one."""
+        return {"n_clients": int(self.n_clients),
+                "uplink_bits_per_client": float(self.uplink_bits_per_client),
+                "downlink_bits_per_client":
+                    float(self.downlink_bits_per_client),
+                "rounds": int(self.rounds),
+                "history": [dict(h) for h in self.history]}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "BitsLedger":
+        ledger = cls(int(d["n_clients"]),
+                     uplink_bits_per_client=float(
+                         d["uplink_bits_per_client"]),
+                     downlink_bits_per_client=float(
+                         d["downlink_bits_per_client"]),
+                     rounds=int(d["rounds"]))
+        ledger.history = [
+            {"step": None if h["step"] is None else int(h["step"]),
+             "round": int(h["round"]),
+             "bits_per_client": float(h["bits_per_client"])}
+            for h in d["history"]]
+        return ledger
+
     def record_round(self, uplink_bits_one_client: float,
                      downlink_bits: float, step: int | None = None) -> None:
         self.uplink_bits_per_client += uplink_bits_one_client

@@ -1,7 +1,11 @@
-"""The server's fused decode->reduce — wrapper of the ``qsgd_reduce``
-CUDA kernel, the counterpart of ``repro.kernels.qsgd.ops.qsgd_reduce``.
+"""Single-array QSGD compression and the server's fused decode->reduce
+— the counterparts of ``repro.kernels.qsgd.ops``.
 
-It consumes a STACKED payload batch — codes (n, n_buckets, bucket) int8
+``qsgd_compress`` pads and buckets through the flat engine's bucketizer
+(:func:`repro_torch.core.flatbuf.bucketize`) and runs ``qsgd_fused`` on
+the key's seed words: the noise is drawn in the kernel.
+
+``qsgd_reduce`` wraps the ``qsgd_reduce`` CUDA kernel.  It consumes a STACKED payload batch — codes (n, n_buckets, bucket) int8
 plus norms (n, n_buckets, 1) — and accumulates ``sum_i w_i * codes_i *
 (norms_i / s)`` in client order 0..n-1 into one (n_buckets, bucket)
 float32 buffer, never materializing a per-client dequantized buffer:
@@ -12,10 +16,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.dispatch import use_kernel
-from repro_torch.kernels.qsgd.kernel import check_levels, launch
+from repro_torch.kernels.qsgd.kernel import check_levels, launch, qsgd_fused
 from repro_torch.kernels.qsgd.ref import qsgd_reduce_ref
 
-__all__ = ["qsgd_reduce"]
+__all__ = ["qsgd_compress", "qsgd_reduce"]
+
+
+def qsgd_compress(key, x: torch.Tensor, *, levels: int = 127,
+                  bucket: int = 2048) -> torch.Tensor:
+    """Quantize-dequantize an array of any shape (compressor semantics):
+    bucketized float32, one fused launch, cut back; dtype preserved."""
+    from repro_torch.core.flatbuf import bucketize, seeds_of, unbucketize
+    flat = x.reshape(-1)
+    x2d = bucketize(flat.to(torch.float32), bucket).contiguous()
+    out = qsgd_fused(x2d, seeds_of(key), levels=levels)
+    return unbucketize(out, flat.shape[0]).reshape(x.shape).to(x.dtype)
 
 
 def qsgd_reduce(codes: torch.Tensor, norms: torch.Tensor, weights=None, *,

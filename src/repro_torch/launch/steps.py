@@ -15,7 +15,8 @@ autograd of ``models.loss_fn`` for one client after another over the
 stacked parameter tree (the reference's ``vmap`` of ``value_and_grad``);
 the aggregation branches evaluate the loss without a backward.  The
 serve builders run without autograd.  ``build_async_rollout_fn`` is the
-LM face of the async fault engine.  The uplink may be a heterogeneous
+LM face of the async fault engine; ``checkpointed_rollout`` commits a
+built rollout's returned carries to a checkpoint manager.  The uplink may be a heterogeneous
 fleet (a FleetPlan or a per-client plan vector, DESIGN.md §13).  The
 shard_map ``average_fn`` variants and the sharded rollouts are not ported
 yet (ROADMAP.md Queue 1).
@@ -36,8 +37,8 @@ from repro_torch.models import loss_fn as model_loss_fn
 
 __all__ = ["param_shapes", "stacked_param_shapes", "stacked_grad_fn",
            "stacked_loss_fn", "build_train_step", "build_rollout_fn",
-           "build_async_rollout_fn", "build_prefill_step",
-           "build_serve_step"]
+           "build_async_rollout_fn", "checkpointed_rollout",
+           "build_prefill_step", "build_serve_step"]
 
 
 def param_shapes(cfg: ArchConfig):
@@ -196,6 +197,45 @@ def build_async_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, fault_plan=None,
                                   agg_state=agg, loss_fn=loss_fn)
 
     return rollout
+
+
+def checkpointed_rollout(rollout_fn, manager, *, length: int,
+                         every: int = 1, start_step: int = 0,
+                         wait: bool = False):
+    """Wrap a built rollout function with checkpoint commits.
+
+    Takes both carry shapes: :func:`build_rollout_fn`'s ``(state,
+    batches, key) -> (state, trace)`` and :func:`build_async_rollout_fn`'s
+    ``(state, agg, batches, key) -> (state, agg, trace)``.  Every
+    ``every``-th call, the RETURNED carries are committed to ``manager``
+    (a :class:`repro_torch.checkpoint.CheckpointManager` or a root
+    directory) under the step count ``start_step + calls * length``;
+    ``save`` blocks only for the copy to the host.  The wrapper exposes
+    ``.step``, ``.dispatches`` and ``.manager`` and passes the rollout's
+    output through unchanged."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.rollout import state_to_tree
+    if not isinstance(manager, CheckpointManager):
+        manager = CheckpointManager(str(manager))
+    if int(every) < 1:
+        raise ValueError(f"every must be >= 1, got {every}")
+
+    def wrapper(*args):
+        out = rollout_fn(*args)
+        wrapper.step += int(length)
+        wrapper.dispatches += 1
+        if wrapper.dispatches % every == 0:
+            tree = {"state": state_to_tree(out[0])}
+            if len(out) == 3:            # the async engine: agg carry too
+                from repro_torch.core.async_engine import agg_state_to_tree
+                tree["agg"] = agg_state_to_tree(out[1])
+            manager.save(wrapper.step, tree, wait=wait)
+        return out
+
+    wrapper.step = int(start_step)
+    wrapper.dispatches = 0
+    wrapper.manager = manager
+    return wrapper
 
 
 def build_prefill_step(cfg: ArchConfig):

@@ -11,9 +11,19 @@ reference's ``jax.random`` init gives other numbers).
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --clients 4 --steps 200 --compressor natural --p 0.2 --lam 0.5
 
+Checkpoints: ``--ckpt FILE`` saves the final stacked params as one file
+(``repro_torch.checkpoint.save_state``); ``--ckpt DIR --ckpt-every N``
+snapshots the rollout every N chunks into a manager root, and
+``--resume`` continues bit for bit from its newest snapshot:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 40 \\
+      --ckpt runs/ck --ckpt-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 40 \\
+      --ckpt runs/ck --ckpt-every 1 --resume
+
 Runs on the GPU; ``main(argv, device="cpu")`` runs the plain PyTorch
-versions on the CPU.  The 2-D mesh engine and checkpoints raise and name
-the slices that bring them.
+versions on the CPU.  The 2-D mesh engine raises and names the slice
+that brings it.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import L2GDHyper, make_compressor, prng
 from repro_torch.core.tree import tree_flatten, tree_unflatten
@@ -93,13 +104,18 @@ def main(argv=None, device=None):
     ap.add_argument("--master-compressor", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None,
-                    help="not ported yet (the checkpoint slice)")
+                    help="checkpoint destination: a file (the final "
+                         "params, saved at the end), or with --ckpt-every"
+                         "/--resume a CheckpointManager root of step-"
+                         "tagged snapshots")
     ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="not ported yet (the checkpoint slice)")
+                    help="snapshot the rollout every N chunks into the "
+                         "--ckpt directory (0 disables)")
     ap.add_argument("--ckpt-keep", type=int, default=0,
-                    help="not ported yet (the checkpoint slice)")
+                    help="keep only the newest N snapshots (0 = all)")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported yet (the checkpoint slice)")
+                    help="resume bit for bit from the newest snapshot "
+                         "under --ckpt")
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--local-steps", type=int, default=1,
                     help="gradient passes per LOCAL protocol step (wire "
@@ -116,14 +132,12 @@ def main(argv=None, device=None):
                     help="train-path attention (the flash kernel has no "
                          "backward: training needs dense)")
     args = ap.parse_args(argv)
+    if (args.ckpt_every or args.resume) and not args.ckpt:
+        ap.error("--ckpt-every/--resume need --ckpt (the manager root)")
     if args.engine == "mesh2d" or args.model_shards != 1:
         raise NotImplementedError(
             "--engine mesh2d (the 2-D clients x model mesh) comes with the "
             "multi-device launch slice of the port")
-    if args.ckpt or args.ckpt_every or args.ckpt_keep or args.resume:
-        raise NotImplementedError(
-            "--ckpt, --ckpt-every, --ckpt-keep and --resume come with the "
-            "checkpoint slice of the port")
     device = resolve_device(device)
 
     base = get_config(args.arch) if args.full \
@@ -149,12 +163,24 @@ def main(argv=None, device=None):
     # the reference's CLI passes key seed + 3 and the deprecated seed=
     # seed + 4, which its run_l2gd folds into the key
     key = prng.fold_in(prng.PRNGKey(args.seed + 3), args.seed + 4)
+    policy = None
+    if args.ckpt_every:
+        policy = checkpoint.CheckpointPolicy(
+            args.ckpt, every_n_chunks=args.ckpt_every,
+            max_to_keep=args.ckpt_keep or None)
+    resume_from = args.ckpt if args.resume else None
+    if resume_from is not None:
+        step = checkpoint.latest_step(resume_from)
+        print(f"resuming from {resume_from} step {step}", flush=True)
     t0 = time.time()
     run = run_l2gd(key, params, stacked_grad_fn(cfg),
                    hp, lambda k: {"tokens": ts.batch_at(k)}, args.steps,
                    client_comp=comp, master_comp=mcomp,
+                   checkpoint_policy=policy, resume_from=resume_from,
                    local_steps=args.local_steps,
                    loss_fn=stacked_loss_fn(cfg), device=device)
+    if policy is not None:
+        policy.resolve().close()   # join the commits in flight
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -172,6 +198,15 @@ def main(argv=None, device=None):
           f"rounds={run.ledger.rounds}  "
           f"bits/n={run.ledger.bits_per_client:.3e}  "
           f"local={run.n_local} aggC={run.n_agg_comm} aggK={run.n_agg_cached}")
+    if args.ckpt and not (args.ckpt_every or args.resume):
+        # the single-file path; manager runs committed during the rollout
+        checkpoint.save_state(args.ckpt, run.state.params,
+                              {"arch": cfg.name, "steps": args.steps,
+                               "bits_per_client": run.ledger.bits_per_client})
+        print(f"checkpoint -> {args.ckpt}")
+    elif args.ckpt_every:
+        print(f"checkpoints -> {args.ckpt} "
+              f"(latest step {checkpoint.latest_step(args.ckpt)})")
     return run
 
 

@@ -273,12 +273,18 @@ def test_run_l2gd_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("option", ["checkpoint_policy", "resume_from"])
-def test_unported_driver_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_driver_options_raise(option, tmp_path):
+    """The checkpoint options are ported (tests/test_torch_resume.py);
+    like the reference's, they raise in the host loop, which has no
+    chunk boundaries."""
+    from repro_torch.checkpoint import CheckpointPolicy
+    value = CheckpointPolicy(str(tmp_path)) \
+        if option == "checkpoint_policy" else str(tmp_path)
+    with pytest.raises(ValueError, match="scan"):
         run_l2gd(prng.PRNGKey(0), {"w": torch.zeros(2, 3)}, _quad_torch,
                  L2GDHyper(eta=0.1, lam=1.0, p=0.5, n=2),
-                 lambda k: torch.zeros(2, 3), 2, device="cpu",
-                 **{option: 0.5})
+                 lambda k: torch.zeros(2, 3), 2, device="cpu", mode="host",
+                 **{option: value})
 
 
 def test_port_loads_no_jax_and_no_reference():

@@ -364,11 +364,22 @@ def test_train_cli_draws_the_reference_protocol(capsys):
 
 
 @pytest.mark.parametrize("extra", [["--engine", "mesh2d"],
-                                   ["--ckpt", "/nonexistent/ckpt"],
+                                   ["--ckpt-every", "1"],
                                    ["--resume", "--ckpt", "x"]])
-def test_train_cli_refuses_unported_engines(extra):
-    with pytest.raises(NotImplementedError, match="slice"):
-        ttrain.main(CLI + extra, device="cpu")
+def test_train_cli_refuses_unported_engines(extra, tmp_path, monkeypatch):
+    """mesh2d is not ported; the checkpoint flags are (tests/
+    test_torch_resume.py) and refuse what the reference's CLI refuses:
+    --ckpt-every without --ckpt, --resume from an empty root."""
+    monkeypatch.chdir(tmp_path)
+    if extra[0] == "--engine":
+        with pytest.raises(NotImplementedError, match="slice"):
+            ttrain.main(CLI + extra, device="cpu")
+    elif extra[0] == "--ckpt-every":
+        with pytest.raises(SystemExit):
+            ttrain.main(CLI + extra, device="cpu")
+    else:
+        with pytest.raises(FileNotFoundError, match="no complete checkpoint"):
+            ttrain.main(CLI + extra, device="cpu")
 
 
 def test_init_stacked_params_is_per_client_init():
