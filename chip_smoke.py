@@ -43,8 +43,9 @@ these phases and fails (non-zero exit, no result line) on any error:
            decode logits held against forward's, the greedy tokens
            against forward's argmax on the extended sequences;
   flash width  the kernel at the prefill shapes of stablelm-1.6b,
-           granite-moe-1b-a400m (GQA, H = 16, Kv = 8) and
-           moonshot-v1-16b-a3b (D = 128) against the bound of its route
+           granite-moe-1b-a400m (GQA, H = 16, Kv = 8),
+           moonshot-v1-16b-a3b (D = 128) and internvl2-26b (H = 48,
+           Kv = 8, D = 128) against the bound of its route
            (three split-TF32 passes on the tensor cores) and the CUDA-core
            float32 bound, its plain version and
            scaled_dot_product_attention; then once at the prefill_32k
@@ -84,13 +85,13 @@ these phases and fails (non-zero exit, no result line) on any error:
            the codec's kernel (2 fresh rounds x 11 leaves x 2 links) and
            no other, finite losses, peak memory <= 70 GB, the bits
            ledger; torch.profiler breakdowns of one local and one fresh
-           aggregation step;
+           aggregation step (the QSGD run: the local step only);
   train width  each codec's kernel on that run's largest leaf (2 x
            276,824,064 elements) against its plain version and its
            bound, and the threefry draw that feeds it (again after each
            MoE train run below, on its expert stack);
   train (Mamba)  hymba-1.5b at full width and depth (32 hybrid layers,
-           leafwise natural) and falcon-mamba-7b at full width and 8 of
+           leafwise natural) and falcon-mamba-7b at full width and 4 of
            its 64 layers (leafwise QSGD), as the train phase: the scan
            forward 2 clients x layers x (5 steps + 2 local recomputes),
            its backward 2 clients x layers x 2 local steps, the codec 2 x
@@ -181,7 +182,24 @@ these phases and fails (non-zero exit, no result line) on any error:
            card; the ServingEngine (LRU of 2, batches of 4, 16 + 16
            tokens) against a hand-run LRU trace, mixed-tenant logits
            equal to solo logits bit for bit; store.save -> load equal;
-           TTFT, ms a token, residency against dense f32 and bf16.
+           TTFT, ms a token, residency against dense f32 and bf16;
+  whisper prefill / serve  whisper-medium at full size (24 + 24 layers,
+           f32, seeded random weights) on B = 2 sequences of 4096 tokens
+           and 1500 stub frames: the prefill step (dense attention, as
+           the reference's: no kernel) timed and profiled, held against
+           forward's last position; the frames' normal draw on the card
+           against the host's; then the serve phase with the cross
+           caches filled from the encoder;
+  whisper train  the train phase at full size with leafwise QSGD (104
+           launches), the local step profiled, then the kernel on the
+           24 x 1024 x 4096 FFN stack as train width;
+  internvl prefill / serve  internvl2-26b at full width and 12 of its 48
+           layers on B = 2 x (256 stub patches + 3840 tokens): the
+           prefill phase (12 flash launches at H = 48, Kv = 8, D = 128;
+           flash against dense), then the serve phase on tokens;
+  internvl train  the train phase at 3 layers with leafwise natural (44
+           launches), its loss held to the text positions, then the
+           kernel on the (3, 6144, 16384) w_gate stack.
 
 Each group of phases logs its seconds ("lap ..."), the total the sum.
 
@@ -287,15 +305,18 @@ SCAN_BWD_REPLACES = "src/repro/models/mamba.py:75"
 # decay*dh) and the sums over E of dB's and dC's terms
 SCAN_BWD_OPS = 19
 # phases train (Mamba): hymba-1.5b at full width and depth; falcon-mamba-7b
-# at full width and 8 of its 64 layers (two clients' f32 params, cache and
-# gradients at 64 layers exceed the card's 80 GB)
+# at full width and 4 of its 64 layers (two clients' f32 params, cache and
+# gradients at 64 layers exceed the card's 80 GB; 4, not 8, keeps the
+# script inside its time limit as later phases join it)
 MAMBA_TRAIN = (("hymba-1.5b", None, "natural"),
-               ("falcon-mamba-7b", 8, "qsgd"))
+               ("falcon-mamba-7b", 4, "qsgd"))
 TRAIN_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
                 ("hymba-1.5b", None): 1_352_246_400,
-                ("falcon-mamba-7b", 8): 1_108_840_448,
+                ("falcon-mamba-7b", 4): 687_591_424,
                 ("granite-moe-1b-a400m", None): 1_334_628_352,
-                ("deepseek-v2-lite-16b", 3): 1_460_420_096}
+                ("deepseek-v2-lite-16b", 3): 1_460_420_096,
+                ("whisper-medium", None): 959_204_352,
+                ("internvl2-26b", 3): 1_738_899_456}
 # phase model grad: 2-layer hymba-1.5b at full width, one sequence of 512
 # tokens, the card's gradient (the scan kernels) against the CPU's (the
 # chunked scan under autograd) from the same params: max |d| over max
@@ -355,7 +376,20 @@ FLEET_ASSIGNMENT = tuple(i % 3 for i in range(8))
 # moonshot's D = 128
 FLASH_SHAPES = (("stablelm-1.6b", PREFILL_B, PREFILL_S, 32, 32, 64),
                 ("granite-moe-1b-a400m", PREFILL_B, PREFILL_S, 16, 8, 64),
-                ("moonshot-v1-16b-a3b", PREFILL_B, PREFILL_S, 16, 16, 128))
+                ("moonshot-v1-16b-a3b", PREFILL_B, PREFILL_S, 16, 16, 128),
+                ("internvl2-26b", PREFILL_B, PREFILL_S, 48, 8, 128))
+# phases whisper and internvl: whisper-medium at full size; internvl2-26b
+# at full width and 12 of its 48 layers for serving (77.2 GB of f32 params
+# at 48), 3 for training (two clients' params, cache and gradients); each
+# (arch, layers) prefilled with its parameter count
+PREFILL_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
+                  ("internvl2-26b", 12): 5_249_642_496}
+WHISPER, WHISPER_PARAMS = "whisper-medium", 959_204_352
+INTERNVL_SERVE = ("internvl2-26b", 12)
+# (arch, layers, codec): whisper trains with one leafwise codec, internvl
+# with the other
+FRONTEND_TRAIN = (("whisper-medium", None, "qsgd"),
+                  ("internvl2-26b", 3, "natural"))
 # phase paper fedavg: benchmarks/bench_fig7_fedavg_recovery.py's sizes (5
 # clients, L2GD 400 steps, FedAvg 200 rounds; the compressed FedAvg and
 # FedOpt half as many) and a 3 x 3 (p, lambda) grid of 100-step rollouts
@@ -1226,25 +1260,48 @@ def top2_gap(logits):
     return top[..., 0] - top[..., 1]
 
 
-def phase_prefill(dev):
+def prefill_tokens(dev, cfg, seq=PREFILL_S):
+    """PREFILL_B sequences of ``seq`` tokens of the token stream."""
+    import torch
+    from repro_torch.data import TokenStream
+    return torch.from_numpy(TokenStream(
+        n_clients=1, vocab=cfg.vocab_size, batch=PREFILL_B,
+        seq=seq).batch_at(0)[0]).long().to(dev)
+
+
+def phase_prefill(dev, arch="stablelm-1.6b", layers=None):
+    """``arch`` (a GQA decoder) at full width and ``layers`` of its layers
+    (all by default) on PREFILL_B sequences of PREFILL_S positions: the
+    prefill step and forward with attn_impl="flash" (a kernel launch a
+    layer), forward with dense attention, held against each other.  A
+    vision config's PREFILL_S positions are its stub patches and
+    PREFILL_S - P tokens.  Returns (cfg, params, the tokens, the step's
+    launches)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data import TokenStream
+    from repro_torch.core import prng
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import forward, init_params, param_count
+    from repro_torch.models.frontends import stub_patch_embeddings
 
-    cfg = dataclasses.replace(get_config("stablelm-1.6b"), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params, init_s = timed(lambda: init_params(
         torch.Generator(device=dev).manual_seed(0), cfg))
-    check(param_count(params) == 1_438_746_624, "stablelm parameter count")
-    tokens = torch.from_numpy(TokenStream(
-        n_clients=1, vocab=cfg.vocab_size, batch=PREFILL_B,
-        seq=PREFILL_S).batch_at(0)[0]).long().to(dev)
+    check(param_count(params) == PREFILL_PARAMS[(arch, layers)],
+          f"{arch} parameter count")
+    vision = cfg.frontend == "vision"
+    P = cfg.n_frontend_tokens if vision else 0
+    tokens = prefill_tokens(dev, cfg, PREFILL_S - P)
     batch = {"tokens": tokens}
+    if vision:
+        batch["patches"] = stub_patch_embeddings(prng.PRNGKey(0), cfg,
+                                                 PREFILL_B, device=dev)
     prefill = build_prefill_step(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()            # the prefill main path starts here
@@ -1255,7 +1312,7 @@ def phase_prefill(dev):
     check(last.shape == (PREFILL_B, cfg.vocab_size)
           and bool(torch.isfinite(last).all()), "prefill logits")
     _, prefill_s = timed(lambda: prefill(params, batch))
-    log(profile_line("prefill step", *device_profile(
+    log(profile_line(f"{arch} prefill step", *device_profile(
         lambda: prefill(params, batch))))
     # forward keeps the last layer's attention operands: the kernel is
     # held to its plain version on the model's own activations
@@ -1304,9 +1361,11 @@ def phase_prefill(dev):
     same = torch.argmax(flash, -1) == torch.argmax(dense, -1)
     check(bool(same[clear].all()), "argmax differs where the gap is clear")
     del dense
-    log(f"phase prefill: stablelm-1.6b, {cfg.n_layers} layers, "
+    log(f"phase prefill: {arch}, {cfg.n_layers} layers, "
         f"{param_count(params):,} params (init {init_s:.2f} s); B={PREFILL_B}"
-        f" S={PREFILL_S}: prefill step {first_s:.3f} s first, "
+        f" S={PREFILL_S}" + (f" ({P} patches + {PREFILL_S - P} tokens)"
+                             if vision else "") +
+        f": prefill step {first_s:.3f} s first, "
         f"{prefill_s:.3f} s second; forward flash {flash_s:.3f} s (peak "
         f"{flash_peak / 1e9:.2f} GB), dense {dense_s:.3f} s (peak "
         f"{dense_peak / 1e9:.2f} GB); logits flash vs dense max |d| "
@@ -1320,13 +1379,90 @@ def phase_prefill(dev):
     return cfg, params, tokens, launches
 
 
-def phase_serve(dev, cfg, params, tokens, moe=False):
+def phase_whisper_prefill(dev):
+    """whisper-medium at full size on PREFILL_B sequences of PREFILL_S
+    tokens and their stub frames: the prefill step (dense attention, as
+    the reference's: no kernel) timed and profiled, held against
+    forward's last position; the frames' normal draw on the card against
+    the host's.  Returns (cfg, params, tokens, frames)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import forward, init_params, param_count
+    from repro_torch.models.frontends import stub_frame_embeddings
+
+    cfg = get_config(WHISPER)
+    params, init_s = timed(lambda: init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg))
+    check(param_count(params) == WHISPER_PARAMS, "whisper parameter count")
+    tokens = prefill_tokens(dev, cfg)
+    key = prng.PRNGKey(0)
+    frames = stub_frame_embeddings(key, cfg, PREFILL_B, device=dev)
+    shape = (PREFILL_B, cfg.n_frontend_tokens, cfg.d_model)
+    # each draw is within NORMAL_ULPS of jax.random.normal (CPU tests)
+    draw_ulps = ulps(prng.tensor_normal(key, shape, dev),
+                     torch.from_numpy(prng.normal(key, shape)).to(dev))
+    check(draw_ulps <= 2 * prng.NORMAL_ULPS,
+          f"normal draw on the card vs the host: {draw_ulps:g} ulps")
+    batch = {"tokens": tokens, "frames": frames}
+    prefill = build_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()            # the prefill main path starts here
+    last, first_s = timed(lambda: prefill(params, batch))
+    check(not LAUNCHES, f"whisper prefill launched {dict(LAUNCHES)}")
+    check(last.shape == (PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()), "whisper prefill logits")
+    _, prefill_s = timed(lambda: prefill(params, batch))
+    log(profile_line(f"{WHISPER} prefill step", *device_profile(
+        lambda: prefill(params, batch))))
+    with torch.no_grad():
+        full, forward_s = timed(lambda: forward(params, cfg, batch)[0])
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(bool(torch.isfinite(full).all()), "non-finite whisper logits")
+    step_err = float(torch.max(torch.abs(full[:, -1] - last)))
+    check(step_err <= 1e-5 * float(last.abs().max()),
+          f"whisper prefill step vs forward's last position: {step_err:.3g}")
+    other = dict(batch, frames=frames.flip(1))
+    check(not torch.equal(prefill(params, other), last),
+          "the frames do not reach the logits")
+    del full
+    log(f"phase whisper prefill: {WHISPER}, {cfg.n_layers} decoder + "
+        f"{cfg.encoder_layers} encoder layers, {param_count(params):,} params"
+        f" (init {init_s:.2f} s); B={PREFILL_B} S={PREFILL_S} tokens + "
+        f"{cfg.n_frontend_tokens} frames: prefill step {first_s:.3f} s first,"
+        f" {prefill_s:.3f} s second; forward {forward_s:.3f} s (peak "
+        f"{peak / 1e9:.2f} GB); step vs forward max |d| {step_err:.3g}; "
+        f"frames' normal draw card vs host within {draw_ulps:g} ulps")
+    return cfg, params, tokens, frames
+
+
+def fill_cross(params, cfg, caches, frames):
+    """The encoder-decoder's cross caches from the encoder's output on
+    ``frames``, as the reference's test fills them (its init_caches
+    makes zeros and no reference code fills them)."""
+    import torch
+    from repro_torch.models import encoder_forward
+    with torch.no_grad():
+        enc = encoder_forward(params, cfg, frames)
+        B, H, D = enc.shape[0], cfg.n_heads, cfg.hd
+        for c, wk, wv in zip(caches, params["cross"]["attn"]["wk"],
+                             params["cross"]["attn"]["wv"]):
+            c["cross_k"] = (enc @ wk).reshape(B, -1, H, D)
+            c["cross_v"] = (enc @ wv).reshape(B, -1, H, D)
+    return caches
+
+
+def phase_serve(dev, cfg, params, tokens, moe=False, frames=None):
     """Teacher-forced prompt and greedy tokens through the caches, held
     against forward.  ``moe``: decode's routes are recorded on the device
     in the timed loop (no sync), the MoE spans join the decode profile,
     and forward runs twice: on its own routes, held against decode on
     the tokens whose routes agree (the flips counted), then taking
-    decode's routes, held on every token."""
+    decode's routes, held on every token.  ``frames`` (the
+    encoder-decoder's): the cross caches are filled from the encoder on
+    them before the loop (not timed), and forward takes them."""
     import contextlib
     import torch
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
@@ -1336,6 +1472,10 @@ def phase_serve(dev, cfg, params, tokens, moe=False):
     prompt = tokens[:, :PROMPT]
     serve = build_serve_step(cfg)
     caches = init_caches(cfg, PREFILL_B, PROMPT + GENERATE, device=dev)
+    extra_batch = {}
+    if frames is not None:
+        caches = fill_cross(params, cfg, caches, frames)
+        extra_batch["frames"] = frames
     routes = Routes() if moe else contextlib.nullcontext()
     with routes:
         reset_launches()            # the serve main path starts here
@@ -1367,7 +1507,8 @@ def phase_serve(dev, cfg, params, tokens, moe=False):
         + (f"; {spans.shares(wall)}" if moe else ""))
     generated = torch.stack(generated, 1)
     decoded = torch.stack(prompt_logits + gen_logits, 1)
-    batch = {"tokens": torch.cat([prompt, generated[:, :-1]], 1)}
+    batch = {"tokens": torch.cat([prompt, generated[:, :-1]], 1),
+             **extra_batch}
     extra = ""
     forced = contextlib.nullcontext()
     if moe:
@@ -2175,9 +2316,13 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
     or hybrid model also runs the scan: its forward once a layer and
     client for each step's loss and again in each local step's recompute
     (remat), its backward once a layer and client in each local step; no
-    other kernel runs.  Then one local and one fresh aggregation step
-    under the profiler (``profile``).  Returns the trained stacked params
-    and the launch counts."""
+    other kernel runs.  The batches are the train CLI's (``launch.train.
+    batch_fn``): a vision config's TRAIN_S positions are its stub patches
+    and TRAIN_S - P tokens, and its loss is checked to leave the patch
+    positions out; the encoder-decoder's carry stub frames.  Then one
+    local and one fresh aggregation step under the profiler (``profile``
+    True; "local": the local step only).  Returns the trained stacked
+    params and the launch counts."""
     import contextlib
     import dataclasses
     import torch
@@ -2190,7 +2335,7 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
     from repro_torch.fl.ledger import BitsLedger
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
     from repro_torch.launch.steps import build_train_step, param_shapes
-    from repro_torch.launch.train import init_stacked_params
+    from repro_torch.launch.train import batch_fn, init_stacked_params
     from repro_torch.models import param_count
 
     cfg = get_config(arch)
@@ -2205,9 +2350,12 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
     check(param_count(params) == n * n_params, "parameter count")
     leaves = len(tree_leaves(params))
     check(arch != "stablelm-1.6b" or leaves == STABLELM_LEAVES, "leaf count")
+    P = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
     stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
-                         seq=TRAIN_S)
-    batches = [{"tokens": torch.from_numpy(stream.batch_at(k)).to(dev)}
+                         seq=TRAIN_S - P)
+    batch_at = batch_fn(cfg, stream, 0, dev)
+    batches = [{key: torch.as_tensor(val).to(dev)
+                for key, val in batch_at(k).items()}
                for k in range(len(TRAIN_XI) + 2)]
     comp = make_compressor(name)
     hp = L2GDHyper(eta=0.1, lam=0.5, p=0.2, n=n)    # the train CLI's
@@ -2246,6 +2394,9 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
           "ledger")
     for leaf in tree_leaves(state.params):
         check(bool(torch.isfinite(leaf).all()), "non-finite params")
+    extra = ""
+    if P:
+        extra = "; " + vision_loss_check(cfg, state.params, batches[0], P)
     local = [t for t, b in zip(times, branches) if b == 0]
     fresh = [t for t, b in zip(times, branches) if b == 1]
     log(f"phase train ({name}): {arch}, {cfg.n_layers} layers, {n} clients x "
@@ -2256,7 +2407,7 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
         f"losses {[round(v, 5) for v in losses]}; peak allocated "
         f"{peak / 1e9:.2f} GB; bits/n {ledger.bits_per_client:.6e} "
         f"({ledger.rounds} rounds x {bits:.0f} bits a message each way); "
-        f"launches {launches}")
+        f"launches {launches}{extra}")
     moe = cfg.ffn == "moe"
     if moe:
         check(local_steps_identical(step, state, batches[5], keys[5]),
@@ -2265,7 +2416,7 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
         log(f"train {arch} ({name}): two local steps from one state "
             "bit-identical")
     for what, k in (("local step", 5), ("fresh aggregation step", 6)):
-        if not profile:
+        if not profile or (profile == "local" and k == 6):
             break
         out = []
         spans = Spans() if moe else contextlib.nullcontext()
@@ -2276,6 +2427,30 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
             + (f"; {spans.shares(wall)}" if moe else ""))
         state = out[0][0]
     return state.params, launches
+
+
+def vision_loss_check(cfg, stacked, batch, P):
+    """Client 0's loss against the cross-entropy of its text logits
+    alone (the logits after the P patch positions), bit for bit; a loss
+    over the patch positions differs."""
+    import torch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import blocks, forward, loss_fn
+    params = tree_map(lambda a: a[0], stacked)
+    one = {key: val[0] for key, val in batch.items()}
+    with torch.no_grad():
+        loss = loss_fn(params, cfg, one)[0]
+        logits = forward(params, cfg, one)[0]
+        text = blocks.cross_entropy_loss(logits[:, P:-1], one["tokens"][:, 1:])
+        shifted = blocks.cross_entropy_loss(logits[:, :-1][:, :P],
+                                            one["tokens"][:, 1:P + 1])
+    check(torch.equal(loss, text), f"{cfg.name}: loss {float(loss)} is not "
+          f"the text positions' {float(text)}")
+    check(not torch.equal(loss, shifted), f"{cfg.name}: loss equals the "
+          "patch positions'")
+    return (f"loss {float(loss):.6f} = the {one['tokens'].shape[1] - 1} text"
+            f" positions' cross-entropy (the {P} patch positions' "
+            f"{float(shifted):.6f})")
 
 
 def phase_train_width(dev, arch, params, launches, name, norm_ulps):
@@ -4195,11 +4370,24 @@ def _key_paths(tree, path=""):
 
 
 def add_launches(rows, by_path):
-    """Add the launches of this slice's paths (checkpoint width: both
-    engines; serve store: both codecs) to the kernel rows'."""
+    """Add the launches of the later slices' paths (checkpoint width:
+    both engines; serve store: both codecs; whisper and internvl: their
+    prefill and train runs) to the kernel rows'."""
     for row in rows:
         row["launches"] += sum(counts.get(row["name"], 0)
                                for counts in by_path.values())
+
+
+def frontend_train(dev, arch, layers, name, norm_ulps):
+    """The train phase for a frontend model (the local step profiled),
+    then its codec's kernel on its largest leaf; returns the train run's
+    launches."""
+    import torch
+    params, launches = phase_train(dev, name, arch, layers, profile="local")
+    phase_train_width(dev, arch, params, launches, name, norm_ulps)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -4272,8 +4460,10 @@ def main():
     rows.append(phase_scan_width(dev, prefill_launches["falcon-mamba-7b"]))
     lap("mamba prefill, serve, scan width")
     norm_ulps = phase_dequantize_small(dev)
-    for name in ("natural", "qsgd"):
-        params, launches = phase_train(dev, name)
+    # the QSGD run's fresh step would repeat the natural run's profile
+    # (the same draws: 82.4% against 82.6%) at ~40 s of the profiler's pass
+    for name, profile in (("natural", True), ("qsgd", "local")):
+        params, launches = phase_train(dev, name, profile=profile)
         rows.append(phase_train_width(dev, "stablelm-1.6b", params,
                                       launches, name, norm_ulps))
         del params
@@ -4315,6 +4505,23 @@ def main():
     serve_launches, serve_errs = phase_serve_store(dev)
     slice_launches.update(serve_launches)
     lap("serve store")
+    cfg, params, tokens, frames = phase_whisper_prefill(dev)
+    phase_serve(dev, cfg, params, tokens, frames=frames)
+    del params, frames
+    torch.cuda.empty_cache()
+    lap("whisper prefill, serve")
+    slice_launches["whisper train"] = frontend_train(
+        dev, *FRONTEND_TRAIN[0], norm_ulps)
+    lap("whisper train")
+    cfg, params, tokens, slice_launches["internvl prefill"] = phase_prefill(
+        dev, *INTERNVL_SERVE)
+    phase_serve(dev, cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    lap("internvl prefill, serve")
+    slice_launches["internvl train"] = frontend_train(
+        dev, *FRONTEND_TRAIN[1], norm_ulps)
+    lap("internvl train")
     add_launches(rows, slice_launches)
     for row in rows:        # the ingest kernels' check at the serve shape
         row["max_abs_err"] = max(row["max_abs_err"],

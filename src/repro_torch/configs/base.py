@@ -167,8 +167,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 UNPORTED = {
     "mistral-large-123b": "the multi-device launch slice (123B parameters "
                           "do not fit one card)",
-    "internvl2-26b": "the vision-frontend slice",
-    "whisper-medium": "the encoder-decoder slice",
 }
 
 

@@ -15,6 +15,8 @@ of keys is ``(..., 2)``), and the schedule below reproduces, for
   * ``jax.random.uniform`` (f32)   -> :func:`uniform`
   * ``jax.random.bernoulli``       -> :func:`bernoulli`
   * ``jax.random.randint`` (int32) -> :func:`randint`
+  * ``jax.random.normal`` (f32)    -> :func:`normal`, within
+    :data:`NORMAL_ULPS`
 
 Keys are a few bytes, so the schedule runs in numpy ``uint32`` (which
 wraps natively) and never touches the device; the kernels receive the
@@ -26,6 +28,7 @@ device of the tensor they perturb, from the same keys:
   * ``jax.random.bits`` (32-bit)   -> :func:`tensor_bits`
   * ``jax.random.uniform`` (f32)   -> :func:`tensor_uniform`
   * ``jax.random.bernoulli``       -> :func:`tensor_bernoulli`
+  * ``jax.random.normal`` (f32)    -> :func:`tensor_normal`
   * ``jax.random.permutation(key, d)`` -> :func:`permutation`
 
 They hold uint32 words in int64 tensors masked to 32 bits (torch's CPU
@@ -42,8 +45,9 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "threefry2x32", "split", "fold_in", "random_bits",
-           "uniform", "bernoulli", "randint", "tensor_bits", "tensor_uniform",
-           "tensor_bernoulli", "permutation"]
+           "uniform", "bernoulli", "randint", "normal", "NORMAL_ULPS",
+           "tensor_bits", "tensor_uniform", "tensor_bernoulli",
+           "tensor_normal", "permutation"]
 
 _U32 = np.uint32
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -169,6 +173,67 @@ def randint(key, shape, minval, maxval) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# normal draws: sqrt(2) erfinv(u), u uniform on [nextafter(-1, 0), 1)
+# --------------------------------------------------------------------------
+
+#: the least float32 above -1: the low end of the reference's uniform
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+#: XLA's float32 erfinv (Giles' approximation): a degree-8 polynomial in
+#: w - 2.5 where w = -log1p(-x^2) < 5, else in sqrt(w) - 3
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+# XLA's constants are float32
+_ERFINV_SMALL, _ERFINV_LARGE = (tuple(float(np.float32(c)) for c in cs)
+                                for cs in (_ERFINV_SMALL, _ERFINV_LARGE))
+#: ulps from ``jax.random.normal`` (XLA:CPU, jax 0.9.0) that a normal
+#: draw is held to (tests/test_torch_encdec.py measures 3 at the train
+#: CLI's keys and shapes, 99% of values bit-exact through torch, 98.7%
+#: through numpy): the uniform is bit-exact and each multiply-add of the
+#: polynomial is rounded once, as XLA contracts them into FMAs; what
+#: remains is the log1p, which XLA does not round correctly
+NORMAL_ULPS = 4
+
+
+def _erfinv32(x, lib, wide, narrow):
+    """XLA's float32 ``erf_inv`` of ``x`` (a float32 numpy array or
+    tensor) written with ``lib`` (numpy or torch); ``wide`` / ``narrow``
+    convert to float64 / float32, where each step of the polynomial is
+    one rounding of ``c + p * w`` (an FMA: the float64 product of two
+    float32 values is exact)."""
+    w = -lib.log1p(-x * x)
+    small = w < 5.0
+    ws = lib.where(small, w - 2.5, lib.sqrt(w) - 3.0)
+    w64 = wide(ws)
+
+    def poly(coeffs):
+        p = ws * 0.0 + coeffs[0]
+        for c in coeffs[1:]:
+            p = narrow(wide(p) * w64 + c)
+        return p
+
+    return lib.where(small, poly(_ERFINV_SMALL), poly(_ERFINV_LARGE)) * x
+
+
+def normal(key, shape=()) -> np.ndarray:
+    """float32 ``jax.random.normal(key, shape)``: ``uniform`` bits mapped
+    to [nextafter(-1, 0), 1) as ``f * 2 + lo`` (``hi - lo`` rounds to 2
+    in float32, so the product is exact and an FMA changes nothing),
+    then ``sqrt(2) * erfinv``; within :data:`NORMAL_ULPS` of the
+    reference."""
+    u = np.maximum(np.float32(_NORMAL_LO),
+                   uniform(key, shape) * np.float32(2.0)
+                   + np.float32(_NORMAL_LO))
+    return np.float32(_SQRT2) * _erfinv32(
+        u, np, lambda t: t.astype(np.float64),
+        lambda t: t.astype(np.float32))
+
+
+# --------------------------------------------------------------------------
 # array-sized draws on the device
 # --------------------------------------------------------------------------
 
@@ -244,6 +309,17 @@ def tensor_bernoulli(key, p, shape, device=None) -> torch.Tensor:
     p32 = float(np.float32(p))
     return _draw(key, shape, device, lambda bits: _to_uniform(bits) < p32,
                  torch.bool)
+
+
+def _to_normal(bits: torch.Tensor) -> torch.Tensor:
+    u = torch.clamp(_to_uniform(bits) * 2.0 + _NORMAL_LO, min=_NORMAL_LO)
+    return _SQRT2 * _erfinv32(u, torch, torch.Tensor.double,
+                              torch.Tensor.float)
+
+
+def tensor_normal(key, shape, device=None) -> torch.Tensor:
+    """:func:`normal` on ``device`` (float32)."""
+    return _draw(key, shape, device, _to_normal, torch.float32)
 
 
 def permutation(key, d: int, device=None) -> torch.Tensor:

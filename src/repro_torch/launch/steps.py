@@ -239,6 +239,9 @@ def checkpointed_rollout(rollout_fn, manager, *, length: int,
 
 
 def build_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch) -> (B, V)`` last-position logits;
+    ``batch`` carries the stub ``patches`` (vision) or ``frames``
+    (encoder-decoder) beside the tokens, as ``forward`` takes them."""
     @torch.no_grad()
     def prefill_step(params, batch):
         x = hidden(params, cfg, batch)
@@ -247,6 +250,9 @@ def build_prefill_step(cfg: ArchConfig):
 
 
 def build_serve_step(cfg: ArchConfig):
+    """``serve_step(params, caches, index, batch) -> ((B, V) logits,
+    caches)``: one token a sequence (``batch["tokens"]`` (B, 1)); the
+    encoder-decoder reads its cross caches, which the caller filled."""
     @torch.no_grad()
     def serve_step(params, caches, index, batch):
         logits, new_caches = decode_step(params, cfg, caches, index, batch)

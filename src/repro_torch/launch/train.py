@@ -21,6 +21,18 @@ snapshots the rollout every N chunks into a manager root, and
   PYTHONPATH=src python -m repro_torch.launch.train --steps 40 \\
       --ckpt runs/ck --ckpt-every 1 --resume
 
+The audio and vision architectures take stub frontend embeddings, drawn
+on the run's device for each step k as the reference's CLI draws them:
+``0.02 * normal(fold_in(PRNGKey(seed + 1), k), (n, batch, P, d_model))``
+patches (internvl2-26b) and the same with ``seed + 2`` for frames
+(whisper-medium).  The vision prefix takes its P positions out of
+``--seq``, as the reference's ``input_specs`` does: a client's sequence
+is P patches and ``seq - P`` tokens.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
+      --seq 80
+
 Runs on the GPU; ``main(argv, device="cpu")`` runs the plain PyTorch
 versions on the CPU.  The 2-D mesh engine raises and names the slice
 that brings it.
@@ -43,8 +55,11 @@ from repro_torch.fl import run_l2gd
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.steps import stacked_grad_fn, stacked_loss_fn
 from repro_torch.models import init_params, param_count
+from repro_torch.models.frontends import (stub_frame_embeddings,
+                                          stub_patch_embeddings)
 
-__all__ = ["build", "tokens_processed", "init_stacked_params", "main"]
+__all__ = ["build", "tokens_processed", "init_stacked_params",
+           "batch_fn", "main"]
 
 
 def build(cfg, overrides):
@@ -77,6 +92,27 @@ def init_stacked_params(cfg, n: int, seed: int, device):
             dst[i].copy_(a)
         del leaves
     return tree_unflatten(treedef, stacked)
+
+
+def batch_fn(cfg, stream, seed: int, device):
+    """``batch(k)``: step k's stacked token batch from ``stream`` (numpy),
+    with the stub patches (vision) or frames (encoder-decoder) of the
+    reference's CLI drawn on ``device``."""
+    n, b = stream.n_clients, stream.batch
+
+    def batch(k):
+        out = {"tokens": stream.batch_at(k)}
+        if cfg.frontend == "vision":
+            out["patches"] = stub_patch_embeddings(
+                prng.fold_in(prng.PRNGKey(seed + 1), k), cfg, n, b,
+                device=device)
+        if cfg.is_encdec:
+            out["frames"] = stub_frame_embeddings(
+                prng.fold_in(prng.PRNGKey(seed + 2), k), cfg, n, b,
+                device=device)
+        return out
+
+    return batch
 
 
 def main(argv=None, device=None):
@@ -150,8 +186,15 @@ def main(argv=None, device=None):
                        "param_dtype": args.dtype, "compute_dtype": args.dtype,
                        "attn_impl": args.attn_impl})
     n = args.clients
+    # the vision prefix's patches take P of the --seq positions
+    seq = args.seq - (cfg.n_frontend_tokens if cfg.frontend == "vision"
+                      else 0)
+    if seq < 2:
+        ap.error(f"--seq {args.seq} leaves {seq} tokens after the "
+                 f"{cfg.n_frontend_tokens} patches; next-token loss "
+                 "needs 2")
     ts = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=args.batch,
-                     seq=args.seq, seed=args.seed)
+                     seq=seq, seed=args.seed)
     params = init_stacked_params(cfg, n, args.seed, device)
     print(f"arch={cfg.name} params/client={param_count(params) // n:,} "
           f"clients={n}", flush=True)
@@ -174,7 +217,7 @@ def main(argv=None, device=None):
         print(f"resuming from {resume_from} step {step}", flush=True)
     t0 = time.time()
     run = run_l2gd(key, params, stacked_grad_fn(cfg),
-                   hp, lambda k: {"tokens": ts.batch_at(k)}, args.steps,
+                   hp, batch_fn(cfg, ts, args.seed, device), args.steps,
                    client_comp=comp, master_comp=mcomp,
                    checkpoint_policy=policy, resume_from=resume_from,
                    local_steps=args.local_steps,

@@ -1,7 +1,8 @@
 """GQA attention (optional sliding window and qk-norm) with its KV cache,
-and DeepSeek-V2's multi-head latent attention (MLA) with its latent
-cache — the counterparts of ``repro.models.attention`` (the encoder /
-cross attention of the encoder-decoder comes with its slice).
+DeepSeek-V2's multi-head latent attention (MLA) with its latent cache,
+and the encoder-decoder's plain multi-head attention (bidirectional
+self-attention and cross-attention) — the counterparts of
+``repro.models.attention``.
 
 Two execution paths:
   * train / prefill: full-sequence causal (optionally windowed) attention,
@@ -16,7 +17,8 @@ Two execution paths:
 MLA has no flash route (the reference has none, and its q/k dim
 nope + rope differs from its v dim): the prefill expands the latent into
 keys and values and takes a dense causal softmax; decode takes the
-absorbed form against the latent cache.
+absorbed form against the latent cache.  The encoder-decoder's
+attention is dense too (``attention_core``), as the reference's.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch.models.blocks import (apply_rope, dense_init, init_rmsnorm,
 
 __all__ = ["NEG_INF", "attention_core", "causal_mask", "init_gqa", "KVCache",
            "init_kv_cache", "gqa_attention", "init_mla", "MLACache",
-           "init_mla_cache", "mla_attention"]
+           "init_mla_cache", "mla_attention", "init_mha", "mha_attention"]
 
 NEG_INF = -1e30
 
@@ -277,3 +279,37 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
     out = out.reshape(B, S, H * v_dim) @ params["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# plain MHA for the encoder and the cross attention (whisper)
+# ---------------------------------------------------------------------------
+
+def init_mha(generator, d_model: int, n_heads: int, head_dim: int, dtype, *,
+             device) -> dict:
+    def w(shape):
+        return dense_init(generator, shape, dtype, device=device)
+
+    return {"wq": w((d_model, n_heads * head_dim)),
+            "wk": w((d_model, n_heads * head_dim)),
+            "wv": w((d_model, n_heads * head_dim)),
+            "wo": w((n_heads * head_dim, d_model))}
+
+
+def mha_attention(params: dict, x: torch.Tensor, kv_src, *, n_heads: int,
+                  head_dim: int, mask=None, precomputed_kv=None):
+    """Bidirectional (``mask=None``), masked or cross attention of ``x``
+    over ``kv_src``, no RoPE (the encoder-decoder adds its sinusoidal
+    positions to the embeddings).  ``precomputed_kv`` = (k, v), each
+    (B, T, H, D), replaces the key and value projections (the decode
+    path's cross-attention caches).  Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+    if precomputed_kv is None:
+        T = kv_src.shape[1]
+        k = (kv_src @ params["wk"]).reshape(B, T, n_heads, head_dim)
+        v = (kv_src @ params["wv"]).reshape(B, T, n_heads, head_dim)
+    else:
+        k, v = precomputed_kv
+    out = attention_core(q, k, v, mask)
+    return out.reshape(B, S, n_heads * head_dim) @ params["wo"], (k, v)

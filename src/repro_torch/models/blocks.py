@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 __all__ = ["dense_init", "init_rmsnorm", "rmsnorm", "rope_frequencies",
            "apply_rope", "init_mlp", "mlp", "init_embedding", "embed",
-           "unembed", "cross_entropy_loss"]
+           "unembed", "sinusoidal_positions", "sinusoidal_position_at",
+           "cross_entropy_loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +133,38 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: logits = x @ table^T (computed in fp32)."""
     return x.float() @ params["table"].float().T
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (the encoder-decoder's)
+# ---------------------------------------------------------------------------
+
+def _sinusoid(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """[sin(ang), cos(ang)] with ang = pos / 10000 ** (2 dim / d_model),
+    float32 positions (...,) -> (..., d_model).  The angle is the
+    float32 quotient, as the reference's; its power of 10000 and the
+    sine and cosine are taken in float64 and rounded once, which gives
+    the reference's table (constant-folded by XLA) within an ulp at
+    4096 positions; float32 ``pow`` alone is 1.2e-4 away there
+    (tests/test_torch_encdec.py)."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device)
+    den = (10000.0 ** (2.0 * dim / d_model).double()).float()
+    ang = (pos[..., None] / den).double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+
+
+def sinusoidal_positions(length: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings (length, d_model)."""
+    return _sinusoid(torch.arange(length, dtype=torch.float32,
+                                  device=device), d_model)
+
+
+def sinusoidal_position_at(index: int, d_model: int,
+                           device=None) -> torch.Tensor:
+    """Row ``index`` of :func:`sinusoidal_positions`, (d_model,)."""
+    return _sinusoid(torch.tensor(float(index), dtype=torch.float32,
+                                  device=device), d_model)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Config-driven decoder for the dense GQA, MoE, MLA, Mamba and hybrid
-families — the counterpart of ``repro.models.model`` for ``mixer`` in
-{"gqa", "mla", "mamba", "hybrid"} and ``ffn`` in {"dense", "moe",
-"none"}.
+families, the vision prefix and the whisper-style encoder-decoder — the
+counterpart of ``repro.models.model`` for ``mixer`` in {"gqa", "mla",
+"mamba", "hybrid"} and ``ffn`` in {"dense", "moe", "none"}.
 
 The parameter tree is the reference's: a dict with a leading layer axis
 on every leaf of ``params["layers"]``, the same keys; a config with
@@ -19,9 +19,20 @@ window every attention layer runs the flash-attention kernel and no
 (S, S) mask is built; every Mamba layer's scan runs the selective-scan
 kernel on the card (``models/mamba.py``).  MoE layers return the router's
 aux loss, summed over the layers in the reference's order (the dense
-stack first) into ``loss_fn``'s ``ce + aux_loss_weight * aux``.  The
-frontends and the encoder-decoder raise and name the slice of the port
-that brings them.
+stack first) into ``loss_fn``'s ``ce + aux_loss_weight * aux``.
+
+A vision config (``frontend="vision"``) takes ``batch["patches"]``
+(B, P, d_model) in front of the token embeddings: positions and the
+causal mask cover the concatenation, and ``loss_fn`` leaves the P patch
+positions out.  The encoder-decoder (``is_encdec``) runs a bidirectional
+encoder over ``batch["frames"]`` (B, F, d_model) plus sinusoidal
+positions (``params["encoder"]``, ``params["encoder_norm"]``), then a
+decoder whose layers each add a cross-attention over the encoder's
+output (``params["cross"]``); its attention is dense, as the
+reference's.  Its decode caches are {"self": KV cache, "cross_k",
+"cross_v"} a layer; ``init_caches`` makes the cross caches zeros, as
+the reference does, and nothing here fills them: a caller fills them
+from ``encoder_forward`` (the reference's tests do the same).
 
 Public API:
   init_params(generator, cfg, device)    -> params
@@ -31,7 +42,9 @@ Public API:
   layer_kinds(cfg)                       -> per-layer static descriptors
   init_caches(cfg, batch, capacity)      -> decode cache list (KV caches,
                                             MLA latent caches, Mamba caches,
-                                            or KV and Mamba a layer)
+                                            KV and Mamba a layer, or KV and
+                                            cross caches a layer)
+  encoder_forward(params, cfg, frames)   -> the encoder's output
   decode_step(params, cfg, caches, index, batch) -> (logits, caches)
 """
 from __future__ import annotations
@@ -50,17 +63,10 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
 
 __all__ = ["init_params", "forward", "hidden", "loss_fn", "layer_kinds",
-           "init_caches", "decode_step", "param_count"]
+           "init_caches", "decode_step", "param_count", "encoder_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(
-            "encoder-decoder and frontend models are not ported yet: they "
-            "come with the encoder-decoder and vision-frontend slices")
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +156,6 @@ def init_params(generator, cfg: ArchConfig, device=None) -> dict:
     on ``device`` (None on the ``meta`` device, where only shapes exist).
     ``device`` is CUDA unless the caller names another; a generator on
     another device raises."""
-    _check_ported(cfg)
     device = resolve_device(device)
     if generator is not None and generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
@@ -165,7 +170,29 @@ def init_params(generator, cfg: ArchConfig, device=None) -> dict:
     for group, kinds in _groups(cfg):
         params[group] = _stack([_init_layer(generator, cfg, kind, dtype,
                                             device) for kind in kinds])
+    if cfg.is_encdec:
+        params.update(_init_encdec_extra(generator, cfg, dtype, device))
     return params
+
+
+def _init_encdec_extra(generator, cfg: ArchConfig, dtype, device) -> dict:
+    """Whisper: the decoder layers' cross-attention, the encoder's layer
+    stack and its final norm."""
+    def mha():
+        return attn.init_mha(generator, cfg.d_model, cfg.n_heads, cfg.hd,
+                             dtype, device=device)
+
+    def norm():
+        return blocks.init_rmsnorm(cfg.d_model, dtype, device)
+
+    cross = [{"ln_cross": norm(), "attn": mha()}
+             for _ in range(cfg.n_layers)]
+    encoder = [{"ln1": norm(), "attn": mha(), "ln2": norm(),
+                "ffn": blocks.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                       dtype, device=device)}
+               for _ in range(cfg.encoder_layers)]
+    return {"cross": _stack(cross), "encoder": _stack(encoder),
+            "encoder_norm": norm()}
 
 
 def _groups(cfg: ArchConfig) -> list:
@@ -284,19 +311,77 @@ def _decoder_layer(cfg: ArchConfig, kind: LayerKind, lp: dict, x, positions,
 
 def hidden(params, cfg: ArchConfig, batch):
     """The decoder stack up to the final norm: (B, S, d_model) in the
-    compute dtype.  ``forward`` unembeds all of it; the prefill step only
-    its last position."""
+    compute dtype (S counts the patches of a vision batch).  ``forward``
+    unembeds all of it; the prefill step only its last position."""
     return _hidden_aux(params, cfg, batch)[0]
+
+
+def _run(layer, remat: bool, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
+
+def _encoder_layer(cfg: ArchConfig, lp: dict, h):
+    # the reference normalizes ln1 twice from one input: once is the same
+    x = blocks.rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    h = h + attn.mha_attention(lp["attn"], x, x, n_heads=cfg.n_heads,
+                               head_dim=cfg.hd)[0]
+    return _apply_ffn(cfg, lp, h, "dense")[0]
+
+
+def encoder_forward(params, cfg: ArchConfig, frames):
+    """The encoder over frames (B, F, d_model) plus sinusoidal
+    positions, bidirectional: (B, F, d_model) after its final norm, in
+    the compute dtype."""
+    x = frames.to(_DTYPES[cfg.compute_dtype])
+    x = x + blocks.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                        x.device)[None].to(x.dtype)
+    remat = _remat(cfg, params)
+    for lp in _layers(params["encoder"], cfg.encoder_layers):
+        x = _run(_encoder_layer, remat, cfg, lp, x)
+    return blocks.rmsnorm(params["encoder_norm"], x, cfg.norm_eps)
+
+
+def _encdec_layer(cfg: ArchConfig, lp: dict, cp: dict, h, enc_out, mask):
+    """A decoder layer: masked self-attention, cross-attention over the
+    encoder's output, the MLP."""
+    x = blocks.rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    h = h + attn.mha_attention(lp["attn"], x, x, n_heads=cfg.n_heads,
+                               head_dim=cfg.hd, mask=mask)[0]
+    x = blocks.rmsnorm(cp["ln_cross"], h, cfg.norm_eps)
+    h = h + attn.mha_attention(cp["attn"], x, enc_out, n_heads=cfg.n_heads,
+                               head_dim=cfg.hd)[0]
+    return _apply_ffn(cfg, lp, h, "dense")[0]
+
+
+def _encdec_hidden(params, cfg: ArchConfig, batch):
+    enc_out = encoder_forward(params, cfg, batch["frames"])
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = blocks.embed(params["embed"], tokens).to(_DTYPES[cfg.compute_dtype])
+    x = x + blocks.sinusoidal_positions(S, cfg.d_model,
+                                        x.device)[None].to(x.dtype)
+    mask = attn.causal_mask(S, S, device=x.device)
+    remat = _remat(cfg, params)
+    for lp, cp in zip(_layers(params["layers"], cfg.n_layers),
+                      _layers(params["cross"], cfg.n_layers)):
+        x = _run(_encdec_layer, remat, cfg, lp, cp, x, enc_out, mask)
+    return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def _hidden_aux(params, cfg: ArchConfig, batch):
     """(``hidden``, the aux loss summed over the layers: each stack's
     layers from zero in order, then the stacks' sums in order, as the
     reference's scans carry it; None without MoE)."""
-    _check_ported(cfg)
+    if cfg.is_encdec:
+        return _encdec_hidden(params, cfg, batch), None
     tokens = batch["tokens"]
     cdt = _DTYPES[cfg.compute_dtype]
     x = blocks.embed(params["embed"], tokens).to(cdt)
+    if cfg.frontend == "vision" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cdt), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     impl = _attn_impl_train(cfg)
@@ -312,21 +397,18 @@ def _hidden_aux(params, cfg: ArchConfig, batch):
         group_aux = None
         for lp, kind in zip(_layers(params[group], len(kinds)), kinds):
             mask = global_mask if kind.is_global else local_mask
-            if remat:
-                x, layer_aux = checkpoint(_decoder_layer, cfg, kind, lp, x,
-                                          positions, mask, impl,
-                                          use_reentrant=False)
-            else:
-                x, layer_aux = _decoder_layer(cfg, kind, lp, x, positions,
-                                              mask, impl)
+            x, layer_aux = _run(_decoder_layer, remat, cfg, kind, lp, x,
+                                positions, mask, impl)
             group_aux = _add(group_aux, layer_aux)
         aux = _add(aux, group_aux)
     return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(params, cfg: ArchConfig, batch):
-    """batch: {"tokens": (B, S)}.  Returns (logits (B, S, V) float32,
-    aux_loss 0-d float32)."""
+    """batch: {"tokens": (B, S)} plus {"patches": (B, P, d_model)} for a
+    vision config (logits (B, P + S, V)) or {"frames": (B, F, d_model)}
+    for the encoder-decoder.  Returns (logits float32, aux_loss 0-d
+    float32)."""
     x, aux = _hidden_aux(params, cfg, batch)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -335,9 +417,12 @@ def forward(params, cfg: ArchConfig, batch):
 
 def loss_fn(params, cfg: ArchConfig, batch):
     """Next-token cross-entropy + ``aux_loss_weight`` x the MoE aux loss
-    (zero without MoE)."""
+    (zero without MoE).  The patch positions of a vision batch are left
+    out."""
     logits, aux = forward(params, cfg, batch)
     tokens = batch["tokens"]
+    if cfg.frontend == "vision" and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
     loss = blocks.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
     total = loss + cfg.aux_loss_weight * aux
     return total, {"ce": loss, "aux": aux}
@@ -351,8 +436,9 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
     """One cache per layer: a KV cache (gqa), an ``MLACache`` of the
     latent (mla), a ``MambaCache`` (mamba), or {"attn": KV cache,
     "mamba": MambaCache} (hybrid).  Windowed layers get ring buffers of
-    size min(window, capacity)."""
-    _check_ported(cfg)
+    size min(window, capacity).  The encoder-decoder's is {"self": KV
+    cache, "cross_k": zeros, "cross_v": zeros}, the cross caches
+    (B, n_frontend_tokens, H, D) for the caller to fill."""
     device = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
     caches = []
@@ -378,6 +464,12 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int, device=None):
                 "mamba": mb.init_mamba_cache(batch, cfg.d_inner,
                                              cfg.ssm_state, cfg.ssm_conv,
                                              dtype, device)})
+        if cfg.is_encdec:
+            shape = (batch, cfg.n_frontend_tokens, cfg.n_heads, cfg.hd)
+            caches[-1] = {
+                "self": caches[-1],
+                "cross_k": torch.zeros(shape, dtype=dtype, device=device),
+                "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
     return caches
 
 
@@ -403,10 +495,11 @@ def decode_step(params, cfg: ArchConfig, caches, index, batch):
     """One-token serve step.  batch: {"tokens": (B, 1)}; ``index`` is the
     current position (the caches' fill level).  Returns (logits
     (B, 1, V), caches) — the caches are updated in place."""
-    _check_ported(cfg)
     index = int(index)
     tokens = batch["tokens"]
     x = blocks.embed(params["embed"], tokens).to(_DTYPES[cfg.compute_dtype])
+    if cfg.is_encdec:
+        return _encdec_decode(params, cfg, caches, index, x)
     pos = torch.full(tokens.shape, index, dtype=torch.int64,
                      device=tokens.device)
     layers = [lp for group, kinds in _groups(cfg)
@@ -418,3 +511,36 @@ def decode_step(params, cfg: ArchConfig, caches, index, batch):
         x = _apply_ffn(cfg, lp, x + out, kind.ffn, with_aux=False)[0]
     x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return blocks.unembed(params["embed"], x), caches
+
+
+def _encdec_decode(params, cfg: ArchConfig, caches, index: int, x):
+    """The encoder-decoder's decode step from the token embeddings x
+    (B, 1, d_model): the sinusoidal row at ``index``, then each layer's
+    self-attention on its linear KV cache, cross-attention on its cross
+    caches, the MLP."""
+    x = x + blocks.sinusoidal_position_at(index, cfg.d_model,
+                                          x.device).to(x.dtype)
+    for cache, lp, cp in zip(caches, _layers(params["layers"], cfg.n_layers),
+                             _layers(params["cross"], cfg.n_layers)):
+        h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        x = x + _decode_mixer_mha(cfg, lp["attn"], cache["self"], h, index)
+        h = blocks.rmsnorm(cp["ln_cross"], x, cfg.norm_eps)
+        x = x + attn.mha_attention(
+            cp["attn"], h, h, n_heads=cfg.n_heads, head_dim=cfg.hd,
+            precomputed_kv=(cache["cross_k"], cache["cross_v"]))[0]
+        x = _apply_ffn(cfg, lp, x, "dense")[0]
+    x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return blocks.unembed(params["embed"], x), caches
+
+
+def _decode_mixer_mha(cfg: ArchConfig, p: dict, cache, x, index: int):
+    """The encoder-decoder's self-attention decode: no RoPE, the new key
+    and value written in place at ``index`` of a linear cache."""
+    B, H, D = x.shape[0], cfg.n_heads, cfg.hd
+    k = (x @ p["wk"]).reshape(B, 1, H, D)
+    v = (x @ p["wv"]).reshape(B, 1, H, D)
+    attn._write_cache(cache, (k, v), index)
+    q = (x @ p["wq"]).reshape(B, 1, H, D)
+    valid = torch.arange(cache.k.shape[1], device=x.device) <= index
+    out = attn.attention_core(q, cache.k, cache.v, valid[None, None, None])
+    return out.reshape(B, 1, H * D) @ p["wo"]

@@ -58,10 +58,11 @@ from repro_torch.models import blocks
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 # the ported archs; the dense GQA ones are exercised here, falcon-mamba-7b
 # and hymba-1.5b in tests/test_torch_mamba.py, the MoE and MLA family in
-# tests/test_torch_moe_lm.py
+# tests/test_torch_moe_lm.py, whisper-medium in tests/test_torch_encdec.py
+# and internvl2-26b in tests/test_torch_vlm.py
 ARCHS = ("stablelm-1.6b", "gemma3-1b", "falcon-mamba-7b", "hymba-1.5b",
          "granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
-         "deepseek-v2-lite-16b")
+         "deepseek-v2-lite-16b", "whisper-medium", "internvl2-26b")
 GQA_ARCHS = ARCHS[:2]
 BLOCK_TOL = 1e-6
 LOGIT_TOL = 2e-5
@@ -112,14 +113,6 @@ def test_unported_configs_raise_and_name_their_slice():
     for arch in UNPORTED:
         with pytest.raises(NotImplementedError, match="slice"):
             get_config(arch)
-
-
-def test_model_refuses_unported_families():
-    cfg = get_config("stablelm-1.6b").reduced()
-    for change in ({"is_encdec": True}, {"frontend": "vision"}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            init_params(None, dataclasses.replace(cfg, **change),
-                        device="meta")
 
 
 # --------------------------------------------------------------------------
