@@ -169,8 +169,8 @@ these phases and fails (non-zero exit, no result line) on any error:
   checkpoint width  the width cell (QSGD packed uplink, flat downlink,
            4 steps in chunks of 2) with dense snapshots at both chunk
            boundaries through the CheckpointManager, n clients from the
-           host's MemAvailable and the temp directory's free space (8, 4
-           or 2), resumed from step 2: params and cache equal to the
+           host's MemAvailable and the temp directory's free space (4 or
+           2), resumed from step 2: params and cache equal to the
            committed snapshot of step 4, ledger, xi trace, losses and
            counters to the uninterrupted run's; the synchronous engine,
            then the async engine under the chaos plan at participation
@@ -199,7 +199,27 @@ these phases and fails (non-zero exit, no result line) on any error:
            flash against dense), then the serve phase on tokens;
   internvl train  the train phase at 3 layers with leafwise natural (44
            launches), its loss held to the text positions, then the
-           kernel on the (3, 6144, 16384) w_gate stack.
+           kernel on the (3, 6144, 16384) w_gate stack;
+  mesh width  the multi-device launch layer as a world of one on NCCL:
+           the width cell (8 clients x d = 411,060,224, the quadratic
+           objective, xi [0, 1, 1, 0, 1]) through rollout_l2gd_sharded on
+           a 1-process client mesh, packed QSGD then packed natural both
+           ways, each run equal to rollout_l2gd's on the same state and
+           trace bit for bit (every leaf's bits by an exact positional
+           digest, the losses and xis compared whole); the all_gather's
+           bytes against round_bits() / 8 x n a fresh round, one gather
+           of the 8 payloads timed;
+  mistral prefill / serve  mistral-large-123b at full width and 2 of its
+           88 layers (3,170,955,264 parameters) as the prefill phase (2
+           flash launches at H = 96, Kv = 8, D = 128; flash against
+           dense), then the serve phase; flash width times its shape;
+  mistral mesh2d train  mistral-large-123b at full width and 1 layer, 2
+           clients x one 4096-token sequence, leafwise natural:
+           build_sharded_rollout_fn on a (1, 1) train mesh with
+           remat_policy="dots" against build_rollout_fn with "full", a
+           step a call over a trace of cached, local and fresh steps,
+           params and cache bit for bit (the digest), losses and xis
+           equal; each branch's seconds and the peak, <= 70 GB.
 
 Each group of phases logs its seconds ("lap ..."), the total the sum.
 
@@ -377,15 +397,29 @@ FLEET_ASSIGNMENT = tuple(i % 3 for i in range(8))
 FLASH_SHAPES = (("stablelm-1.6b", PREFILL_B, PREFILL_S, 32, 32, 64),
                 ("granite-moe-1b-a400m", PREFILL_B, PREFILL_S, 16, 8, 64),
                 ("moonshot-v1-16b-a3b", PREFILL_B, PREFILL_S, 16, 16, 128),
-                ("internvl2-26b", PREFILL_B, PREFILL_S, 48, 8, 128))
+                ("internvl2-26b", PREFILL_B, PREFILL_S, 48, 8, 128),
+                ("mistral-large-123b", PREFILL_B, PREFILL_S, 96, 8, 128))
 # phases whisper and internvl: whisper-medium at full size; internvl2-26b
 # at full width and 12 of its 48 layers for serving (77.2 GB of f32 params
 # at 48), 3 for training (two clients' params, cache and gradients); each
 # (arch, layers) prefilled with its parameter count
 PREFILL_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
-                  ("internvl2-26b", 12): 5_249_642_496}
+                  ("internvl2-26b", 12): 5_249_642_496,
+                  ("mistral-large-123b", 2): 3_170_955_264}
 WHISPER, WHISPER_PARAMS = "whisper-medium", 959_204_352
 INTERNVL_SERVE = ("internvl2-26b", 12)
+# phases mistral: mistral-large-123b (122,207,416,320 parameters: 489 GB
+# of f32) at full width, 2 of its 88 layers served, 1 trained (two
+# clients' params, cache and gradients: 36 GB)
+MISTRAL_SERVE = ("mistral-large-123b", 2)
+MISTRAL_TRAIN_PARAMS = 1_786_810_368
+# phase mistral mesh2d train: a step a call (chunking is invisible to the
+# protocol's streams), the key's trace over these steps: cached, local,
+# fresh, cached
+MESH2D_XI = [1, 0, 1, 1]
+# phase mesh width: the digest's positional multiplier (odd: a single
+# changed element always changes the sum mod 2^64) and its chunk
+DIGEST_MUL, DIGEST_CHUNK = -7046029254386353131, 1 << 26
 # (arch, layers, codec): whisper trains with one leafwise codec, internvl
 # with the other
 FRONTEND_TRAIN = (("whisper-medium", None, "qsgd"),
@@ -3916,7 +3950,7 @@ def phase_checkpoint_width(dev):
     committed; ledger, xi trace, losses, counters; the restore is the
     resume's own, timed).  The synchronous engine, then the async engine
     under the chaos plan at participation 0.5.  n from the host's
-    memory: the largest of 8, 4, 2 whose snapshot is under a quarter of
+    memory: the largest of 4, 2 whose snapshot is under a quarter of
     MemAvailable and under a third of the temp directory's free space."""
     import shutil
     import tempfile
@@ -3928,7 +3962,9 @@ def phase_checkpoint_width(dev):
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
 
     avail, free, tmp = mem_available()
-    pick = [n for n in (8, 4, 2)
+    # 4 clients at most (8 before the multi-device slice): the snapshots'
+    # host copies and commits took 101-140 s a run at 8
+    pick = [n for n in (4, 2)
             if (n + 1) * 4 * WIDTH_D < avail / 4
             and (n + 1) * 4 * WIDTH_D < free / 3]
     check(pick, f"host memory {avail / 1e9:.1f} GB / temp space "
@@ -4361,6 +4397,227 @@ def phase_serve_store(dev):
     return launches, errs
 
 
+# --------------------------------------------------------------------------
+# the multi-device launch layer: a world of one on NCCL
+# --------------------------------------------------------------------------
+
+def bits_digest(t):
+    """An exact 64-bit digest of a tensor's bits on its device: the sum
+    mod 2^64 of each element's bit pattern times an odd multiplier of
+    its position.  Any single differing element changes it (an odd
+    number is invertible mod 2^64); two runs are compared leaf by leaf
+    through it where both states do not fit the card together."""
+    import torch
+    words = {4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()]
+    flat = t.detach().reshape(-1).view(words)
+    mask = (1 << (8 * t.element_size())) - 1
+    acc = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, flat.numel(), DIGEST_CHUNK):
+        part = flat[lo:lo + DIGEST_CHUNK].to(torch.int64) & mask
+        mul = torch.arange(lo, lo + part.numel(), dtype=torch.int64,
+                           device=t.device).mul_(DIGEST_MUL).bitwise_or_(1)
+        acc += part.mul_(mul).sum()
+    return int(acc)
+
+
+def state_digest(state):
+    from repro_torch.core.tree import tree_leaves
+    return [bits_digest(a) for a in tree_leaves((state.params, state.cache))]
+
+
+def same_trace(got, want, what):
+    check(list(got.xis) == list(want.xis), f"{what}: xi traces differ")
+    check(list(got.branches) == list(want.branches),
+          f"{what}: branches differ")
+    check(torch_equal(got.losses, want.losses), f"{what}: losses differ")
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def phase_mesh_width(dev):
+    """The width cell through the client-sharded engine on a 1-process
+    NCCL client mesh against the stacked engine, packed QSGD then packed
+    natural both ways; returns the sharded runs' launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import L2GDHyper, init_state, make_compressor
+    from repro_torch.core import make_plan, prng
+    from repro_torch.core.aggregation import _gather_payloads
+    from repro_torch.core.collective import GATHERED, reset_gathered
+    from repro_torch.core.rollout import rollout_l2gd, rollout_l2gd_sharded
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_client_mesh, mesh_axis
+
+    mesh = make_client_mesh(1, device=dev)
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == want and mesh.device_type == dev.type,
+          f"mesh width: backend {dist.get_backend()} on "
+          f"{mesh.device_type}")
+    n, xi = WIDTH_CLIENTS, np.asarray(TRAIN_XI, np.int32)
+    seeded, targets, grad_fn = width_objective(dev, n)
+    hp = L2GDHyper(eta=0.5, lam=1.0, p=0.3, n=n)
+    one = width_tree(1, lambda s: torch.empty(s[1:], device="meta"))
+    key = prng.PRNGKey(0)
+    out = {}
+    for name, kernels in (("qsgd", ("qsgd_pack", "qsgd_reduce")),
+                          ("natural", ("natural_pack", "natural_reduce"))):
+        plan = make_plan(make_compressor(name), one, transport="packed")
+        kw = dict(grad_fn=grad_fn, client_comp=plan, master_comp=plan,
+                  batch_axis=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, ref_trace = rollout_l2gd(
+            key, init_state(width_tree(n, seeded(0, 0.02))), hp, targets,
+            xi, **kw)
+        torch.cuda.synchronize()
+        stacked_s = time.perf_counter() - t0
+        want = state_digest(ref)
+        del ref
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_gathered()
+        reset_launches()            # the sharded main path starts here
+        t0 = time.perf_counter()
+        got, trace = rollout_l2gd_sharded(
+            key, init_state(width_tree(n, seeded(0, 0.02))), hp, targets,
+            xi, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)   # and ends here
+        gathered = dict(GATHERED)
+        peak = torch.cuda.max_memory_allocated(dev)
+        same_trace(trace, ref_trace, f"mesh width ({name})")
+        check(state_digest(got) == want,
+              f"mesh width ({name}): sharded params / cache differ from "
+              "the stacked engine's")
+        for k in kernels:
+            check(launches.get(k, 0) > 0, f"mesh width ({name}): {k} never "
+                  f"launched ({launches})")
+        # the payloads' bytes, plus each step's float32 loss sum
+        msg = plan.round_bits() / 8
+        fresh = trace.n_agg_comm
+        payload_bytes = gathered.get("bytes", 0) - 4 * len(xi)
+        check(payload_bytes == fresh * n * msg,
+              f"mesh width ({name}): all_gather moved {payload_bytes} "
+              f"payload bytes, {fresh} rounds x {n} x {msg:.0f} expected")
+        # one gather of the 8 clients' payloads, timed alone
+        keys = prng.split(key, n)
+        payload = plan.encode(keys, got.params)
+        axis = mesh_axis(mesh, "clients")
+        gather_ms = time_ms(lambda: _gather_payloads(payload, axis,
+                                                     batched=True), reps=5)
+        del payload, got
+        torch.cuda.empty_cache()
+        out[f"mesh width {name}"] = launches
+        log(f"phase mesh width ({name}, packed both ways): {n} clients x "
+            f"d={WIDTH_D}, a 1-process {dist.get_backend()} client mesh; "
+            f"stacked "
+            f"{stacked_s / 5 * 1e3:.1f} ms a step, sharded "
+            f"{sharded_s / 5 * 1e3:.1f} ms a step (5 steps, xi "
+            f"{TRAIN_XI}); params, cache, losses and xis equal; all_gather "
+            f"{gathered.get('calls')} calls, {payload_bytes:,} payload "
+            f"bytes = {fresh} rounds x {n} x {msg:,.0f} (round_bits / 8) "
+            f"and {len(xi)} loss sums; "
+            f"one gather of {n} payloads ({n * msg / 1e9:.3f} GB) "
+            f"{gather_ms:.3f} ms; peak allocated {peak / 1e9:.2f} GB; "
+            f"losses {[round(float(v), 1) for v in trace.losses]}; "
+            f"launches {launches}")
+    del targets
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh2d_train(dev):
+    """mistral-large-123b at full width and one layer through the 2-D
+    engine on a (1, 1) NCCL train mesh (remat "dots") against
+    build_rollout_fn (remat "full"), a step a call; returns the 2-D
+    run's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import L2GDHyper, init_state, make_compressor, prng
+    from repro_torch.core.rollout import window_streams
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_train_mesh, model_shards_of
+    from repro_torch.launch.steps import (build_rollout_fn,
+                                          build_sharded_rollout_fn)
+    from repro_torch.launch.train import init_stacked_params
+    from repro_torch.models import param_count
+
+    cfg = dataclasses.replace(get_config(MISTRAL_SERVE[0]), n_layers=1)
+    check(cfg.attn_impl == "dense" and cfg.remat, "mesh2d train config")
+    n = TRAIN_CLIENTS
+    hp = L2GDHyper(eta=0.1, lam=0.5, p=0.5, n=n)
+    seed = next(s for s in range(100) if list(window_streams(
+        prng.PRNGKey(s), hp.p, 0, len(MESH2D_XI))[0]) == MESH2D_XI)
+    key = prng.PRNGKey(seed)
+    stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
+                         seq=TRAIN_S)
+    tokens = torch.from_numpy(np.stack([stream.batch_at(k) for k in
+                                        range(len(MESH2D_XI))])).to(dev)
+    comp = make_compressor("natural")
+    mesh = make_train_mesh(model_shards=1, device=dev)
+    check(model_shards_of(mesh) == 1, "a (1, 1) train mesh")
+    runs = {
+        "build_rollout_fn (full)": build_rollout_fn(
+            dataclasses.replace(cfg, remat_policy="full"), hp, comp, comp,
+            length=1),
+        "mesh2d (dots)": build_sharded_rollout_fn(
+            dataclasses.replace(cfg, remat_policy="dots"), hp, mesh=mesh,
+            client_comp=comp, master_comp=comp, length=1)}
+    results, launches = {}, {}
+    for what, rollout in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_state(init_stacked_params(cfg, n, 0, dev))
+        check(param_count(state.params) == n * MISTRAL_TRAIN_PARAMS,
+              "mistral 1-layer parameter count")
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        reset_launches()        # the run's path starts here
+        seconds, losses, branches, peaks = [], [], [], []
+        for k in range(len(MESH2D_XI)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, trace = rollout(state, {"tokens": tokens[k:k + 1]}, key)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            losses.append(trace.losses.cpu())
+            branches.append(int(trace.branches[0]))
+        launches[what] = dict(LAUNCHES)     # and ends here
+        peak = max([init_peak] + peaks)
+        check(branches == [2, 0, 1, 2], f"{what}: branches {branches}")
+        check(peak <= TRAIN_PEAK, f"{what}: peak {peak / 1e9:.2f} GB")
+        losses = torch.cat(losses)
+        check(bool(torch.isfinite(losses).all()), f"{what}: losses")
+        results[what] = (state_digest(state), losses)
+        del state, trace
+        log(f"phase mistral mesh2d train, {what}: mistral-large-123b 1 "
+            f"layer, {n} clients x {MISTRAL_TRAIN_PARAMS:,} params, "
+            f"B={TRAIN_B} S={TRAIN_S}, leafwise natural; step seconds "
+            f"{[round(t, 3) for t in seconds]} (cached, local, fresh, "
+            f"cached); losses {[float(v) for v in losses]}; peak allocated "
+            f"{peak / 1e9:.2f} GB (a step: "
+            f"{[round(b / 1e9, 2) for b in peaks]}); launches "
+            f"{launches[what]}")
+    (ref, ref_losses), (got, got_losses) = results.values()
+    check(torch.equal(ref_losses, got_losses), "mesh2d losses differ")
+    check(got == ref, "mesh2d params / cache differ from build_rollout_fn's")
+    want = {"natural_compress_2d": 2 * 11}   # one fresh round, 11 leaves
+    for what, got_launches in launches.items():
+        check(got_launches == want, f"{what}: launches {got_launches}")
+    torch.cuda.empty_cache()
+    log("phase mistral mesh2d train: the (1, 1) mesh with remat 'dots' "
+        "equals build_rollout_fn with remat 'full' bit for bit (params, "
+        "cache, losses, xis)")
+    return launches["mesh2d (dots)"]
+
+
 def _key_paths(tree, path=""):
     """The nested dict ``tree`` with each leaf replaced by its key path."""
     if isinstance(tree, dict):
@@ -4522,6 +4779,18 @@ def main():
     slice_launches["internvl train"] = frontend_train(
         dev, *FRONTEND_TRAIN[1], norm_ulps)
     lap("internvl train")
+    slice_launches.update(phase_mesh_width(dev))
+    lap("mesh width")
+    cfg, params, tokens, slice_launches["mistral prefill"] = phase_prefill(
+        dev, *MISTRAL_SERVE)
+    phase_serve(dev, cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    lap("mistral prefill, serve")
+    slice_launches["mistral mesh2d train"] = phase_mesh2d_train(dev)
+    lap("mistral mesh2d train")
+    import torch.distributed as dist
+    dist.destroy_process_group()
     add_launches(rows, slice_launches)
     for row in rows:        # the ingest kernels' check at the serve shape
         row["max_abs_err"] = max(row["max_abs_err"],

@@ -16,7 +16,7 @@ import importlib
 from typing import Optional
 
 __all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "register", "get_config",
-           "list_archs", "ARCH_IDS", "UNPORTED"]
+           "list_archs", "ARCH_IDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,19 +162,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-#: assigned architectures whose family the port does not run yet -> the
-#: slice of the port that brings that family
-UNPORTED = {
-    "mistral-large-123b": "the multi-device launch slice (123B parameters "
-                          "do not fit one card)",
-}
-
-
 def get_config(name: str) -> ArchConfig:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: its family comes with "
-            f"{UNPORTED[name]} of the PyTorch port")
     if name not in _REGISTRY:
         mod = "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
         importlib.import_module(mod)

@@ -1,0 +1,13 @@
+"""mistral-large-123b [hf:mistralai/Mistral-Large-Instruct-2407].
+
+Assigned spec: 88L d_model=12288 96H (GQA kv=8) d_ff=28672 vocab=32768."""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="mistral-large-123b", arch_type="dense",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab_size=32768,
+    mixer="gqa", ffn="dense",
+    rope_theta=1e6,
+    source="hf:mistralai/Mistral-Large-Instruct-2407",
+))

@@ -1,6 +1,7 @@
 """Core library of the port: the codec layer, compressors, the L2GD step,
-the aggregation layer, the rollouts (synchronous, grid and async), the
-extensions and the convergence-theory calculators."""
+the aggregation layer (stacked and sharded), the rollouts (synchronous,
+client-sharded, grid and async), the extensions and the
+convergence-theory calculators."""
 from repro_torch.core.codec import (
     BernoulliPayload, CompressionPlan, DensePayload, NarrowQSGDPayload,
     NaturalPayload, QSGDPayload, SparsePayload, TernPayload, TreePayload,
@@ -16,8 +17,10 @@ from repro_torch.core.l2gd import (
     local_update, make_hyper,
 )
 from repro_torch.core.aggregation import (
-    compressed_average, masked_client_mean, stacked_finite_mask,
-    weighted_client_sum,
+    compressed_average, compressed_average_wire,
+    make_client_sharded_average, make_packed_sharded_average,
+    make_payload_sharded_average, make_sharded_average, masked_client_mean,
+    stacked_finite_mask, stochastic_round_cast, weighted_client_sum,
 )
 from repro_torch.core.flatbuf import (
     FlatLayout, flat_tree_apply, narrow_tree_qsgd, pack_tree,
@@ -28,6 +31,7 @@ from repro_torch.core.flatbuf import (
 from repro_torch.core.rollout import (
     RolloutTrace, draw_participation_mask, hyper_grid, participant_count,
     participation_masks, rollout_l2gd, rollout_l2gd_grid,
+    rollout_l2gd_sharded, sharded_state_specs,
 )
 from repro_torch.core.async_engine import (
     EVENT_FIELDS, AsyncAggState, AsyncRolloutTrace, fault_totals,
@@ -48,11 +52,15 @@ __all__ = [
     "L2GDHyper", "L2GDState", "aggregation_update", "draw_xi", "init_state",
     "l2gd_step", "local_update", "make_hyper", "compressed_average",
     "masked_client_mean", "stacked_finite_mask", "weighted_client_sum",
+    "compressed_average_wire", "stochastic_round_cast",
+    "make_sharded_average", "make_payload_sharded_average",
+    "make_packed_sharded_average", "make_client_sharded_average",
     "packed_wire_bits", "payload_wire_bits", "unpack_tree_qsgd",
     "FlatLayout", "flat_tree_apply", "pack_tree", "pack_tree_qsgd",
     "pack_tree_natural", "unpack_tree", "narrow_tree_qsgd",
     "widen_tree_qsgd", "reduce_payload_mean", "supports_fused_reduce",
     "RolloutTrace", "rollout_l2gd", "rollout_l2gd_grid", "hyper_grid",
+    "rollout_l2gd_sharded", "sharded_state_specs",
     "participant_count", "draw_participation_mask", "participation_masks",
     "EVENT_FIELDS", "AsyncAggState", "AsyncRolloutTrace", "fault_totals",
     "init_async_state", "rollout_l2gd_async", "EFMemory", "init_ef_memory",

@@ -15,6 +15,26 @@ reference's: ``k_clients, k_master = split(key)``, client i uses
 leaves.  A mixed :class:`repro_torch.fl.fleet.FleetPlan` uplink (DESIGN.md
 §13) groups the clients by cohort (:func:`repro_torch.fl.fleet.
 fleet_mean`); a uniform fleet unwraps to its plan first.
+
+The sharded half runs SPMD on ``torch.distributed``: every process calls
+the same function on its own clients, and the reference's axis names
+are :class:`~repro_torch.core.collective.MeshAxis` objects
+(``launch.mesh.mesh_axis``):
+
+  * :func:`make_client_sharded_average` — the client-sharded rollout's
+    exchange: this process's slice of the global key schedule, its
+    clients' wire payloads ``all_gather``-ed (the packed codes cross the
+    wire, never dequantized float32), then the one-pass fused
+    decode->reduce over all n messages;
+  * :func:`make_payload_sharded_average` / :func:`make_packed_sharded_
+    average` — one payload a process (its clients' local mean), gathered
+    and reduced the same way;
+  * :func:`make_sharded_average` / :func:`compressed_average_wire` — a
+    stochastically rounded bfloat16 uplink averaged over the axis.
+
+Each takes whole leaves: a codec's buckets and threefry counters run
+over the whole leaf, so a leaf cut over a model axis is gathered first
+(the 2-D engine of ``launch.steps`` does that).
 """
 from __future__ import annotations
 
@@ -23,11 +43,19 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core import flatbuf, prng
-from repro_torch.core.codec import CompressionPlan, as_plan
-from repro_torch.core.tree import tree_leaves, tree_map
+import dataclasses
 
-__all__ = ["compressed_average", "masked_client_mean",
+from repro_torch.core import flatbuf, prng
+from repro_torch.core.codec import (CompressionPlan, TreePayload, as_plan,
+                                    make_plan)
+from repro_torch.core.compressors import QSGD
+from repro_torch.core.tree import (spec_leaves, tree_flatten, tree_leaves,
+                                   tree_map, tree_unflatten)
+
+__all__ = ["compressed_average", "compressed_average_wire",
+           "stochastic_round_cast", "make_sharded_average",
+           "make_payload_sharded_average", "make_packed_sharded_average",
+           "make_client_sharded_average", "masked_client_mean",
            "stacked_finite_mask", "weighted_client_sum", "client_mean",
            "all_finite"]
 
@@ -147,3 +175,297 @@ def compressed_average(key, params_stacked, client_comp, master_comp, *,
         # the clients' compressed models leave before the downlink runs
         del compressed, guarded, plain
     return down_plan.apply(k_master, ybar)
+
+
+# ---------------------------------------------------------------------------
+# the sharded half: one process a shard, torch.distributed collectives
+# ---------------------------------------------------------------------------
+
+def stochastic_round_cast(key, x: torch.Tensor,
+                          dtype=torch.bfloat16) -> torch.Tensor:
+    """Unbiased stochastic rounding of float32 ``x`` to bfloat16, bit for
+    bit the reference's: bf16 is the top 16 bits of f32, so the low 16
+    bits are dropped and the kept magnitude bumped up one bf16 step with
+    probability low16 / 2^16, against ``uniform(key, x.shape)`` drawn
+    from the same threefry stream as ``jax.random.uniform``.  Non-finite
+    values pass through.  The carry is an integer add, so a bump from the
+    largest finite bf16 gives Inf, as the reference's does."""
+    if dtype != torch.bfloat16:
+        raise NotImplementedError("stochastic_round_cast targets bf16")
+    xf = x.to(torch.float32)
+    bits = xf.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    prob = (bits & 0xFFFF).to(torch.float32) * (1.0 / 65536.0)
+    u = prng.tensor_uniform(key, tuple(x.shape), x.device)
+    up = (u < prob).to(torch.int64)
+    trunc = ((bits & 0xFFFF0000) + (up << 16)) & 0xFFFFFFFF
+    out = torch.where(trunc >= 2 ** 31, trunc - 2 ** 32, trunc) \
+        .to(torch.int32).view(torch.float32)
+    return torch.where(torch.isfinite(xf), out, xf).to(dtype)
+
+
+def _wire_map(fn, payload):
+    """``fn`` on every tensor of a wire payload (a payload dataclass, a
+    :class:`TreePayload` of them, or a plain tree of tensors); the static
+    fields (layout, levels, shape, dtype) are kept."""
+    if isinstance(payload, TreePayload):
+        return dataclasses.replace(payload, leaves=tuple(
+            _wire_map(fn, p) for p in payload.leaves))
+    if dataclasses.is_dataclass(payload):
+        return dataclasses.replace(payload, **{
+            f.name: fn(getattr(payload, f.name))
+            for f in dataclasses.fields(payload)
+            if isinstance(getattr(payload, f.name), torch.Tensor)})
+    return tree_map(fn, payload)
+
+
+def _gather_payloads(payload, axis, *, batched: bool):
+    """``all_gather`` every wire tensor of a payload over ``axis`` (a
+    MeshAxis) — the packed arrays cross the wire, never dequantized
+    float32 — and fold the gathered axes (plus the local client axis
+    when ``batched``) into one leading axis in global client order."""
+    def one(a):
+        g = axis.all_gather(a)
+        tail = tuple(a.shape[1:]) if batched else tuple(a.shape)
+        return g.reshape((-1,) + tail)
+
+    return _wire_map(one, payload)
+
+
+def _gather_reduce(plan, payload, axis, *, batched: bool, mask=None):
+    """Gather the payloads, then the masked mean through the one-pass
+    fused decode->reduce for flat-engine payloads; leafwise payload trees
+    decode every message and take the masked mean."""
+    gathered = _gather_payloads(payload, axis, batched=batched)
+    if flatbuf.supports_fused_reduce(gathered):
+        return flatbuf.reduce_payload_mean(gathered, mask)
+    deq = plan.decode(gathered)
+    if mask is None and not batched:
+        return tree_map(lambda a: client_mean(a.to(torch.float32)), deq)
+    return masked_client_mean(deq, mask)
+
+
+def _local_keys(k_clients, n_clients: int, m: int, axis):
+    """This process's m rows of the global schedule ``split(k_clients,
+    n)``: rows axis.index * m onward."""
+    lo = axis.index * m
+    return prng.split(k_clients, n_clients)[lo:lo + m]
+
+
+def make_client_sharded_average(axis, n_clients: int, client_comp,
+                                master_comp):
+    """``average_fn(key, params_local, mask=None)`` of the client-sharded
+    rollout: each process holds m = n / axis.size clients (its slice of
+    the leading client axis) and
+
+    1. takes its rows of the global key schedule ``split(k_clients, n)``;
+    2. encodes each of its clients to the wire payload;
+    3. ``all_gather``s the payloads over ``axis`` (the codes cross);
+    4. folds all n messages into the (masked) mean in one pass — leafwise
+       payload trees decode and take the masked mean;
+
+    then applies the downlink C_M with the shared ``k_master``, the same
+    on every process.  ``mask`` is the GLOBAL (n,) participation mask.
+    On one process at full participation this is the stacked
+    :func:`compressed_average` bit for bit (flat / packed uplinks).
+
+    A mixed :class:`~repro_torch.fl.fleet.FleetPlan` (or a length-n plan
+    vector) encodes every local client under each used cohort's plan,
+    gathers each cohort's batch, and weights client i by the static 0/1
+    cohort membership x the mask x the finite guard before that cohort's
+    fused fold; the cohort sums add in cohort order and divide once by
+    the participant weight, as the reference's."""
+    if isinstance(client_comp, (list, tuple)):
+        from repro_torch.fl.fleet import fleet_from_plans
+        client_comp = fleet_from_plans(client_comp)
+    up = _resolve_uplink(client_comp)
+    down_plan = as_plan(master_comp)
+
+    if isinstance(up, CompressionPlan):
+        up_plan = up
+
+        def average_fn(key, params_local, mask=None):
+            m = tree_leaves(params_local)[0].shape[0]
+            k_clients, k_master = prng.split(key)
+            local_keys = _local_keys(k_clients, n_clients, m, axis)
+            payload = up_plan.encode(local_keys, params_local)
+            ybar = _gather_reduce(up_plan, payload, axis, batched=True,
+                                  mask=mask)
+            del payload
+            return down_plan.apply(k_master, ybar)
+
+        average_fn.axis = axis
+        return average_fn
+
+    fleet = up
+    if fleet.n_clients != n_clients:
+        raise ValueError(f"fleet covers {fleet.n_clients} clients; the "
+                         f"sharded engine runs {n_clients}")
+
+    def average_fn(key, params_local, mask=None):
+        leaves = tree_leaves(params_local)
+        m, device = leaves[0].shape[0], leaves[0].device
+        k_clients, k_master = prng.split(key)
+        local_keys = _local_keys(k_clients, n_clients, m, axis)
+        base = torch.ones((n_clients,), dtype=torch.float32, device=device) \
+            if mask is None else mask.reshape(-1).to(torch.float32)
+        total = None
+        wsum = torch.zeros((n_clients,), dtype=torch.float32, device=device)
+        for c in fleet.used_cohorts:
+            plan_c = fleet.cohorts[c]
+            member = torch.tensor(
+                [1.0 if a == c else 0.0 for a in fleet.assignment],
+                dtype=torch.float32, device=device)
+            if plan_c.transport in ("flat", "packed"):
+                gathered = _gather_payloads(
+                    plan_c.encode(local_keys, params_local), axis,
+                    batched=True)
+                fin = flatbuf.payload_finite_mask(gathered)
+                gathered = flatbuf.sanitize_payload(gathered, fin)
+                w = member * base * fin
+                acc = flatbuf.reduce_payload_acc(gathered, w)
+                part = flatbuf.unravel(
+                    gathered.layout,
+                    flatbuf.unbucketize(acc, gathered.layout.d))
+            else:
+                gathered = _gather_payloads(
+                    plan_c.apply(local_keys, params_local), axis,
+                    batched=True)
+                fin = stacked_finite_mask(gathered)
+                w = member * base * fin
+                part = weighted_client_sum(gathered, w)
+            del gathered
+            part = tree_map(lambda a: a.to(torch.float32), part)
+            total = part if total is None else tree_map(torch.add, total,
+                                                        part)
+            wsum = wsum + w
+        denom = torch.sum(wsum)
+        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+        ybar = tree_map(lambda s_, a: (s_ / safe).to(a.dtype), total,
+                        params_local)
+        return down_plan.apply(k_master, ybar)
+
+    average_fn.axis = axis
+    return average_fn
+
+
+def _check_leading_client_specs(param_pspecs_stacked, client_axes):
+    """The per-shard averages take whole leaves: a spec may name the
+    client axes on the leading dim only."""
+    lead = client_axes if len(client_axes) > 1 else client_axes[0]
+    for spec in spec_leaves(param_pspecs_stacked):
+        spec = tuple(spec)
+        if spec[:1] != (lead,) or any(e is not None for e in spec[1:]):
+            raise ValueError(
+                f"spec {spec}: the port's shard averages take whole leaves "
+                f"(the leading dim on {lead!r}, the rest replicated); "
+                "gather model-sharded dims first")
+
+
+def _make_shard_map_average(mesh, client_axes: tuple, param_pspecs_stacked,
+                            master_comp, uplink):
+    """The per-shard averages' common part.  Per process: split the key,
+    fold this process's coordinate on each client axis into the uplink
+    key (independent C_i; the master key stays shared), average the local
+    clients in float32, run ``uplink(k_up, local_mean) -> ybar`` (whose
+    collective is the wire), cast back to the param dtypes, then apply
+    the shared-key C_M downlink."""
+    from repro_torch.core.collective import MeshAxis
+    axes = tuple(client_axes)
+    _check_leading_client_specs(param_pspecs_stacked, axes)
+    axis = MeshAxis(mesh, axes)
+    down_plan = as_plan(master_comp)
+
+    def average_fn(key, params_local):
+        k_up, k_master = prng.split(key)
+        for name in axes:
+            k_up = prng.fold_in(k_up, axis.dim_index(name))
+        local_mean = tree_map(lambda a: client_mean(a.to(torch.float32)),
+                              params_local)
+        ybar = uplink(k_up, local_mean, axis)
+        ybar = tree_map(lambda y, a: y.to(a.dtype), ybar, params_local)
+        return down_plan.apply(k_master, ybar)
+
+    average_fn.axis = axis
+    return average_fn
+
+
+def _bf16_mean(axis, m: torch.Tensor) -> torch.Tensor:
+    """``pmean`` of a bfloat16 tensor over each dim of ``axis`` in turn:
+    the gathered parts added in rank order, each sum rounded to bfloat16
+    (XLA adds bf16 in float32 and rounds), then divided by the dim's size
+    in bfloat16."""
+    from repro_torch.core.collective import MeshAxis
+    for name in axis.names:
+        parts = MeshAxis(axis.mesh, name).all_gather(m)
+        acc = parts[0]
+        for i in range(1, parts.shape[0]):
+            acc = (acc.to(torch.float32) + parts[i].to(torch.float32)) \
+                .to(torch.bfloat16)
+        m = (acc.to(torch.float32) / float(parts.shape[0])) \
+            .to(torch.bfloat16)
+    return m
+
+
+def make_sharded_average(mesh, client_axes: tuple, param_pspecs_stacked,
+                         master_comp):
+    """An ``average_fn(key, params_local)`` whose uplink is a bfloat16
+    collective: each process's local client mean, leaf by leaf, is
+    stochastically rounded to bf16 (leaf j with ``split(k_up,
+    n_leaves)[j]``) and averaged over the client axes on the bf16 wire;
+    the downlink C_M runs with the shared key on every process."""
+
+    def uplink(k_up, local_mean, axis):
+        leaves, treedef = tree_flatten(local_mean)
+        up_keys = prng.split(k_up, len(leaves))
+        return tree_unflatten(treedef, [
+            _bf16_mean(axis, stochastic_round_cast(k, leaf))
+            for k, leaf in zip(up_keys, leaves)])
+
+    return _make_shard_map_average(mesh, client_axes, param_pspecs_stacked,
+                                   master_comp, uplink)
+
+
+def make_payload_sharded_average(mesh, client_axes: tuple,
+                                 param_pspecs_stacked, master_comp,
+                                 uplink_plan: CompressionPlan):
+    """An ``average_fn(key, params_local)`` whose uplink collective moves
+    the plan's wire payload: each process encodes its local client mean,
+    ``all_gather``s the payload over the client axes, and folds the
+    gathered messages into the mean with the one-pass fused
+    decode->reduce (leafwise payloads: decode, then the mean).  The
+    downlink C_M runs with the shared key on every process."""
+
+    def uplink(k_up, local_mean, axis):
+        payload = uplink_plan.encode(k_up, local_mean)
+        return _gather_reduce(uplink_plan, payload, axis, batched=False)
+
+    return _make_shard_map_average(mesh, client_axes, param_pspecs_stacked,
+                                   master_comp, uplink)
+
+
+def make_packed_sharded_average(mesh, client_axes: tuple,
+                                param_pspecs_stacked, master_comp, *,
+                                levels: int = 127, bucket: int = 2048):
+    """:func:`make_payload_sharded_average` with a packed QSGD plan
+    (int8 codes, ~8.25 bits an element at bucket 2048)."""
+    plan = make_plan(QSGD(levels=levels, bucket=bucket), transport="packed")
+    return make_payload_sharded_average(mesh, client_axes,
+                                        param_pspecs_stacked, master_comp,
+                                        plan)
+
+
+def compressed_average_wire(key, params_local, master_comp, axis, *,
+                            wire_dtype=torch.bfloat16):
+    """Compressed aggregation of one client a process: ``params_local``
+    is THIS process's (unstacked) tree, the client axis is ``axis`` (a
+    MeshAxis).  Uplink: stochastic rounding to ``wire_dtype``, then the
+    mean over the axis on the bf16 wire; downlink: C_M with the key,
+    which must be the same on every process."""
+    k_up, k_master = prng.split(key)
+    leaves, treedef = tree_flatten(params_local)
+    up_keys = prng.split(k_up, len(leaves))
+    meaned = [_bf16_mean(axis, stochastic_round_cast(
+        k, leaf.to(torch.float32), wire_dtype)).to(torch.float32)
+        for k, leaf in zip(up_keys, leaves)]
+    return as_plan(master_comp).apply(k_master,
+                                      tree_unflatten(treedef, meaned))

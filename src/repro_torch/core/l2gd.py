@@ -24,6 +24,13 @@ gradient tensors.  The aggregation branches need only the losses: an
 optional ``loss_fn(params, batch) -> losses (n,)`` gives them without a
 backward (the reference calls ``grad_fn`` there and XLA removes the dead
 backward; eager PyTorch would run it).
+
+Inside a client-sharded engine each process runs the step on its own
+clients: ``axis_name`` (a :class:`~repro_torch.core.collective.
+MeshAxis`) sums the losses over the axis and divides by the GLOBAL n,
+slices the global participation mask to this process's clients, and
+needs an ``average_fn`` whose collective spans the axis
+(:func:`repro_torch.core.aggregation.make_client_sharded_average`).
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from repro_torch.core.aggregation import (_resolve_uplink, client_mean,
                                           compressed_average)
 from repro_torch.core.codec import as_plan
 from repro_torch.core.compressors import Identity
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 __all__ = ["L2GDHyper", "L2GDState", "init_state", "make_hyper", "l2gd_step",
            "local_update", "aggregation_update", "draw_xi"]
@@ -137,20 +144,34 @@ def _mean_loss(losses: torch.Tensor) -> torch.Tensor:
     return client_mean(losses.to(torch.float32))
 
 
+def _sharded_mean_loss(losses: torch.Tensor, axis, n: int) -> torch.Tensor:
+    """The reference's ``psum(sum(losses), axis) / n``: this process's
+    losses added in client order, the processes' sums added in rank
+    order (the same bits on every process), divided by the global n."""
+    losses = losses.to(torch.float32)
+    acc = losses[0].clone()
+    for i in range(1, losses.shape[0]):
+        acc += losses[i]
+    return axis.ordered_sum(acc) / float(n)
+
+
 def aggregation_loss(params, batch, grad_fn: Callable,
-                     loss_fn: Optional[Callable] = None) -> torch.Tensor:
+                     loss_fn: Optional[Callable] = None,
+                     reduce: Callable = _mean_loss) -> torch.Tensor:
     """The mean client loss of an aggregation step's pre-update params:
     ``loss_fn`` under ``torch.no_grad``, or ``grad_fn``'s losses (its
-    gradients dropped at once)."""
+    gradients dropped at once); ``reduce`` takes the (n,) losses to the
+    mean."""
     if loss_fn is None:
-        return _mean_loss(grad_fn(params, batch)[0])
+        return reduce(grad_fn(params, batch)[0])
     with torch.no_grad():
-        return _mean_loss(loss_fn(params, batch))
+        return reduce(loss_fn(params, batch))
 
 
 def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
               hp: L2GDHyper, client_comp=Identity(), master_comp=Identity(),
-              *, participation_mask=None, local_steps: int = 1,
+              average_fn: Optional[Callable] = None, *,
+              participation_mask=None, axis_name=None, local_steps: int = 1,
               loss_fn: Optional[Callable] = None):
     """One step of Algorithm 1.
 
@@ -168,6 +189,21 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
     params (a 0-d device tensor), "branch": 0 | 1 | 2})``."""
     if not isinstance(local_steps, int) or local_steps < 1:
         raise ValueError(f"local_steps must be an int >= 1, got {local_steps}")
+    if axis_name is not None and average_fn is None:
+        raise ValueError(
+            "l2gd_step(axis_name=...) runs inside a client-sharded engine "
+            "and needs an average_fn that spans the sharded axis "
+            "(repro_torch.core.aggregation.make_client_sharded_average); "
+            "the default compressed_average would only see this shard's "
+            "clients")
+    reduce = _mean_loss
+    local_mask = participation_mask
+    if axis_name is not None:
+        reduce = lambda losses: _sharded_mean_loss(losses, axis_name, hp.n)
+        if participation_mask is not None:
+            m = tree_leaves(state.params)[0].shape[0]
+            lo = axis_name.index * m
+            local_mask = participation_mask[lo:lo + m]
     branch = 0 if int(xi_k) == 0 else (1 if state.xi_prev == 0 else 2)
     if branch == 0:
         losses, grads = grad_fn(state.params, batch)
@@ -178,12 +214,15 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
             new_params = local_update(new_params, grads, hp)
             del grads
         new_state = L2GDState(new_params, state.cache, 0, state.step + 1)
-        return new_state, {"loss": _mean_loss(losses), "branch": 0}
+        return new_state, {"loss": reduce(losses), "branch": 0}
     # aggregation: the loss of the pre-update params; without a loss_fn
     # the gradients of this evaluation are dropped before the aggregation
     # allocates
-    loss = aggregation_loss(state.params, batch, grad_fn, loss_fn)
-    if branch == 1:
+    loss = aggregation_loss(state.params, batch, grad_fn, loss_fn, reduce)
+    if branch == 1 and average_fn is not None:
+        target = average_fn(key, state.params) if participation_mask is None \
+            else average_fn(key, state.params, participation_mask)
+    elif branch == 1:
         target = compressed_average(key, state.params,
                                     _resolve_uplink(client_comp),
                                     as_plan(master_comp),
@@ -191,6 +230,6 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
     else:
         target = state.cache
     new_params = aggregation_update(state.params, target, hp,
-                                    mask=participation_mask)
+                                    mask=local_mask)
     new_state = L2GDState(new_params, target, 1, state.step + 1)
     return new_state, {"loss": loss, "branch": branch}

@@ -24,6 +24,10 @@ runs the full-participation path (no masks).
 eta) grid (:func:`hyper_grid`), every cell from the same initial state
 and key (common random numbers) — the reference vmaps the rollout over
 the grid, here the cells run one after another.
+
+:func:`rollout_l2gd_sharded` runs the same step loop SPMD over the
+processes of a ``clients`` mesh axis, each on its own clients, the fresh
+branch's collective carrying the clients' wire payloads.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.core.tree import tree_leaves, tree_map
 
 __all__ = ["RolloutTrace", "rollout_l2gd", "rollout_l2gd_grid", "hyper_grid",
            "window_streams", "participant_count", "draw_participation_mask",
-           "participation_masks", "state_to_tree", "state_from_tree"]
+           "participation_masks", "state_to_tree", "state_from_tree",
+           "sharded_state_specs", "rollout_l2gd_sharded"]
 
 #: the participation stream's tag: ``fold_in(xi_key, 2**32 - 1)``, disjoint
 #: from the xi stream's nonnegative int32 step folds
@@ -143,16 +148,22 @@ def rollout_l2gd(key, state: L2GDState, hp: L2GDHyper, batches,
                  steps: Optional[int] = None, client_comp=Identity(),
                  master_comp=Identity(), batch_axis: Optional[int] = 0,
                  participation: Optional[float] = None,
-                 local_steps: int = 1, loss_fn: Optional[Callable] = None):
+                 local_steps: int = 1, loss_fn: Optional[Callable] = None,
+                 average_fn: Optional[Callable] = None, axis_name=None):
     """Run K steps of Algorithm 1 from ``state``.
 
     ``batches`` is a tree whose leaves carry a leading (K, ...) steps axis
     (``batch_axis=0``) or one batch reused every step (``batch_axis=None``).
     ``xi_trace`` optionally forces the xi realization; ``participation``
     (optional fraction in (0, 1]) samples each aggregation step's
-    participants (module docstring); ``loss_fn`` is
-    :func:`~repro_torch.core.l2gd.l2gd_step`'s.  Returns
-    ``(final_state, RolloutTrace)``; the losses stay on the device."""
+    participants (module docstring); ``loss_fn``, ``average_fn`` and
+    ``axis_name`` are :func:`~repro_torch.core.l2gd.l2gd_step`'s (the
+    sharded engines pass their per-shard average and client axis; the
+    xi draws, keys and masks stay those of the hp.n global clients).
+    Returns ``(final_state, RolloutTrace)``; the losses stay on the
+    device.  The loop drops each state as the next comes: a caller that
+    wants the window's first params freed early passes its only
+    reference."""
     length = _rollout_length(batches, batch_axis, xi_trace, steps)
     xis, subs = window_streams(key, hp.p, state.step, length, xi_trace)
     masks = window_masks(key, int(hp.n), participation, state.step, length)
@@ -164,10 +175,10 @@ def rollout_l2gd(key, state: L2GDState, hp: L2GDHyper, batches,
             tree_map(lambda a: a[i], batches)
         mask = None if masks is None else \
             torch.from_numpy(masks[i]).to(device)
-        state, metrics = l2gd_step(state, batch, int(xis[i]), subs[i],
-                                   grad_fn, hp, client_comp, master_comp,
-                                   participation_mask=mask,
-                                   local_steps=local_steps, loss_fn=loss_fn)
+        state, metrics = l2gd_step(
+            state, batch, int(xis[i]), subs[i], grad_fn, hp, client_comp,
+            master_comp, average_fn, participation_mask=mask,
+            axis_name=axis_name, local_steps=local_steps, loss_fn=loss_fn)
         losses[i] = metrics["loss"]
         branches[i] = metrics["branch"]
     return state, RolloutTrace(
@@ -175,6 +186,87 @@ def rollout_l2gd(key, state: L2GDState, hp: L2GDHyper, batches,
         n_local=int(np.sum(branches == 0)),
         n_agg_comm=int(np.sum(branches == 1)),
         n_agg_cached=int(np.sum(branches == 2)))
+
+
+def sharded_state_specs(state: L2GDState, axis_name: str = "clients"
+                        ) -> L2GDState:
+    """Spec tree of an :class:`L2GDState` sharded over the ``clients``
+    axis: ``params`` cut on the leading client axis, the ``cache`` (the
+    shared target) and the protocol scalars whole (``launch.sharding``'s
+    spec tuples)."""
+    return L2GDState(
+        params=tree_map(lambda a: (axis_name,) + (None,) * (a.dim() - 1),
+                        state.params),
+        cache=tree_map(lambda a: (None,) * a.dim(), state.cache),
+        xi_prev=(), step=())
+
+
+def _cut_clients(tree, n: int, m: int, index: int, axis: int):
+    """This process's m clients of ``tree``'s client axis ``axis``: a cut
+    of the n global clients, or ``tree`` itself when it already holds m
+    (a tree placed with ``launch.sharding``)."""
+    leaves = tree_leaves(tree)
+    if not leaves or leaves[0].shape[axis] == m:
+        return tree
+    if leaves[0].shape[axis] != n:
+        raise ValueError(f"client axis {leaves[0].shape[axis]} is neither "
+                         f"n = {n} nor this shard's {m}")
+    lo = index * m
+    return tree_map(lambda a: a[(slice(None),) * axis + (slice(lo, lo + m),)],
+                    tree)
+
+
+def rollout_l2gd_sharded(key, state: L2GDState, hp: L2GDHyper, batches,
+                         xi_trace: Optional[Any] = None, *, mesh,
+                         grad_fn: Callable, steps: Optional[int] = None,
+                         client_comp=Identity(), master_comp=Identity(),
+                         participation: Optional[float] = None,
+                         batch_axis: Optional[int] = 0,
+                         axis_name: str = "clients", local_steps: int = 1,
+                         loss_fn: Optional[Callable] = None):
+    """:func:`rollout_l2gd` with the client axis SHARDED over the
+    processes of ``mesh``'s ``axis_name`` axis (``launch.mesh.
+    make_client_mesh``), SPMD: every process derives the window's xi
+    draws, step keys and participation masks on the host exactly as
+    :func:`rollout_l2gd` does, then runs the same step loop on its own
+    n / n_shards clients.  The fresh branch's exchange is
+    :func:`repro_torch.core.aggregation.make_client_sharded_average` (the
+    clients' wire payloads ``all_gather``-ed), and the losses are summed
+    over the axis in rank order.  On one process at full participation
+    the run is :func:`rollout_l2gd`'s bit for bit; on more, params, cache
+    and xis still are, the losses to summation order.
+
+    ``state.params`` and ``batches`` hold the n global clients (cut here
+    to this process's) or already this process's (placed with
+    ``launch.sharding.client_sharded_shardings`` /
+    ``client_sharded_batch_shardings``).  Returns ``(final_state,
+    RolloutTrace)``: the final params are this process's clients, the
+    cache and the trace the same on every process."""
+    from repro_torch.core.aggregation import make_client_sharded_average
+    from repro_torch.core.collective import MeshAxis
+    n = int(hp.n)
+    axis = MeshAxis(mesh, axis_name)
+    if n % axis.size:
+        raise ValueError(f"n={n} clients do not divide the {axis_name!r} "
+                         f"mesh axis of size {axis.size}")
+    m = n // axis.size
+    leaves = tree_leaves(state.params)
+    if leaves and leaves[0].shape[0] not in (n, m):
+        raise ValueError(f"state.params leading axis {leaves[0].shape[0]} "
+                         f"!= hp.n = {n}")
+    box = [state._replace(params=_cut_clients(state.params, n, m,
+                                              axis.index, 0))]
+    del state, leaves
+    batches = _cut_clients(batches, n, m, axis.index,
+                           0 if batch_axis is None else 1)
+    return rollout_l2gd(
+        key, box.pop(), hp, batches, xi_trace, grad_fn=grad_fn, steps=steps,
+        client_comp=client_comp, master_comp=master_comp,
+        batch_axis=batch_axis, participation=participation,
+        local_steps=local_steps, loss_fn=loss_fn,
+        average_fn=make_client_sharded_average(axis, n, client_comp,
+                                               master_comp),
+        axis_name=axis)
 
 
 def rollout_l2gd_grid(key, params_stacked, hp_grid: L2GDHyper, batches,

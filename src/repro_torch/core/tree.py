@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map",
+           "spec_leaves"]
 
 
 def tree_flatten(tree) -> tuple:
@@ -72,3 +73,15 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
             raise ValueError("tree_map over trees of different structure")
     return tree_unflatten(treedef, [fn(*xs) for xs in
                                     zip(leaves, *(ls for ls, _ in others))])
+
+
+def spec_leaves(spec_tree) -> list:
+    """The leaves of a partition-spec tree in :func:`tree_leaves` order: a
+    plain tuple (one entry a dim) is a leaf, dicts, lists and NamedTuples
+    are containers."""
+    if isinstance(spec_tree, dict):
+        return [s for k in sorted(spec_tree)
+                for s in spec_leaves(spec_tree[k])]
+    if isinstance(spec_tree, list) or hasattr(spec_tree, "_fields"):
+        return [s for x in spec_tree for s in spec_leaves(x)]
+    return [spec_tree]

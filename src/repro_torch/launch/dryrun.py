@@ -1,0 +1,215 @@
+"""Meta-device dry run — the counterpart of ``repro.launch.dryrun``.
+
+For every (architecture x input shape x mesh shape) this reports, from
+the sharding rules (``launch.sharding``) and shapes on the ``meta``
+device, with no allocation and no process group:
+
+  * the bytes a process holds: the train state (client-stacked params
+    and the cache), the serving params, and the decode caches, each leaf
+    divided by the mesh axes its spec names.  For the train state this is
+    the layout at rest, between steps; within a step the port's 2-D
+    engine (``launch.steps.build_sharded_rollout_fn``) gathers its client
+    row's whole models and computes their whole gradient, so a train
+    record also gives ``engine_step_bytes_per_process``: the state at
+    rest plus one whole model and one whole gradient a client of the row
+    (the model axis divides the state at rest, not a step's peak);
+  * the aggregation collective's bytes a round: each client's uplink
+    message is ``round_bits() / 8`` bytes, and the payload ``all_gather``
+    delivers all n of them to every process;
+  * the analytic FLOPs (``launch.roofline``) and the roofline terms on
+    the H100 at the compute dtype's peak.
+
+The reference lowers and compiles each combination with XLA on 512
+placeholder devices; that lowering has no counterpart here.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch mistral-large-123b --shape train_4k --mesh 16x16
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out DIR
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, ArchConfig, get_config
+from repro_torch.core import make_compressor, make_plan
+from repro_torch.core.tree import spec_leaves, tree_leaves
+from repro_torch.launch.roofline import (analytic_flops, model_flops,
+                                         roofline_terms)
+from repro_torch.launch.sharding import (cache_pspecs, param_pspecs,
+                                         train_state_pspecs)
+from repro_torch.launch.steps import (cache_specs, param_shapes,
+                                      state_specs)
+
+__all__ = ["n_params_active", "sharded_bytes", "dry_run", "main"]
+
+
+def production_cfg(cfg: ArchConfig) -> ArchConfig:
+    """bf16 params and compute, the at-scale numerics."""
+    return dataclasses.replace(cfg, param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+
+
+def n_params_active(cfg: ArchConfig) -> float:
+    """Active parameters a token, for MODEL_FLOPS = 6 N_active D."""
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.mixer == "mla":
+        attn = d * cfg.n_heads * (cfg.mla_nope_dim + cfg.mla_rope_dim) \
+            + d * (cfg.kv_lora_rank + cfg.mla_rope_dim) \
+            + cfg.kv_lora_rank * cfg.n_heads \
+            * (cfg.mla_nope_dim + cfg.mla_v_dim) \
+            + cfg.n_heads * cfg.mla_v_dim * d
+    elif cfg.mixer == "mamba":
+        e = cfg.ssm_expand * d
+        attn = 2 * d * e + e * (max(d // 16, 1) + 2 * cfg.ssm_state) \
+            + max(d // 16, 1) * e + e * d
+    elif cfg.mixer == "hybrid":
+        e = cfg.ssm_expand * d
+        attn = d * cfg.hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+            + cfg.n_heads * cfg.hd * d \
+            + 2 * d * e + e * (max(d // 16, 1) + 2 * cfg.ssm_state) \
+            + max(d // 16, 1) * e + e * d
+    else:
+        attn = d * cfg.hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+            + cfg.n_heads * cfg.hd * d
+    if cfg.ffn == "moe":
+        ffn = 3 * d * cfg.moe_d_ff * (cfg.experts_per_token
+                                      + cfg.n_shared_experts)
+    elif cfg.ffn == "none":
+        ffn = 0
+    else:
+        ffn = 3 * d * cfg.d_ff
+    emb = cfg.vocab_size * d   # the unembed matmul is per-token compute
+    enc = 0
+    if cfg.is_encdec:
+        enc = cfg.encoder_layers * (4 * d * cfg.n_heads * cfg.hd
+                                    + 3 * d * cfg.d_ff)
+        attn += 4 * d * cfg.n_heads * cfg.hd   # cross attention
+    return float(L * (attn + ffn) + emb + enc)
+
+
+def _entries(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sharded_bytes(tree, spec_tree, axis_sizes: dict) -> int:
+    """Bytes one process holds of ``tree`` (meta tensors) under the spec
+    tree: each leaf's bytes over the sizes of the axes its spec names."""
+    total = 0
+    for leaf, spec in zip(tree_leaves(tree), spec_leaves(spec_tree)):
+        split = math.prod(axis_sizes[a] for e in spec for a in _entries(e))
+        total += leaf.numel() * leaf.element_size() // split
+    return int(total)
+
+
+def _mesh_axes(mesh: tuple) -> dict:
+    """(clients, model) or (pod, data, model) sizes by name."""
+    if len(mesh) == 3:
+        return dict(zip(("pod", "data", "model"), mesh))
+    return dict(zip(("data", "model"), mesh))
+
+
+def dry_run(arch: str, shape_name: str, mesh=(16, 16)) -> dict:
+    """One combination's record (module docstring); the train step's
+    compressor is natural both ways, as the reference's dry run's."""
+    cfg = production_cfg(get_config(arch))
+    shape = INPUT_SHAPES[shape_name]
+    sizes = _mesh_axes(tuple(mesh))
+    cax = tuple(a for a in ("pod", "data") if a in sizes)
+    n_clients = math.prod(sizes[a] for a in cax)
+    chips = math.prod(sizes.values())
+    msize = sizes["model"]
+    rec = {"arch": arch, "shape": shape_name, "mesh": list(mesh),
+           "mesh_axes": list(sizes), "n_clients": n_clients,
+           "kind": shape.kind}
+    if shape.kind == "decode" and shape_name == "long_500k" \
+            and not cfg.supports_long_context():
+        return {**rec, "status": "SKIP",
+                "skipped": "full-attention arch at 500k"}
+    lead = cax if len(cax) > 1 else cax[0]
+    mem = {}
+    if shape.kind == "train":
+        state = state_specs(cfg, n_clients)
+        specs = train_state_pspecs(state, msize, client_axis=lead)
+        mem["params_bytes"] = sharded_bytes(state.params, specs.params,
+                                            sizes)
+        mem["cache_bytes"] = sharded_bytes(state.cache, specs.cache, sizes)
+        whole = sum(a.numel() * a.element_size()
+                    for a in tree_leaves(state.cache))
+        rec["engine_step_bytes_per_process"] = \
+            sum(mem.values()) + 2 * whole   # one client a row here
+        bits = make_plan(make_compressor("natural"), param_shapes(cfg),
+                         transport="leafwise").round_bits()
+        rec["aggregation"] = {
+            "codec": "natural", "uplink_bytes_per_client": bits / 8.0,
+            "downlink_bytes": bits / 8.0,
+            "all_gather_bytes_per_process": n_clients * bits / 8.0}
+        wire = n_clients * bits / 8.0
+    else:
+        params = param_shapes(cfg)
+        mem["params_bytes"] = sharded_bytes(
+            params, param_pspecs(params, msize, (),
+                                 serve_mode=shape.kind == "decode"), sizes)
+        wire = 0.0
+        if shape.kind == "decode":
+            caches = cache_specs(cfg, shape.global_batch, shape.seq_len)
+            batch_axis = lead if shape.global_batch % n_clients == 0 \
+                and shape.global_batch > 1 else None
+            seq_axis = lead if batch_axis is None else None
+            axis_sizes = dict(sizes)
+            mem["caches_bytes"] = sharded_bytes(caches, cache_pspecs(
+                caches, msize, batch_axis=batch_axis, seq_axis=seq_axis,
+                axis_sizes=axis_sizes), sizes)
+    rec["memory_per_process"] = mem
+    n_act = n_params_active(cfg)
+    tokens = shape.global_batch * shape.seq_len if shape.kind != "decode" \
+        else shape.global_batch
+    flops = analytic_flops(cfg, shape, n_act)
+    mf = model_flops(n_act, tokens) / (1.0 if shape.kind == "train" else 3.0)
+    rec.update({
+        "status": "OK", "tokens": tokens,
+        "flops": {"analytic_global": flops,
+                  "analytic_per_process": flops / chips},
+        "model_flops_global": mf,
+        "roofline": roofline_terms(flops / chips, float(sum(mem.values())),
+                                   wire, dtype=cfg.compute_dtype)})
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=list(INPUT_SHAPES))
+    ap.add_argument("--mesh", default="16x16",
+                    help="data x model (16x16) or pod x data x model "
+                         "(2x16x16)")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=None,
+                    help="directory for one JSON record a combination")
+    args = ap.parse_args(argv)
+    mesh = tuple(int(x) for x in args.mesh.split("x"))
+    combos = ([(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]
+              if args.all else [(args.arch, args.shape)])
+    for arch, shape in combos:
+        rec = dry_run(arch, shape, mesh)
+        tag = f"{arch}__{shape}__{args.mesh}"
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                json.dump(rec, f, indent=1)
+        extra = ""
+        if rec["status"] == "OK":
+            r = rec["roofline"]
+            extra = (f" dominant={r['dominant']} c/m/x="
+                     f"{r['compute_s']:.3g}/{r['memory_s']:.3g}/"
+                     f"{r['collective_s']:.3g}s")
+        print(f"[{rec['status']}] {tag}{extra}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -17,28 +17,98 @@ the aggregation branches evaluate the loss without a backward.  The
 serve builders run without autograd.  ``build_async_rollout_fn`` is the
 LM face of the async fault engine; ``checkpointed_rollout`` commits a
 built rollout's returned carries to a checkpoint manager.  The uplink may be a heterogeneous
-fleet (a FleetPlan or a per-client plan vector, DESIGN.md §13).  The
-shard_map ``average_fn`` variants and the sharded rollouts are not ported
-yet (ROADMAP.md Queue 1).
+fleet (a FleetPlan or a per-client plan vector, DESIGN.md §13).
+
+The multi-process builders run SPMD on ``torch.distributed`` (``launch.
+mesh``): ``build_average_fn`` gives the per-shard ``average_fn`` hooks
+(a bfloat16 uplink, or a plan's packed payload on the all_gather), and
+``build_sharded_rollout_fn`` the client-sharded engine on a 1-D
+``clients`` mesh or the 2-D engine on a ``(clients, model)`` mesh
+(:func:`build_sharded_rollout_fn`).  ``input_specs`` / ``state_specs`` /
+``cache_specs`` give every input's shapes on the ``meta`` device.
 """
 from __future__ import annotations
 
+import warnings
+from typing import Optional
+
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.codec import CompressionPlan, make_plan
+from repro_torch.core.collective import MeshAxis
 from repro_torch.core.compressors import Identity
 from repro_torch.core.l2gd import L2GDHyper, L2GDState, l2gd_step
 from repro_torch.core.rollout import rollout_l2gd
-from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
+                                   tree_unflatten)
 from repro_torch.fl.fleet import FleetPlan, fleet_from_plans, resolve_uplink
-from repro_torch.models import blocks, decode_step, hidden, init_params
+from repro_torch.models import (blocks, decode_step, hidden, init_caches,
+                                init_params)
 from repro_torch.models import loss_fn as model_loss_fn
+from repro_torch.models.model import layer_stacks
 
 __all__ = ["param_shapes", "stacked_param_shapes", "stacked_grad_fn",
-           "stacked_loss_fn", "build_train_step", "build_rollout_fn",
-           "build_async_rollout_fn", "checkpointed_rollout",
-           "build_prefill_step", "build_serve_step"]
+           "stacked_loss_fn", "input_specs", "state_specs", "cache_specs",
+           "build_train_step", "build_rollout_fn", "build_async_rollout_fn",
+           "build_sharded_rollout_fn", "build_average_fn",
+           "checkpointed_rollout", "build_prefill_step", "build_serve_step"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, n_clients: int) -> dict:
+    """The batch of one step of ``shape.kind`` as ``meta`` tensors: train
+    batches stacked over n clients (``global_batch // n`` sequences
+    each), prefill (B, S), decode (B, 1); the vision prefix's patches
+    take P of the S positions, the encoder-decoder's frames ride beside
+    the tokens."""
+    cdt = _DTYPES[cfg.compute_dtype]
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": _meta((shape.global_batch, 1), i32)}
+    if shape.kind == "train":
+        per = shape.global_batch // n_clients
+        if per < 1:
+            raise ValueError(f"{shape.name}: global batch "
+                             f"{shape.global_batch} < {n_clients} clients")
+        lead = (n_clients, per)
+    else:
+        lead = (shape.global_batch,)
+    s = shape.seq_len
+    batch = {}
+    if cfg.frontend == "vision":
+        p = cfg.n_frontend_tokens
+        batch["patches"] = _meta(lead + (p, cfg.d_model), cdt)
+        batch["tokens"] = _meta(lead + (s - p,), i32)
+    elif cfg.is_encdec:
+        batch["frames"] = _meta(lead + (cfg.n_frontend_tokens, cfg.d_model),
+                                cdt)
+        batch["tokens"] = _meta(lead + (s,), i32)
+    else:
+        batch["tokens"] = _meta(lead + (s,), i32)
+    return batch
+
+
+def state_specs(cfg: ArchConfig, n_clients: int) -> L2GDState:
+    """The train state's shapes on the ``meta`` device: stacked params,
+    the cache (one model), and the protocol scalars as 0-d int32."""
+    params = stacked_param_shapes(cfg, n_clients)
+    return L2GDState(params=params,
+                     cache=tree_map(lambda a: _meta(a.shape[1:], a.dtype),
+                                    params),
+                     xi_prev=_meta((), torch.int32),
+                     step=_meta((), torch.int32))
+
+
+def cache_specs(cfg: ArchConfig, batch: int, capacity: int):
+    """The decode caches of ``batch`` sequences of ``capacity`` tokens on
+    the ``meta`` device."""
+    return init_caches(cfg, batch, capacity, device="meta")
 
 
 def param_shapes(cfg: ArchConfig):
@@ -57,28 +127,53 @@ def _client(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _hooked_leaf(src: torch.Tensor, dst: torch.Tensor, done: list):
+    """A detached leaf of ``src`` whose gradient, once accumulated, is
+    copied into ``dst`` and dropped."""
+    def hook(leaf):
+        dst.copy_(leaf.grad)
+        leaf.grad = None
+        done.append(1)
+
+    leaf = src.detach().requires_grad_()
+    leaf.register_post_accumulate_grad_hook(hook)
+    return leaf
+
+
 def stacked_grad_fn(cfg: ArchConfig):
     """``grad_fn(params, batch) -> (losses (n,), grads)`` over the stacked
     client axis: client i's loss and its autograd gradient, the clients
     one after another, each client's graph freed before the next starts.
-    The gradients are fresh stacked tensors."""
+    The gradients are fresh stacked tensors.  Each layer of a layer stack
+    is a leaf of its own (``models.model.layer_stacks``), and every
+    leaf's gradient is copied into the stacked tensor as soon as the
+    backward has it and then dropped: a layer's weight gradients do not
+    wait out the rest of the backward (the values are autograd's, bit for
+    bit)."""
+    stacks = layer_stacks(cfg)
 
     def grad_fn(params, batch):
         leaves, treedef = tree_flatten(params)
+        layered = tree_flatten({key: tree_map(lambda _: key in stacks, val)
+                                for key, val in params.items()})[0]
         n = leaves[0].shape[0]
         grads = [torch.empty_like(a) for a in leaves]
         losses = torch.empty((n,), dtype=torch.float32,
                              device=leaves[0].device)
         for i in range(n):
-            own = [a[i].detach().requires_grad_() for a in leaves]
+            own, done = [], []
+            for a, dst, per_layer in zip(leaves, grads, layered):
+                own.append(tuple(_hooked_leaf(s, d, done)
+                                 for s, d in zip(a[i], dst[i]))
+                           if per_layer else _hooked_leaf(a[i], dst[i], done))
             with torch.enable_grad():
                 loss, _ = model_loss_fn(tree_unflatten(treedef, own), cfg,
                                         _client(batch, i))
-                got = torch.autograd.grad(loss, own)
+                loss.backward()
+            if len(done) != len(tree_leaves(own)):
+                raise RuntimeError("a parameter leaf got no gradient")
             losses[i] = loss.detach()
-            for dst, g in zip(grads, got):
-                dst[i].copy_(g)
-            del own, loss, got
+            del own, loss
         return losses, tree_unflatten(treedef, grads)
 
     return grad_fn
@@ -114,11 +209,7 @@ def _uplink_plan(client_comp, shapes):
     return make_plan(client_comp, shapes, transport="leafwise")
 
 
-def _plans(cfg, client_comp, master_comp, average_fn, plans):
-    if average_fn is not None:
-        raise NotImplementedError(
-            "average_fn (the shard_map aggregation variants) comes with the "
-            "multi-device launch slice of the port")
+def _plans(cfg, client_comp, master_comp, plans):
     if plans is not None:
         return tuple(plans)
     shapes = param_shapes(cfg)
@@ -132,19 +223,31 @@ def build_train_step(cfg: ArchConfig, hp: L2GDHyper,
     """Compressed-L2GD step over client-stacked model params.
     ``plans`` (optional) is an (uplink, downlink) pair of
     CompressionPlans; by default both compressors get leafwise plans.
+    ``average_fn`` (optional, :func:`build_average_fn`) replaces the
+    fresh branch's aggregation: a per-shard average over this process's
+    clients, the losses then summed over its axis.
 
     Returns ``train_step(state, batch, xi, key) -> (state, metrics)``
     with ``xi`` this step's host draw (0 or 1) and ``key`` its
     compressor key (two uint32 words)."""
-    up_plan, down_plan = _plans(cfg, client_comp, master_comp, average_fn,
-                                plans)
+    up_plan, down_plan = _plans(cfg, client_comp, master_comp, plans)
     grad_fn, loss_fn = stacked_grad_fn(cfg), stacked_loss_fn(cfg)
+    axis = _average_axis(average_fn)
 
     def train_step(state: L2GDState, batch, xi, key):
         return l2gd_step(state, batch, int(xi), key, grad_fn, hp, up_plan,
-                         down_plan, loss_fn=loss_fn)
+                         down_plan, average_fn, axis_name=axis,
+                         loss_fn=loss_fn)
 
     return train_step
+
+
+def _average_axis(average_fn):
+    """The client axis an ``average_fn`` spans when it spans more than
+    one process (the losses are then summed over it), else None: on one
+    process the step keeps the stacked mean."""
+    axis = getattr(average_fn, "axis", None)
+    return axis if axis is not None and axis.size > 1 else None
 
 
 def build_rollout_fn(cfg: ArchConfig, hp: L2GDHyper,
@@ -157,15 +260,19 @@ def build_rollout_fn(cfg: ArchConfig, hp: L2GDHyper,
     key) -> (state, RolloutTrace)`` with batches stacked over a leading
     (length, ...) steps axis; the host replays ``trace.xis`` into the
     bits ledger."""
-    up_plan, down_plan = _plans(cfg, client_comp, master_comp, average_fn,
-                                plans)
+    up_plan, down_plan = _plans(cfg, client_comp, master_comp, plans)
     grad_fn, loss_fn = stacked_grad_fn(cfg), stacked_loss_fn(cfg)
+    axis = _average_axis(average_fn)
 
     def rollout(state: L2GDState, batches, key):
-        return rollout_l2gd(key, state, hp, batches, grad_fn=grad_fn,
+        # the state goes on without this frame keeping a reference
+        box = [state]
+        del state
+        return rollout_l2gd(key, box.pop(), hp, batches, grad_fn=grad_fn,
                             steps=length, client_comp=up_plan,
                             master_comp=down_plan, local_steps=local_steps,
-                            loss_fn=loss_fn)
+                            loss_fn=loss_fn, average_fn=average_fn,
+                            axis_name=axis)
 
     return rollout
 
@@ -187,7 +294,7 @@ def build_async_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, fault_plan=None,
     from repro_torch.fl.faults import FaultPlan
     if fault_plan is None:
         fault_plan = FaultPlan()
-    up_plan, down_plan = _plans(cfg, client_comp, master_comp, None, plans)
+    up_plan, down_plan = _plans(cfg, client_comp, master_comp, plans)
     grad_fn, loss_fn = stacked_grad_fn(cfg), stacked_loss_fn(cfg)
 
     def rollout(state: L2GDState, agg, batches, key):
@@ -196,6 +303,232 @@ def build_async_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, fault_plan=None,
                                   client_comp=up_plan, master_comp=down_plan,
                                   agg_state=agg, loss_fn=loss_fn)
 
+    return rollout
+
+
+def build_average_fn(*args, uplink="wire", kind: str = None, **kwargs):
+    """A per-shard ``average_fn`` for :func:`build_train_step` /
+    :func:`build_rollout_fn`:
+
+    ``build_average_fn(mesh, client_axes, param_pspecs_stacked,
+    master_comp, uplink=...)`` with
+
+      uplink="wire"            — a stochastically rounded bfloat16
+                                 uplink averaged over the client axes
+                                 (:func:`repro_torch.core.aggregation.
+                                 make_sharded_average`);
+      uplink=<CompressionPlan> — the plan's wire payload on the
+                                 all_gather (:func:`repro_torch.core.
+                                 aggregation.make_payload_sharded_average`).
+
+    The reference's older spelling ``build_average_fn(kind, mesh, ...)``
+    with kind in {"wire", "packed"} is kept, with its DeprecationWarning
+    ("packed" is a packed QSGD plan; kwargs levels, bucket)."""
+    from repro_torch.core.aggregation import (make_payload_sharded_average,
+                                              make_sharded_average)
+    if args and isinstance(args[0], str):
+        kind, args = args[0], args[1:]
+    if kind is not None:
+        warnings.warn(
+            "build_average_fn(kind=...) is deprecated; pass uplink='wire' "
+            "or uplink=<CompressionPlan> (repro_torch.core.codec."
+            "make_plan(comp, params, transport='packed'))",
+            DeprecationWarning, stacklevel=2)
+        if kind == "wire":
+            uplink = "wire"
+        elif kind == "packed":
+            from repro_torch.core.compressors import QSGD
+            uplink = make_plan(
+                QSGD(levels=kwargs.pop("levels", 127),
+                     bucket=kwargs.pop("bucket", 2048)), transport="packed")
+        else:
+            raise ValueError(f"unknown average_fn kind {kind!r}")
+    if kwargs:
+        raise TypeError(f"build_average_fn got unexpected keyword "
+                        f"arguments {sorted(kwargs)} (levels/bucket belong "
+                        "on the uplink plan's codec)")
+    mesh, client_axes, param_pspecs_stacked, master_comp = args
+    if isinstance(uplink, str) and uplink == "wire":
+        return make_sharded_average(mesh, client_axes, param_pspecs_stacked,
+                                    master_comp)
+    if isinstance(uplink, CompressionPlan):
+        return make_payload_sharded_average(
+            mesh, client_axes, param_pspecs_stacked, master_comp, uplink)
+    raise ValueError(f"uplink must be 'wire' or a CompressionPlan, "
+                     f"got {uplink!r}")
+
+
+class _ModelShards:
+    """The 2-D engine's view of one tree on the ``model`` axis: each leaf
+    cut on the dim its spec names "model" (if any), this process's
+    block of it."""
+
+    def __init__(self, mesh, specs):
+        self.axis = MeshAxis(mesh, "model")
+        self.dims = _spec_dims(specs)
+
+    def full(self, tree):
+        """Every leaf whole: the model shards gathered (one process a
+        shard: the leaf itself)."""
+        if self.axis.size == 1:
+            return tree
+        return _zip_dims(lambda a, d: a if d is None else torch.cat(
+            list(self.axis.all_gather(a).unbind(0)), dim=d),
+            tree, self.dims)
+
+    def local(self, tree):
+        """This process's block of each whole leaf."""
+        if self.axis.size == 1:
+            return tree
+        size, idx = self.axis.size, self.axis.index
+        return _zip_dims(lambda a, d: a if d is None else a.narrow(
+            d, idx * (a.shape[d] // size), a.shape[d] // size).contiguous(),
+            tree, self.dims)
+
+
+def _spec_dims(specs):
+    """The "model" dim of each spec of a spec tree (None: replicated)."""
+    if isinstance(specs, dict):
+        return {k: _spec_dims(v) for k, v in specs.items()}
+    return specs.index("model") if "model" in specs else None
+
+
+def _zip_dims(fn, tree, dims):
+    if isinstance(tree, dict):
+        return {k: _zip_dims(fn, v, dims[k]) for k, v in tree.items()}
+    return fn(tree, dims)
+
+
+def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
+                             client_comp=Identity(), master_comp=Identity(),
+                             participation: Optional[float] = None,
+                             length: int = 8, axis_name: str = "clients",
+                             local_steps: int = 1):
+    """Client-sharded multi-round train function, SPMD over the processes
+    of ``mesh`` (``launch.mesh``).
+
+    On a 1-D ``clients`` mesh it is :func:`repro_torch.core.rollout.
+    rollout_l2gd_sharded`: each process trains hp.n / n_processes whole
+    models, and the fresh branch all_gathers their wire payloads.
+
+    On a mesh with a ``model`` axis (``launch.mesh.make_train_mesh``) it
+    is the 2-D engine.  Each process holds its client row's clients, and
+    each leaf cut on "model" by ``launch.sharding.train_state_pspecs``
+    (the cache too).  The reference lets GSPMD partition the stacked
+    scan; the port keeps its kernels on whole local tensors instead: a
+    step gathers the model shards of its clients' leaves (one process a
+    shard: no gather), computes the loss and the gradient on whole
+    leaves, and keeps this process's block of the gradient.  Every model
+    shard of a row sees the row's full batch, so each computes the same
+    whole gradient and no reduce is needed.  The model axis therefore
+    divides the state between steps, not a step's peak memory or its
+    FLOPs (``launch.dryrun``'s ``engine_step_bytes_per_process``).  The
+    aggregation encodes whole
+    leaves (the codecs' buckets and threefry counters run over the whole
+    leaf): one client row is the stacked ``compressed_average`` itself;
+    several rows gather their clients' payloads over ``clients``
+    (:func:`repro_torch.core.aggregation.make_client_sharded_average`).
+    Every replicated value (target, losses) is computed from the same
+    gathered tensors in the same order on every process.  Contract: on
+    one client row the params, cache, losses and xis equal
+    :func:`build_rollout_fn`'s bit for bit at any number of model shards
+    (the (1, 1) mesh keystone included); on several rows params, cache and
+    xis do, the losses to their summation order.
+
+    Plans for plain compressors are leafwise; a FleetPlan keeps its
+    cohorts' transports.  Returns ``rollout(state, batches, key) ->
+    (state, RolloutTrace)`` as :func:`build_rollout_fn`; ``state`` and
+    ``batches`` hold all n clients (cut here) or this process's part
+    (``launch.sharding.train_state_shardings`` /
+    ``train_batch_shardings``); the returned state is this process's
+    part, and ``rollout.full_state(state)`` gathers it whole on every
+    process."""
+    from repro_torch.core.aggregation import (compressed_average,
+                                              make_client_sharded_average)
+    from repro_torch.core.rollout import _cut_clients, rollout_l2gd_sharded
+    from repro_torch.launch.mesh import model_shards_of
+    from repro_torch.launch.sharding import param_pspecs, tree_local
+    shapes = param_shapes(cfg)
+    up_plan = _uplink_plan(client_comp, shapes)
+    down_plan = make_plan(master_comp, shapes, transport="leafwise")
+    grad_fn, loss_fn = stacked_grad_fn(cfg), stacked_loss_fn(cfg)
+    n = int(hp.n)
+    clients = MeshAxis(mesh, axis_name)
+    if n % clients.size:
+        raise ValueError(f"n={n} clients do not divide the {axis_name!r} "
+                         f"mesh axis of size {clients.size}")
+    m = n // clients.size
+
+    if "model" not in (mesh.mesh_dim_names or ()):
+        def rollout(state: L2GDState, batches, key):
+            box = [state]
+            del state
+            return rollout_l2gd_sharded(
+                key, box.pop(), hp, batches, mesh=mesh, grad_fn=grad_fn,
+                steps=length, client_comp=up_plan, master_comp=down_plan,
+                participation=participation, axis_name=axis_name,
+                local_steps=local_steps, loss_fn=loss_fn)
+
+        rollout.full_state = lambda st: st._replace(params=tree_map(
+            lambda a: clients.all_gather(a).reshape((n,) + a.shape[1:]),
+            st.params))
+        return rollout
+
+    msize = model_shards_of(mesh)
+    stacked = stacked_param_shapes(cfg, n)
+    p_specs = param_pspecs(stacked, msize, client_axes=(axis_name,))
+    c_specs = param_pspecs(shapes, msize, client_axes=())
+    p_shards = _ModelShards(mesh, p_specs)
+    c_shards = _ModelShards(mesh, c_specs)
+    sharded_avg = None if clients.size == 1 else \
+        make_client_sharded_average(clients, n, up_plan, down_plan)
+
+    def grad2d(params, batch):
+        losses, grads = grad_fn(p_shards.full(params), batch)
+        return losses, p_shards.local(grads)
+
+    def loss2d(params, batch):
+        return loss_fn(p_shards.full(params), batch)
+
+    def average2d(key, params, mask=None):
+        full = p_shards.full(params)
+        if sharded_avg is None:
+            target = compressed_average(key, full, up_plan, down_plan,
+                                        mask=mask)
+        else:
+            target = sharded_avg(key, full, mask)
+        del full
+        return c_shards.local(target)
+
+    axis = None if clients.size == 1 else clients
+
+    def _place(state, batches):
+        glob = tree_leaves(stacked)[0].shape
+        if tuple(tree_leaves(state.params)[0].shape) == tuple(glob):
+            from repro_torch.launch.sharding import train_state_pspecs
+            state = tree_local(mesh, train_state_pspecs(state, msize,
+                                                        axis_name), state)
+        return state, _cut_clients(batches, n, m, clients.index, 1)
+
+    def rollout(state: L2GDState, batches, key):
+        state, batches = _place(state, batches)
+        box = [state]
+        del state
+        return rollout_l2gd(key, box.pop(), hp, batches, grad_fn=grad2d,
+                            steps=length, client_comp=up_plan,
+                            master_comp=down_plan,
+                            participation=participation,
+                            local_steps=local_steps, loss_fn=loss2d,
+                            average_fn=average2d, axis_name=axis)
+
+    def full_state(st):
+        params = p_shards.full(st.params)
+        if clients.size > 1:
+            params = tree_map(lambda a: clients.all_gather(a).reshape(
+                (n,) + a.shape[1:]), params)
+        return st._replace(params=params, cache=c_shards.full(st.cache))
+
+    rollout.full_state = full_state
     return rollout
 
 

@@ -33,14 +33,24 @@ is P patches and ``seq - P`` tokens.
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
       --seq 80
 
+``--engine mesh2d --model-shards M`` runs the 2-D (clients x model)
+mesh engine (``launch.steps.build_sharded_rollout_fn``, one call over
+the whole run; the ledger replayed from its xi trace, tokens/s printed)
+over the processes of the group: ``torchrun --nproc-per-node K`` on the
+cards, a world of one without ``torchrun``, or ``--cpu-ranks K`` spawned
+CPU processes (``launch.mesh.run_cpu_ranks``; with ``device="cpu"``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --engine mesh2d \
+      --model-shards 2 --clients 1 --cpu-ranks 2 --steps 4
+
 Runs on the GPU; ``main(argv, device="cpu")`` runs the plain PyTorch
-versions on the CPU.  The 2-D mesh engine raises and names the slice
-that brings it.
+versions on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -49,7 +59,7 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import L2GDHyper, make_compressor, prng
-from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.data import TokenStream
 from repro_torch.fl import run_l2gd
 from repro_torch.kernels.dispatch import resolve_device
@@ -59,7 +69,7 @@ from repro_torch.models.frontends import (stub_frame_embeddings,
                                           stub_patch_embeddings)
 
 __all__ = ["build", "tokens_processed", "init_stacked_params",
-           "batch_fn", "main"]
+           "batch_fn", "run_mesh2d", "Mesh2DRun", "main"]
 
 
 def build(cfg, overrides):
@@ -115,6 +125,102 @@ def batch_fn(cfg, stream, seed: int, device):
     return batch
 
 
+@dataclasses.dataclass
+class Mesh2DRun:
+    """What ``--engine mesh2d`` returns: this process's final state, the
+    trace, the ledger replayed from it, and the seconds of the run."""
+
+    state: object
+    trace: object
+    ledger: object
+    seconds: float
+
+
+def _stack_steps(batches: list, device):
+    """Step batches (dicts of numpy token arrays and device tensors)
+    stacked over a leading steps axis on ``device``."""
+    out = {}
+    for name in batches[0]:
+        parts = [b[name] for b in batches]
+        out[name] = torch.stack(parts) if isinstance(parts[0], torch.Tensor) \
+            else torch.from_numpy(np.stack(parts)).to(device)
+    return out
+
+
+def run_mesh2d(args, cfg, hp, params, comp, mcomp, batch, n: int,
+               device) -> Mesh2DRun:
+    """The 2-D mesh engine leg of the CLI: ONE ``build_sharded_rollout_fn``
+    call over the whole run on ``make_train_mesh(model_shards=...)`` (the
+    group's processes), the ledger replayed from the trace with leafwise
+    plans, tokens/s printed by rank 0."""
+    from repro_torch.core import init_state, make_plan
+    from repro_torch.fl.ledger import BitsLedger
+    from repro_torch.launch.mesh import make_train_mesh, model_shards_of
+    from repro_torch.launch.steps import build_sharded_rollout_fn
+
+    mesh = make_train_mesh(model_shards=args.model_shards, device=device)
+    lead = _is_lead()
+    say = print if lead else (lambda *a, **k: None)
+    clients_axis = mesh.shape[mesh.mesh_dim_names.index("clients")]
+    say(f"mesh2d: clients axis={clients_axis} "
+        f"model shards={model_shards_of(mesh)} dtype={cfg.param_dtype} "
+        f"local_steps={args.local_steps}", flush=True)
+    rollout = build_sharded_rollout_fn(
+        cfg, hp, mesh=mesh, client_comp=comp, master_comp=mcomp,
+        length=args.steps, local_steps=args.local_steps)
+    one_client = tree_map(lambda a: a[0], params)
+    up_plan = make_plan(comp, one_client, transport="leafwise")
+    down_plan = make_plan(mcomp, one_client, transport="leafwise")
+    batches = _stack_steps([batch(k) for k in range(args.steps)], device)
+    # the reference's mesh2d leg passes PRNGKey(seed + 3) unfolded
+    key = prng.PRNGKey(args.seed + 3)
+
+    t0 = time.time()
+    state, trace = rollout(init_state(params), batches, key)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    ledger = BitsLedger(n)
+    ledger.replay_xi_trace(np.asarray(trace.xis), up_plan.round_bits(),
+                           down_plan.round_bits())
+    losses = trace.losses.cpu().numpy()
+    for i in range(0, len(losses), max(args.log_every, 1)):
+        say(f"step {i:5d}  client-mean loss {float(losses[i]):8.4f}")
+    if len(losses):
+        say(f"final loss {float(losses[-1]):.4f}")
+    n_agg = trace.n_agg_comm + trace.n_agg_cached
+    toks = tokens_processed(trace.n_local, n_agg, args.local_steps, n,
+                            args.batch, args.seq)
+    say(f"steps/s={args.steps / dt:.2f}  tokens/s={toks / dt:.0f}  "
+        f"rounds={ledger.rounds}  bits/n={ledger.bits_per_client:.3e}  "
+        f"local={trace.n_local} aggC={trace.n_agg_comm} "
+        f"aggK={trace.n_agg_cached}")
+    if args.ckpt:
+        full = rollout.full_state(state)
+        if lead:
+            checkpoint.save_state(
+                args.ckpt, full.params,
+                {"arch": cfg.name, "steps": args.steps,
+                 "bits_per_client": ledger.bits_per_client})
+            say(f"checkpoint -> {args.ckpt}")
+    return Mesh2DRun(state=state, trace=trace, ledger=ledger, seconds=dt)
+
+
+def _is_lead() -> bool:
+    """True outside a process group and on its rank 0."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _mesh2d_rank(rank, world, argv):
+    """One of ``--cpu-ranks``' processes: the CLI on the CPU; returns
+    the rank's (xis, rounds, bits/n, counts)."""
+    run = main(argv, device="cpu")
+    return (np.asarray(run.trace.xis), run.ledger.rounds,
+            run.ledger.bits_per_client, run.trace.n_local,
+            run.trace.n_agg_comm, run.trace.n_agg_cached)
+
+
 def main(argv=None, device=None):
     """CLI entry point; returns the run's ``L2GDRun``.  ``argv``
     (optional list) replaces ``sys.argv[1:]``; ``device`` is CUDA unless
@@ -158,9 +264,15 @@ def main(argv=None, device=None):
                          "bits per round unchanged)")
     ap.add_argument("--engine", choices=("driver", "mesh2d"),
                     default="driver",
-                    help="driver: run_l2gd (default); mesh2d: not ported "
-                         "yet (the multi-device launch slice)")
-    ap.add_argument("--model-shards", type=int, default=1)
+                    help="driver: run_l2gd (default); mesh2d: the 2-D "
+                         "(clients x model) mesh engine via "
+                         "build_sharded_rollout_fn")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="size of the mesh's model axis (mesh2d engine; "
+                         "clients x model-shards processes needed)")
+    ap.add_argument("--cpu-ranks", type=int, default=0,
+                    help="mesh2d on the CPU: spawn this many gloo "
+                         "processes (launch.mesh.run_cpu_ranks)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default=None,
                     help="override param+compute dtype")
@@ -170,11 +282,18 @@ def main(argv=None, device=None):
     args = ap.parse_args(argv)
     if (args.ckpt_every or args.resume) and not args.ckpt:
         ap.error("--ckpt-every/--resume need --ckpt (the manager root)")
-    if args.engine == "mesh2d" or args.model_shards != 1:
-        raise NotImplementedError(
-            "--engine mesh2d (the 2-D clients x model mesh) comes with the "
-            "multi-device launch slice of the port")
-    device = resolve_device(device)
+    if args.engine == "mesh2d" and (args.ckpt_every or args.resume):
+        ap.error("--engine mesh2d has no checkpoint manager yet; "
+                 "use the driver engine for --ckpt-every/--resume")
+    if args.cpu_ranks and args.engine != "mesh2d":
+        ap.error("--cpu-ranks runs the mesh2d engine")
+    if args.cpu_ranks > 1:
+        from repro_torch.launch.mesh import run_cpu_ranks
+        argv = list(sys.argv[1:] if argv is None else argv)
+        i = argv.index("--cpu-ranks")
+        rest = argv[:i] + argv[i + 2:]
+        return run_cpu_ranks(_mesh2d_rank, args.cpu_ranks, rest)
+    device = resolve_device("cpu" if args.cpu_ranks else device)
 
     base = get_config(args.arch) if args.full \
         else get_config(args.arch).reduced()
@@ -196,12 +315,18 @@ def main(argv=None, device=None):
     ts = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=args.batch,
                      seq=seq, seed=args.seed)
     params = init_stacked_params(cfg, n, args.seed, device)
-    print(f"arch={cfg.name} params/client={param_count(params) // n:,} "
-          f"clients={n}", flush=True)
+    if _is_lead():
+        print(f"arch={cfg.name} params/client={param_count(params) // n:,} "
+              f"clients={n}", flush=True)
 
     hp = L2GDHyper(eta=args.eta, lam=args.lam, p=args.p, n=n)
     comp = make_compressor(args.compressor)
     mcomp = make_compressor(args.master_compressor or args.compressor)
+
+    batch = batch_fn(cfg, ts, args.seed, device)
+    if args.engine == "mesh2d":
+        return run_mesh2d(args, cfg, hp, params, comp, mcomp, batch, n,
+                          device)
 
     # the reference's CLI passes key seed + 3 and the deprecated seed=
     # seed + 4, which its run_l2gd folds into the key
@@ -217,7 +342,7 @@ def main(argv=None, device=None):
         print(f"resuming from {resume_from} step {step}", flush=True)
     t0 = time.time()
     run = run_l2gd(key, params, stacked_grad_fn(cfg),
-                   hp, batch_fn(cfg, ts, args.seed, device), args.steps,
+                   hp, batch, args.steps,
                    client_comp=comp, master_comp=mcomp,
                    checkpoint_policy=policy, resume_from=resume_from,
                    local_steps=args.local_steps,
@@ -255,3 +380,6 @@ def main(argv=None, device=None):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():       # the mesh2d engine's group
+        dist.destroy_process_group()

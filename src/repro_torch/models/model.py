@@ -10,11 +10,16 @@ own, ``params["dense_layers"]``, which runs first.  The forward pass
 loops over the layers in Python (the reference scans), each layer's
 weights one ``unbind`` of the stacked leaves (its backward stacks the
 layer gradients once; a per-layer ``select`` would build a zero tensor
-of the whole leaf for every layer).  When a backward will follow
+of the whole leaf for every layer).  A caller may pass a stacked leaf
+as a tuple of its layers' tensors instead (``layer_stacks`` names the
+stacks): each layer's gradient then reaches its own leaf as soon as that
+layer's backward is done, where the ``unbind``'s backward would run only
+after every layer's.  When a backward will follow
 (autograd on, some parameter requiring grad) and ``cfg.remat`` is set,
 each layer body runs under ``torch.utils.checkpoint``: its activations
 are recomputed in the backward, as the reference's ``jax.checkpoint`` of
-the layer scan does.  With ``attn_impl="flash"`` and no sliding
+the layer scan does (``remat_policy="dots"`` keeps the matrix products'
+outputs and recomputes the rest, as its ``dots_saveable`` policy).  With ``attn_impl="flash"`` and no sliding
 window every attention layer runs the flash-attention kernel and no
 (S, S) mask is built; every Mamba layer's scan runs the selective-scan
 kernel on the card (``models/mamba.py``).  MoE layers return the router's
@@ -40,6 +45,7 @@ Public API:
   hidden(params, cfg, batch)             -> final-norm hidden states
   loss_fn(params, cfg, batch)            -> (loss, metrics)
   layer_kinds(cfg)                       -> per-layer static descriptors
+  layer_stacks(cfg)                      -> the keys of the layer stacks
   init_caches(cfg, batch, capacity)      -> decode cache list (KV caches,
                                             MLA latent caches, Mamba caches,
                                             KV and Mamba a layer, or KV and
@@ -50,6 +56,7 @@ Public API:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -63,7 +70,8 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
 
 __all__ = ["init_params", "forward", "hidden", "loss_fn", "layer_kinds",
-           "init_caches", "decode_step", "param_count", "encoder_forward"]
+           "layer_stacks", "init_caches", "decode_step", "param_count",
+           "encoder_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -204,6 +212,13 @@ def _groups(cfg: ArchConfig) -> list:
         + [("layers", kinds[n_dense:])]
 
 
+def layer_stacks(cfg: ArchConfig) -> tuple:
+    """The top-level keys of the parameter tree whose leaves stack the
+    layers on their first axis."""
+    return tuple(g for g, _ in _groups(cfg)) \
+        + (("encoder", "cross") if cfg.is_encdec else ())
+
+
 def param_count(params) -> int:
     return sum(leaf.numel() for leaf in tree_leaves(params))
 
@@ -222,24 +237,24 @@ def _attn_impl_train(cfg: ArchConfig) -> str:
 
 
 def _layers(stacked: dict, n: int) -> list:
-    """The n per-layer parameter dicts, one ``unbind`` per stacked leaf."""
-    parts = {key: _layers(val, n) if isinstance(val, dict) else val.unbind(0)
-             for key, val in stacked.items()}
+    """The n per-layer parameter dicts, one ``unbind`` per stacked leaf (a
+    leaf given as a tuple of its layers is taken as it is)."""
+    parts = {key: _layers(val, n) if isinstance(val, dict)
+             else tuple(val) if isinstance(val, (list, tuple))
+             else val.unbind(0) for key, val in stacked.items()}
     return [{key: part[i] for key, part in parts.items()} for i in range(n)]
 
 
-def _remat(cfg: ArchConfig, params) -> bool:
-    """True when the layers are to be checkpointed: a backward follows
-    and ``cfg.remat`` asks for it.  Raises for what the port cannot train
-    yet."""
-    if not (torch.is_grad_enabled()
+def _remat(cfg: ArchConfig, params):
+    """The layers' checkpoint policy when a backward follows (autograd
+    on, some parameter requiring grad) and ``cfg.remat`` asks for one:
+    "dots" keeps the matrix products' outputs (the reference's
+    ``dots_saveable``), anything else recomputes the whole layer; None
+    runs the layers plainly."""
+    if not (cfg.remat and torch.is_grad_enabled()
             and any(a.requires_grad for a in tree_leaves(params))):
-        return False
-    if cfg.remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (keep the matrix products' outputs) comes "
-            "with the multi-device launch slice; use remat_policy='full'")
-    return cfg.remat
+        return None
+    return "dots" if cfg.remat_policy == "dots" else "full"
 
 
 def _attention(cfg: ArchConfig, p: dict, x, positions, **kw):
@@ -316,8 +331,30 @@ def hidden(params, cfg: ArchConfig, batch):
     return _hidden_aux(params, cfg, batch)[0]
 
 
-def _run(layer, remat: bool, *args):
-    """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+#: the ops whose outputs ``remat_policy="dots"`` keeps: the matrix
+#: products (``linear``, ``matmul`` and ``einsum`` reach these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run(layer, remat, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when ``remat``:
+    "full" recomputes the layer in the backward, "dots" recomputes all
+    but the matrix products, whose outputs it keeps (selective
+    checkpointing); both give the same bits as no remat."""
+    if remat == "dots":
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        return checkpoint(layer, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
     if remat:
         return checkpoint(layer, *args, use_reentrant=False)
     return layer(*args)

@@ -1,0 +1,175 @@
+"""Rank functions for the multi-process tests of the port
+(``repro_torch.launch.mesh.run_cpu_ranks``): each runs in a spawned CPU
+process of a gloo group and returns numpy, and imports neither jax nor
+the reference, so a spawn pays only for torch.
+
+Not a test module (no ``test_`` prefix): the spawned processes import it
+by name from the tests directory, which the parent puts on ``sys.path``.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+N, D = 4, 12
+
+
+def _quad_grad(params, batch):
+    g = params["w"] - batch
+    return 0.5 * torch.sum(g ** 2, dim=1), {"w": g}
+
+
+def quad_plan(name, transport, d=D):
+    from repro_torch.core import make_compressor, make_plan
+    return make_plan(make_compressor(name), {"w": torch.zeros(d)},
+                     transport=transport)
+
+
+def mixed_fleet(d=D, n=N):
+    """Three cohorts over n clients: packed QSGD, flat natural, leafwise
+    identity (client i in cohort i % 3)."""
+    from repro_torch.fl.fleet import FleetPlan
+    plans = (quad_plan("qsgd", "packed", d), quad_plan("natural", "flat", d),
+             quad_plan("identity", "leafwise", d))
+    return FleetPlan(cohorts=plans,
+                     assignment=tuple(i % 3 for i in range(n)))
+
+
+def _quad_runs(cases, batch, key, mesh):
+    from repro_torch.core import init_state, make_hyper
+    from repro_torch.core.rollout import rollout_l2gd, rollout_l2gd_sharded
+    hp = make_hyper(eta=0.3, lam=1.0, p=0.5, n=N)
+    out = []
+    for name, transport, participation, xi in cases:
+        up = mixed_fleet() if name == "fleet" else quad_plan(name, transport)
+        down = quad_plan("identity", "leafwise") if name == "fleet" else up
+        kw = dict(grad_fn=_quad_grad, client_comp=up, master_comp=down,
+                  participation=participation, batch_axis=None)
+        xi = None if xi is None else np.asarray(xi, np.int32)
+        st0 = init_state({"w": torch.zeros(N, D)})
+        sh, shtr = rollout_l2gd_sharded(key, st0, hp, batch, xi, mesh=mesh,
+                                        steps=None if xi is not None else 14,
+                                        **kw)
+        stk, stktr = rollout_l2gd(key, st0, hp, batch, xi,
+                                  steps=None if xi is not None else 14, **kw)
+        out.append({"params": sh.params["w"].numpy(),
+                    "cache": sh.cache["w"].numpy(),
+                    "losses": shtr.losses.numpy(), "xis": shtr.xis,
+                    "stacked_params": stk.params["w"].numpy(),
+                    "stacked_cache": stk.cache["w"].numpy(),
+                    "stacked_losses": stktr.losses.numpy(),
+                    "stacked_xis": stktr.xis,
+                    "counts": (shtr.n_local, shtr.n_agg_comm,
+                               shtr.n_agg_cached)})
+    return out
+
+
+def sharded_quad_rollouts(rank, world, cases, batch_np, key):
+    """The client-sharded rollout of the quadratic fixture, each case also
+    run stacked in-process; this rank's params, the cache, losses, xis."""
+    from repro_torch.launch.mesh import make_client_mesh
+    mesh = make_client_mesh(world, device="cpu")
+    return _quad_runs(cases, torch.from_numpy(batch_np), key, mesh)
+
+
+def shard_averages(rank, world, params_np, key):
+    """The per-shard averages at ``world`` processes on a ("clients",)
+    mesh, each process holding its block of the stacked params: packed
+    QSGD and packed natural payloads, the bf16 wire, and
+    compressed_average_wire with one client a process; and this process's
+    packed QSGD message (codes and norms)."""
+    from repro_torch.core import make_compressor, prng
+    from repro_torch.core.aggregation import (client_mean,
+                                              compressed_average_wire,
+                                              make_payload_sharded_average,
+                                              make_sharded_average)
+    from repro_torch.core.collective import GATHERED, reset_gathered
+    from repro_torch.launch.mesh import make_client_mesh, mesh_axis
+    from repro_torch.launch.sharding import local_slice
+    mesh = make_client_mesh(world, device="cpu")
+    spec = ("clients", None)
+    params = {"w": torch.from_numpy(params_np)}
+    local = {"w": local_slice(mesh, spec, params["w"])}
+    d = params_np.shape[1]
+    out = {}
+    reset_gathered()
+    for name in ("qsgd", "natural"):
+        fn = make_payload_sharded_average(
+            mesh, ("clients",), {"w": spec}, make_compressor("identity"),
+            quad_plan(name, "packed", d))
+        out["payload_" + name] = fn(key, local)["w"].numpy()
+    out["gathered_bytes"] = GATHERED["bytes"]
+    # this process's packed QSGD message, as the payload average builds it
+    msg = quad_plan("qsgd", "packed", d).encode(
+        prng.fold_in(prng.split(key)[0], rank),
+        {"w": client_mean(local["w"].float())})
+    out["qsgd_codes"], out["qsgd_norms"] = msg.codes.numpy(), \
+        msg.norms.numpy()
+    wire = make_sharded_average(mesh, ("clients",), {"w": spec},
+                                make_compressor("natural"))
+    out["wire"] = wire(key, local)["w"].numpy()
+    one = {"w": local_slice(mesh, spec, params["w"][:world])[0]}
+    out["wire_one"] = compressed_average_wire(
+        key, one, make_compressor("identity"),
+        mesh_axis(mesh, "clients"))["w"].numpy()
+    return out
+
+
+def _tiny_lm(dtype="float32", remat_policy="full"):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("stablelm-1.6b").reduced(), n_layers=2, d_model=64,
+        d_ff=128, n_heads=4, n_kv_heads=2, head_dim=16, vocab_size=256,
+        param_dtype=dtype, compute_dtype=dtype, remat_policy=remat_policy)
+
+
+def mesh2d_rollouts(rank, world, params_np, tokens_np, key):
+    """The 2-D engine of the tiny LM on a (1, world) and a (world, 1) mesh
+    (natural both ways, leafwise), each against build_rollout_fn run
+    in-process, and the sharding helpers on the (1, world) mesh."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import init_state, make_compressor, make_hyper
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import (build_rollout_fn,
+                                          build_sharded_rollout_fn)
+    init_process_group("cpu")
+    cfg = _tiny_lm(remat_policy="dots")
+    n = tokens_np.shape[1]
+    hp = make_hyper(eta=0.1, lam=0.5, p=0.5, n=n)
+    comp = make_compressor("natural")
+    params = params_from_numpy(params_np)
+    batches = {"tokens": torch.from_numpy(tokens_np)}
+    length = tokens_np.shape[0]
+    kw = dict(client_comp=comp, master_comp=comp, length=length)
+    ref, rtr = build_rollout_fn(dataclasses.replace(cfg,
+                                                    remat_policy="full"),
+                                hp, **kw)(init_state(params), batches, key)
+    out = {"ref_xis": rtr.xis, "ref_losses": rtr.losses.numpy(),
+           "ref_params": [a.numpy() for a in tree_leaves(ref.params)],
+           "ref_cache": [a.numpy() for a in tree_leaves(ref.cache)]}
+    for shape in ((1, world), (world, 1)):
+        mesh = make_mesh(shape, ("clients", "model"), "cpu")
+        roll = build_sharded_rollout_fn(cfg, hp, mesh=mesh, **kw)
+        st, tr = roll(init_state(params), batches, key)
+        full = roll.full_state(st)
+        out[shape] = {
+            "xis": tr.xis, "losses": tr.losses.numpy(),
+            "params": [a.numpy() for a in tree_leaves(full.params)],
+            "cache": [a.numpy() for a in tree_leaves(full.cache)],
+            "local_shapes": [tuple(a.shape) for a in tree_leaves(st.params)]}
+    # the sharding helpers on the (1, world) mesh
+    mesh = make_mesh((1, world), ("clients", "model"), "cpu")
+    table = params["embed"]["table"]
+    spec = sharding.param_pspecs({"embed": {"table": table}}, world,
+                                 client_axes=("clients",))["embed"]["table"]
+    out["table_spec"] = spec
+    out["placements"] = [repr(p) for p in sharding.placements(mesh, spec)]
+    out["table_local"] = sharding.local_slice(mesh, spec, table).numpy()
+    state = sharding.train_state_shardings(mesh, init_state(params))
+    out["state_local_shapes"] = [tuple(a.shape)
+                                 for a in tree_leaves(state.params)]
+    bl = sharding.train_batch_shardings(mesh, batches)
+    out["batch_local_shape"] = tuple(bl["tokens"].shape)
+    return out

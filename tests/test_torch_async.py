@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from conftest import quad_grad_fn
 from repro.configs import get_config as jget_config
 from repro.core import L2GDHyper as JHyper

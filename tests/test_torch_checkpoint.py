@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro import checkpoint as jck
 from repro.checkpoint import pack as jpack
 from repro.core import flatbuf as jflat

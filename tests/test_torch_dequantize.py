@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.core import compressors as jcomp
 from repro.kernels.natural.kernel import natural_compress_2d as jnatural_2d
 from repro.kernels.natural.ref import natural_compress_ref as jnatural_ref

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.kernels.flash_attention.kernel import \
     flash_attention as jflash_pallas
 from repro.kernels.flash_attention.ops import \

@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.core import L2GDHyper as JHyper
 from repro.core import aggregation as jagg
 from repro.core import codec as jcodec

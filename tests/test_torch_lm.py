@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.configs.base import ARCH_IDS as J_ARCH_IDS
 from repro.configs.base import INPUT_SHAPES as J_INPUT_SHAPES
@@ -43,8 +44,8 @@ from repro.models import init_caches as jinit_caches
 from repro.models import init_params as jinit_params
 from repro.models import loss_fn as jloss_fn
 from repro.models import param_count as jparam_count
-from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, UNPORTED,
-                                 ArchConfig, get_config)
+from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, ArchConfig,
+                                 get_config)
 from repro_torch.convert import check_tree_like, params_from_numpy
 from repro_torch.data import TokenStream
 from repro_torch.kernels import dispatch
@@ -62,8 +63,9 @@ SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 # and internvl2-26b in tests/test_torch_vlm.py
 ARCHS = ("stablelm-1.6b", "gemma3-1b", "falcon-mamba-7b", "hymba-1.5b",
          "granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
-         "deepseek-v2-lite-16b", "whisper-medium", "internvl2-26b")
-GQA_ARCHS = ARCHS[:2]
+         "deepseek-v2-lite-16b", "whisper-medium", "internvl2-26b",
+         "mistral-large-123b")
+GQA_ARCHS = ARCHS[:2] + ("mistral-large-123b",)
 BLOCK_TOL = 1e-6
 LOGIT_TOL = 2e-5
 DECODE_TOL = 2e-4
@@ -109,10 +111,11 @@ def test_ported_configs_equal_the_reference(arch):
 
 
 def test_unported_configs_raise_and_name_their_slice():
-    assert set(UNPORTED) | set(ARCHS) == set(ARCH_IDS)
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="slice"):
-            get_config(arch)
+    # every assigned architecture is ported now (mistral-large-123b, the
+    # last, with the multi-device launch layer): none raises
+    assert set(ARCHS) == set(ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert get_config(arch).name == arch
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,8 @@ Function, whose plain forward and backward stand in for the CUDA
 kernels here), remat, ``build_train_step`` with leafwise natural and
 QSGD compression both ways, and the train CLI against the reference's.
 
-The reference runs jitted, its hypers as float32 arrays, its step with
-``donate=False``.  The bounds are tests/test_torch_train.py's (float32,
+The reference runs jitted, its hypers as float32 arrays, its step built
+with ``donate=False`` and jitted once.  The bounds are tests/test_torch_train.py's (float32,
 measured here with jax 0.9.0 and torch 2.13 on the CPU): GRAD_RTOL for
 gradients relative to each leaf's largest magnitude, LOSS_RTOL for
 losses, PARAM_RTOL for params and the cache after 5 steps.  The
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core import L2GDHyper as JHyper
 from repro.core import compressors as jcomp
@@ -181,9 +182,11 @@ def test_build_train_step_matches_reference(arch, name):
     jhp = JHyper(eta=jnp.asarray(ETA, jnp.float32),
                  lam=jnp.asarray(LAM, jnp.float32),
                  p=jnp.asarray(P, jnp.float32), n=N)
-    jstep = jsteps.build_train_step(jcfg, jhp, jcomp.make_compressor(name),
-                                    jcomp.make_compressor(name),
-                                    donate=False)
+    # jitted once: the un-donated step is a plain function, which eager
+    # JAX would trace and compile anew on every call
+    jstep = jax.jit(jsteps.build_train_step(
+        jcfg, jhp, jcomp.make_compressor(name), jcomp.make_compressor(name),
+        donate=False))
     tstep = steps.build_train_step(cfg, hp, make_compressor(name),
                                    make_compressor(name))
     _, keys = window_streams(prng.PRNGKey(0), P, 0, len(XI), XI)

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.models import attention as jattn
 from repro.models import moe as jmoe
 from repro_torch.convert import params_from_numpy

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.launch.steps import build_prefill_step as jbuild_prefill
 from repro.models import decode_step as jdecode_step

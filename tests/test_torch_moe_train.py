@@ -41,6 +41,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core import L2GDHyper as JHyper
 from repro.core import compressors as jcomp
@@ -158,9 +159,11 @@ def _check_train_step(arch, name):
     jhp = JHyper(eta=jnp.asarray(ETA, jnp.float32),
                  lam=jnp.asarray(LAM, jnp.float32),
                  p=jnp.asarray(P, jnp.float32), n=N)
-    jstep = jsteps.build_train_step(jcfg, jhp, jcomp.make_compressor(name),
-                                    jcomp.make_compressor(name),
-                                    donate=False)
+    # jitted once: the un-donated step is a plain function, which eager
+    # JAX would trace and compile anew on every call
+    jstep = jax.jit(jsteps.build_train_step(
+        jcfg, jhp, jcomp.make_compressor(name), jcomp.make_compressor(name),
+        donate=False))
     tstep = steps.build_train_step(cfg, hp, make_compressor(name),
                                    make_compressor(name))
     _, keys = window_streams(prng.PRNGKey(0), P, 0, len(XI), XI)

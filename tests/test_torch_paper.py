@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from conftest import quad_grad_fn
 from repro import optim as joptim
 from repro.configs import logreg_a1a as jlogreg_a1a

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 import repro.core
 import repro.kernels
 import repro_torch.core
@@ -28,14 +29,9 @@ from repro_torch.kernels.qsgd.kernel import qsgd_pack
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 NORM_ULPS = 4
-#: the reference's TPU-only dispatch helpers, and the names of its
-#: sharded (shard_map / mesh) layer, which the multi-device launch slice
-#: of the port brings
-EXEMPT = {"on_tpu", "autotune_rows", "default_interpret",
-          "rollout_l2gd_sharded", "sharded_state_specs",
-          "compressed_average_wire", "stochastic_round_cast",
-          "make_sharded_average", "make_payload_sharded_average",
-          "make_packed_sharded_average", "make_client_sharded_average"}
+#: the reference's TPU-only dispatch helpers (its sharded layer's names
+#: are ported since the multi-device launch slice)
+EXEMPT = {"on_tpu", "autotune_rows", "default_interpret"}
 KERNEL_NAMES = ["qsgd_compress", "qsgd_pack", "qsgd_fused", "qsgd_unpack",
                 "natural_compress", "natural_fused", "selective_scan_op",
                 "flash_attention_op"]

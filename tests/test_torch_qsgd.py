@@ -21,6 +21,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.kernels.qsgd.kernel import (qsgd_fused_pallas, qsgd_pack_pallas,
                                        qsgd_unpack_pallas)
 from repro.kernels.qsgd.ops import qsgd_reduce_pallas

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from conftest import quad_batch, quad_grad_fn
 from repro.checkpoint import CheckpointPolicy as JPolicy
 from repro.core import L2GDHyper as JHyper

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.core.flatbuf import seeds_of as jax_seeds_of
 from repro.kernels import rng as jrng
 from repro_torch.convert import key_from_words

@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.kernels.selective_scan.ops import \
     selective_scan_op as jscan_op
 from repro.kernels.selective_scan.ref import \

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.checkpoint import CheckpointPolicy as JPolicy
 from repro.checkpoint import pack as jpack
 from repro.configs.base import get_config as jget_config

@@ -7,7 +7,7 @@ with leafwise natural and QSGD compression both ways, exact ``round_bits``
 of full-size stablelm-1.6b, the train CLI, and no jax on the path.
 
 The reference runs jitted, its hypers as float32 arrays (as its driver
-passes them), its step with ``donate=False``.  Bounds (float32, measured
+passes them), its step built with ``donate=False`` and jitted once.  Bounds (float32, measured
 here with jax 0.9.0 and torch 2.13 on the CPU):
 
   * GRAD_RTOL: gradients relative to each leaf's largest magnitude — the
@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import torch_one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core import L2GDHyper as JHyper
 from repro.core import codec as jcodec
@@ -44,13 +45,13 @@ from repro.launch import steps as jsteps
 from repro.launch import train as jtrain
 from repro.models import init_params as jinit_params
 from repro.models import loss_fn as jloss_fn
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import L2GDHyper, init_state, make_compressor, prng
 from repro_torch.core.codec import make_plan
 from repro_torch.core.l2gd import l2gd_step
 from repro_torch.core.rollout import window_streams
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import TokenStream
 from repro_torch.fl.ledger import BitsLedger
 from repro_torch.launch import steps
@@ -143,6 +144,34 @@ def test_remat_on_equals_remat_off():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_stacked_grad_fn_equals_autograd_of_the_stacks(arch):
+    """The per-layer leaves and the hooks that copy each gradient into
+    the stacked tensor give autograd's bits for the stacked leaves, with
+    remat off, "full" and "dots" (reduced configs, random weights)."""
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.launch.train import batch_fn, init_stacked_params
+    from repro_torch.models import loss_fn as model_loss
+    base = get_config(arch).reduced()
+    stream = TokenStream(n_clients=2, vocab=base.vocab_size, batch=1,
+                         seq=16)
+    batch = {k: torch.as_tensor(v) for k, v in
+             batch_fn(base, stream, 0, torch.device("cpu"))(0).items()}
+    params = init_stacked_params(base, 2, 0, torch.device("cpu"))
+    leaves, treedef = tree_flatten(params)
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        cfg = dataclasses.replace(base, remat=remat, remat_policy=policy)
+        losses, grads = steps.stacked_grad_fn(cfg)(params, batch)
+        for i in range(2):
+            own = [a[i].detach().requires_grad_() for a in leaves]
+            loss, _ = model_loss(tree_unflatten(treedef, own), cfg,
+                                 {k: v[i] for k, v in batch.items()})
+            want = torch.autograd.grad(loss, own)
+            assert torch.equal(losses[i], loss.detach())
+            for w, g in zip(want, tree_leaves(grads)):
+                assert torch.equal(g[i], w)
+
+
 def test_remat_checkpoints_each_layer(monkeypatch):
     from repro_torch.models import model as tmodel
     cfg, jcfg = _cfgs(remat=True)
@@ -163,15 +192,31 @@ def test_remat_checkpoints_each_layer(monkeypatch):
 
 
 def test_unported_training_options_raise():
+    """The options the multi-device slice ported no longer raise:
+    remat_policy="dots" gives remat "full"'s gradient bit for bit, and
+    build_train_step's average_fn replaces the fresh branch's
+    aggregation (tests/test_torch_mesh.py holds a shard average there)."""
     cfg, jcfg = _cfgs(remat=True, remat_policy="dots")
     _, tp = _stacked(jcfg)
     batch = {"tokens": torch.from_numpy(_batch(0))}
-    with pytest.raises(NotImplementedError, match="slice"):
-        steps.stacked_grad_fn(cfg)(tp, batch)
-    steps.stacked_loss_fn(cfg)(tp, batch)          # forward only: fine
+    dots = steps.stacked_grad_fn(cfg)(tp, batch)
+    full = steps.stacked_grad_fn(dataclasses.replace(
+        cfg, remat_policy="full"))(tp, batch)
+    for a, b in zip(tree_leaves(dots), tree_leaves(full)):
+        assert torch.equal(a, b)
     hp = L2GDHyper(eta=ETA, lam=LAM, p=P, n=N)
-    with pytest.raises(NotImplementedError, match="multi-device launch slice"):
-        steps.build_train_step(cfg, hp, average_fn=lambda k, p: p)
+    calls = []
+
+    def average_fn(key, params):
+        calls.append(key)
+        return tree_map(lambda a: a[0].clone(), params)
+
+    step = steps.build_train_step(cfg, hp, average_fn=average_fn)
+    state, metrics = step(init_state(tp)._replace(xi_prev=0), batch, 1,
+                          prng.PRNGKey(0))
+    assert metrics["branch"] == 1 and len(calls) == 1
+    for a, b in zip(tree_leaves(state.cache), tree_leaves(tp)):
+        assert torch.equal(a, b[0])
     # a per-client plan vector (a fleet) builds since the fleet slice
     steps.build_train_step(cfg, hp, [make_compressor("qsgd")] * N)
 
@@ -212,9 +257,11 @@ def test_build_train_step_matches_reference(name):
     cfg, jcfg = _cfgs()
     jp, tp = _stacked(jcfg)
     hp, jhp = _hypers()
-    jstep = jsteps.build_train_step(jcfg, jhp, jcomp.make_compressor(name),
-                                    jcomp.make_compressor(name),
-                                    donate=False)
+    # jitted once: the un-donated step is a plain function, which eager
+    # JAX would trace and compile anew on every call
+    jstep = jax.jit(jsteps.build_train_step(
+        jcfg, jhp, jcomp.make_compressor(name), jcomp.make_compressor(name),
+        donate=False))
     tstep = steps.build_train_step(cfg, hp, make_compressor(name),
                                    make_compressor(name))
     _, keys = window_streams(prng.PRNGKey(0), P, 0, len(XI), XI)
@@ -367,13 +414,18 @@ def test_train_cli_draws_the_reference_protocol(capsys):
                                    ["--ckpt-every", "1"],
                                    ["--resume", "--ckpt", "x"]])
 def test_train_cli_refuses_unported_engines(extra, tmp_path, monkeypatch):
-    """mesh2d is not ported; the checkpoint flags are (tests/
-    test_torch_resume.py) and refuse what the reference's CLI refuses:
-    --ckpt-every without --ckpt, --resume from an empty root."""
+    """The CLI refuses what the reference's CLI refuses: mesh2d (ported
+    since the multi-device slice; tests/test_torch_mesh2d.py) with the
+    checkpoint manager's flags, --ckpt-every without --ckpt, --resume
+    from an empty root (tests/test_torch_resume.py)."""
     monkeypatch.chdir(tmp_path)
     if extra[0] == "--engine":
-        with pytest.raises(NotImplementedError, match="slice"):
-            ttrain.main(CLI + extra, device="cpu")
+        run = ttrain.main(CLI + extra, device="cpu")
+        assert run.trace.n_local + run.trace.n_agg_comm \
+            + run.trace.n_agg_cached == 6
+        with pytest.raises(SystemExit):
+            ttrain.main(CLI + extra + ["--ckpt", "x", "--ckpt-every", "1"],
+                        device="cpu")
     elif extra[0] == "--ckpt-every":
         with pytest.raises(SystemExit):
             ttrain.main(CLI + extra, device="cpu")
@@ -393,13 +445,28 @@ def test_init_stacked_params_is_per_client_init():
 
 
 def test_train_path_loads_no_jax_and_no_reference():
-    """The train CLI of each ported family (dense GQA, Mamba, hybrid)."""
+    """The train CLI of each ported family (dense GQA, Mamba, hybrid) and
+    the mesh path (the mesh2d engine, a shard average, the dry run)."""
     code = (
         "import sys\n"
         "from repro_torch.launch.train import main\n"
         "for arch in ('stablelm-1.6b', 'falcon-mamba-7b', 'hymba-1.5b'):\n"
         "    main(" + repr(CLI + ["--compressor", "qsgd"])
         + " + ['--arch', arch], device='cpu')\n"
+        # the mesh path: the 2-D engine through the CLI, the sharded
+        # averages, the dry run
+        "main(" + repr(CLI + ["--compressor", "natural", "--engine",
+                              "mesh2d"]) + ", device='cpu')\n"
+        "import torch\n"
+        "from repro_torch.core import make_compressor, make_plan\n"
+        "from repro_torch.launch import dryrun, mesh, steps\n"
+        "m = mesh.make_client_mesh(1, device='cpu')\n"
+        "plan = make_plan(make_compressor('qsgd'), {'w': torch.zeros(8)},"
+        " transport='packed')\n"
+        "steps.build_average_fn(m, ('clients',), {'w': ('clients', None)},"
+        " make_compressor('natural'), uplink=plan)(\n"
+        "    [0, 1], {'w': torch.ones(2, 8)})\n"
+        "dryrun.dry_run('mistral-large-123b', 'train_4k')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
