@@ -219,7 +219,15 @@ these phases and fails (non-zero exit, no result line) on any error:
            remat_policy="dots" against build_rollout_fn with "full", a
            step a call over a trace of cached, local and fresh steps,
            params and cache bit for bit (the digest), losses and xis
-           equal; each branch's seconds and the peak, <= 70 GB.
+           equal; each branch's seconds and the peak, <= 70 GB;
+  mesh2d shards  stablelm-1.6b at full width (SHARDS_LAYERS layers), 2
+           clients x one 4096-token sequence, leafwise natural, a local
+           then a fresh step: the 2-D engine on a (1, 2) train mesh of two
+           processes sharing the card in one gloo group (each gathers a
+           layer's leaves only while the layer runs, and aggregates a
+           leaf at a time), against build_rollout_fn in this process:
+           the gathered state's digest, losses and branches equal; each
+           rank's peak below the one-process peak; seconds a branch.
 
 Each group of phases logs its seconds ("lap ..."), the total the sum.
 
@@ -417,6 +425,13 @@ MISTRAL_TRAIN_PARAMS = 1_786_810_368
 # protocol's streams), the key's trace over these steps: cached, local,
 # fresh, cached
 MESH2D_XI = [1, 0, 1, 1]
+# phase mesh2d shards: stablelm-1.6b's layers there (4 of 24: gloo moves
+# ~0.7 GB/s a rank; all 24 layers took 163.5 s, 8 took 72), its trace
+# (local, fresh), and the model shards (two processes on the one card,
+# gloo)
+SHARDS_LAYERS = 4
+SHARDS_XI = [0, 1]
+SHARDS_RANKS = 2
 # phase mesh width: the digest's positional multiplier (odd: a single
 # changed element always changes the sum mod 2^64) and its chunk
 DIGEST_MUL, DIGEST_CHUNK = -7046029254386353131, 1 << 26
@@ -4618,6 +4633,207 @@ def phase_mesh2d_train(dev):
     return launches["mesh2d (dots)"]
 
 
+def shards_cfg(layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=layers)
+    check(cfg.remat and cfg.attn_impl == "dense", "mesh2d shards config")
+    return cfg
+
+
+def shards_steps(rollout, state, tokens, key, dev):
+    """A step a call of a built rollout over ``tokens`` (steps, n, B, S):
+    (state, seconds, losses, branches, each step's peak allocated)."""
+    import torch
+    seconds, losses, branches, peaks = [], [], [], []
+    for k in range(tokens.shape[0]):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, trace = rollout(state, {"tokens": tokens[k:k + 1]}, key)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        losses.append(float(trace.losses[0]))
+        branches.append(int(trace.branches[0]))
+    return state, seconds, losses, branches, peaks
+
+
+def mesh2d_shards_rank(rank, world, dev, layers, tokens_np, seed):
+    """One model shard of phase mesh2d shards, in a process of its own
+    (``launch.mesh.run_cpu_ranks`` opened the gloo group): this rank's
+    blocks of the clients' params drawn a client at a time, the 2-D
+    engine's steps, then the gathered state's digest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import L2GDHyper, init_state, make_compressor, prng
+    from repro_torch.core.collective import GATHERED, reset_gathered
+    from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_train_mesh, model_shards_of
+    from repro_torch.launch.sharding import param_pspecs, tree_local
+    from repro_torch.launch.steps import (build_sharded_rollout_fn,
+                                          stacked_param_shapes)
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev)
+    torch.cuda.set_device(dev)
+    cfg = shards_cfg(layers)
+    n = TRAIN_CLIENTS
+    mesh = make_train_mesh(model_shards=world, device=dev)
+    check(dist.get_backend() == "gloo" and model_shards_of(mesh) == world
+          and mesh.device_type == dev.type,
+          f"mesh2d shards: {dist.get_backend()} mesh on {mesh.device_type}")
+    specs = param_pspecs(stacked_param_shapes(cfg, n), world,
+                         client_axes=("clients",))
+    blocks = None
+    for i in range(n):      # init_stacked_params' draws, cut a client a time
+        gen = torch.Generator(device=dev).manual_seed(i)
+        one = tree_local(mesh, specs, tree_map(
+            lambda a: a[None], init_params(gen, cfg, dev)))
+        leaves, treedef = tree_flatten(one)
+        if blocks is None:
+            blocks = [torch.empty((n,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                  device=dev) for a in leaves]
+        for dst, a in zip(blocks, leaves):
+            dst[i].copy_(a[0])
+        del one, leaves
+    state = init_state(tree_unflatten(treedef, blocks))
+    del blocks
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    hp = L2GDHyper(eta=0.1, lam=0.5, p=0.5, n=n)
+    comp = make_compressor("natural")
+    rollout = build_sharded_rollout_fn(cfg, hp, mesh=mesh, client_comp=comp,
+                                       master_comp=comp, length=1)
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    reset_gathered()
+    reset_launches()            # the main path starts here
+    state, seconds, losses, branches, peaks = shards_steps(
+        rollout, state, tokens, prng.PRNGKey(seed), dev)
+    launches = dict(LAUNCHES)   # and ends here
+    gathered = dict(GATHERED)
+    t0 = time.perf_counter()
+    digest = state_digest(rollout.full_state(state))
+    return {"digest": digest, "losses": losses, "branches": branches,
+            "seconds": seconds, "peaks": peaks, "init_peak": init_peak,
+            "launches": launches, "gathered": gathered,
+            "digest_s": time.perf_counter() - t0,
+            "local_bytes": sum(a.numel() * a.element_size() for a in
+                               tree_flatten((state.params, state.cache))[0])}
+
+
+def gb(values):
+    return [round(v / 1e9, 2) for v in values]
+
+
+def shards_gather_peak(cfg, n, world):
+    """The most bytes whole at once that phase mesh2d shards allows a
+    rank: a step's largest layer of one client or the tied table
+    (gathered inside the layer loop), or the n clients' largest leaf
+    piece in the aggregation (a layer of a stack's leaf; natural takes
+    any offset), of the leaves cut on "model"."""
+    from repro_torch.core.tree import spec_leaves, tree_leaves
+    from repro_torch.launch.sharding import param_pspecs
+    from repro_torch.launch.steps import param_shapes
+    from repro_torch.models.model import layer_stacks
+    shapes = param_shapes(cfg)
+    specs = param_pspecs(shapes, world, client_axes=())
+    stacks = layer_stacks(cfg)
+    whole, piece = {}, 0
+    for key in shapes:
+        for a, s in zip(tree_leaves(shapes[key]), spec_leaves(specs[key])):
+            if "model" not in s:
+                continue
+            per = a.numel() * a.element_size() // (
+                a.shape[0] if key in stacks else 1)
+            whole[key] = whole.get(key, 0) + per
+            piece = max(piece, per)
+    return max(max(whole.values()), n * piece)
+
+
+def phase_mesh2d_shards(dev):
+    """stablelm-1.6b at full width (SHARDS_LAYERS layers) through the 2-D
+    engine on a (1, 2) train mesh, the two model shards two processes on
+    this card in one gloo group, against build_rollout_fn in this
+    process at the same shape and trace; returns the two ranks' summed
+    launches."""
+    import torch
+    from repro_torch.core import L2GDHyper, init_state, make_compressor, prng
+    from repro_torch.core.rollout import window_streams
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.mesh import run_cpu_ranks
+    from repro_torch.launch.steps import build_rollout_fn
+    from repro_torch.launch.train import init_stacked_params
+    from repro_torch.models import param_count
+
+    cfg = shards_cfg(SHARDS_LAYERS)
+    n = TRAIN_CLIENTS
+    hp = L2GDHyper(eta=0.1, lam=0.5, p=0.5, n=n)
+    seed = next(s for s in range(100) if list(window_streams(
+        prng.PRNGKey(s), hp.p, 0, len(SHARDS_XI))[0]) == SHARDS_XI)
+    stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
+                         seq=TRAIN_S)
+    tokens_np = np.stack([stream.batch_at(k)
+                          for k in range(len(SHARDS_XI))])
+    comp = make_compressor("natural")
+    torch.cuda.empty_cache()
+    state = init_state(init_stacked_params(cfg, n, 0, dev))
+    n_params = param_count(state.params) // n
+    state, ref_s, ref_losses, ref_branches, ref_peaks = shards_steps(
+        build_rollout_fn(cfg, hp, comp, comp, length=1), state,
+        torch.from_numpy(tokens_np).to(dev), prng.PRNGKey(seed), dev)
+    ref_peak = max(ref_peaks)
+    want = state_digest(state)
+    del state
+    torch.cuda.empty_cache()
+    check(ref_branches == [0, 1], f"mesh2d shards: branches {ref_branches}")
+    t0 = time.perf_counter()
+    ranks = run_cpu_ranks(mesh2d_shards_rank, SHARDS_RANKS, str(dev),
+                          SHARDS_LAYERS, tokens_np, seed)
+    ranks_s = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        what = f"mesh2d shards, rank {r}"
+        gathered = got["gathered"]
+        check(got["branches"] == ref_branches, f"{what}: branches")
+        check(got["losses"] == ref_losses,
+              f"{what}: losses {got['losses']} against {ref_losses}")
+        check(got["digest"] == want, f"{what}: the gathered params / cache "
+              "differ from build_rollout_fn's")
+        check(max(got["peaks"]) < ref_peak,
+              f"{what}: peak {max(got['peaks']) / 1e9:.2f} GB, the "
+              f"one-process run's {ref_peak / 1e9:.2f} GB")
+        check(got["launches"].get("natural_compress_2d", 0) > 0,
+              f"{what}: launches {got['launches']}")
+        check(gathered["peak"] == shards_gather_peak(cfg, n, SHARDS_RANKS),
+              f"{what}: {gathered['peak']} bytes whole at once, not "
+              f"{shards_gather_peak(cfg, n, SHARDS_RANKS)}")
+        log(f"phase mesh2d shards, rank {r}: step seconds "
+            f"{[round(t, 3) for t in got['seconds']]} (local, fresh); "
+            f"peak allocated {gb(got['peaks'])} GB a step (init "
+            f"{got['init_peak'] / 1e9:.2f} GB; state blocks "
+            f"{got['local_bytes'] / 1e9:.2f} GB); gathers "
+            f"{gathered['calls']}, {gathered['bytes'] / 1e9:.2f} GB out, "
+            f"at most {gathered['peak'] / 1e9:.3f} GB whole at once; "
+            f"digest gather {got['digest_s']:.1f} s; "
+            f"launches {got['launches']}")
+    launches = {}
+    for got in ranks:
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase mesh2d shards: stablelm-1.6b {cfg.n_layers} layers, {n} "
+        f"clients x {n_params:,} params, B={TRAIN_B} S={TRAIN_S}, leafwise "
+        f"natural, xi {SHARDS_XI}; {SHARDS_RANKS} gloo processes on one "
+        f"card ({ranks_s:.1f} s with their start) equal build_rollout_fn "
+        f"in one process bit for bit (params and cache by the digest, "
+        f"losses {ref_losses}); one process: step seconds "
+        f"{[round(t, 3) for t in ref_s]}, peak allocated "
+        f"{gb(ref_peaks)} GB a step; ranks' peaks "
+        f"{[max(gb(g['peaks'])) for g in ranks]} GB; launches "
+        f"{launches}")
+    return launches
+
+
 def _key_paths(tree, path=""):
     """The nested dict ``tree`` with each leaf replaced by its key path."""
     if isinstance(tree, dict):
@@ -4789,6 +5005,8 @@ def main():
     lap("mistral prefill, serve")
     slice_launches["mistral mesh2d train"] = phase_mesh2d_train(dev)
     lap("mistral mesh2d train")
+    slice_launches["mesh2d shards"] = phase_mesh2d_shards(dev)
+    lap("mesh2d shards")
     import torch.distributed as dist
     dist.destroy_process_group()
     add_launches(rows, slice_launches)

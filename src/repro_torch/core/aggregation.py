@@ -32,22 +32,30 @@ are :class:`~repro_torch.core.collective.MeshAxis` objects
   * :func:`make_sharded_average` / :func:`compressed_average_wire` — a
     stochastically rounded bfloat16 uplink averaged over the axis.
 
-Each takes whole leaves: a codec's buckets and threefry counters run
-over the whole leaf, so a leaf cut over a model axis is gathered first
-(the 2-D engine of ``launch.steps`` does that).
+A codec's buckets and threefry counters run over the whole leaf, so a
+leaf cut over a model axis (the 2-D engine of ``launch.steps``) is made
+whole before it is compressed.  With leafwise plans both ways,
+:func:`compressed_average` and :func:`make_client_sharded_average` take
+that cut as a :class:`ModelCut` and go a piece at a time: a leaf of a
+layer stack one layer at a time (its counters at their offsets in the
+whole leaf, so the bits are the whole leaf's), any other leaf whole, and
+each piece cut back to this process's block once it is compressed.  A
+transport that spans leaves (flat, packed, a fleet) needs the whole
+models.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-import dataclasses
-
 from repro_torch.core import flatbuf, prng
 from repro_torch.core.codec import (CompressionPlan, TreePayload, as_plan,
                                     make_plan)
+from repro_torch.core.collective import block_of, whole_of
 from repro_torch.core.compressors import QSGD
 from repro_torch.core.tree import (spec_leaves, tree_flatten, tree_leaves,
                                    tree_map, tree_unflatten)
@@ -55,7 +63,7 @@ from repro_torch.core.tree import (spec_leaves, tree_flatten, tree_leaves,
 __all__ = ["compressed_average", "compressed_average_wire",
            "stochastic_round_cast", "make_sharded_average",
            "make_payload_sharded_average", "make_packed_sharded_average",
-           "make_client_sharded_average", "masked_client_mean",
+           "make_client_sharded_average", "ModelCut", "masked_client_mean",
            "stacked_finite_mask", "weighted_client_sum", "client_mean",
            "all_finite"]
 
@@ -134,20 +142,46 @@ def weighted_client_sum(tree_stacked, weights: torch.Tensor):
     return tree_map(one, tree_stacked)
 
 
+class ModelCut(NamedTuple):
+    """How the leaves of a client-stacked tree are cut over a model axis
+    (the 2-D engine's layout): ``axis`` is the MeshAxis; in tree-flatten
+    order, ``dims`` gives each leaf's cut dim counting the client axis
+    (None: whole on every process) and ``layered`` whether the leaf
+    carries a layer stack's layers on dim 1."""
+
+    axis: Any
+    dims: tuple
+    layered: tuple
+
+
+def _leafwise(up_plan, down_plan) -> bool:
+    return isinstance(up_plan, CompressionPlan) \
+        and up_plan.transport == "leafwise" \
+        and down_plan.transport == "leafwise"
+
+
 def compressed_average(key, params_stacked, client_comp, master_comp, *,
-                       mask=None):
+                       mask=None, cut=None):
     """t = C_M((1/n) sum_j C_j(x_j)) for stacked client params.
 
     ``client_comp`` / ``master_comp`` are CompressionPlans or plain
     compressors (auto transport); ``client_comp`` may also be a
     :class:`repro_torch.fl.fleet.FleetPlan` (per-cohort uplinks).
     ``mask`` (optional (n,) 0/1 tensor) restricts the mean to a
-    participant subset."""
+    participant subset.  ``cut`` (a :class:`ModelCut`, leafwise plans
+    both ways) takes each process's blocks of the params and returns its
+    blocks of t, equal to the blocks of the whole call's t."""
     up_plan = _resolve_uplink(client_comp)
     down_plan = as_plan(master_comp)
     n = tree_leaves(params_stacked)[0].shape[0]
     k_clients, k_master = prng.split(key)
     client_keys = prng.split(k_clients, n)
+    if cut is not None and not _leafwise(up_plan, down_plan):
+        raise ValueError("a model cut takes leafwise plans both ways; a "
+                         "transport that spans leaves needs whole models")
+    if _leafwise(up_plan, down_plan):
+        return _leafwise_average(up_plan, down_plan, client_keys, k_master,
+                                 params_stacked, mask, cut)
     if not isinstance(up_plan, CompressionPlan):
         from repro_torch.fl.fleet import fleet_mean
         if up_plan.n_clients != n:
@@ -158,23 +192,134 @@ def compressed_average(key, params_stacked, client_comp, master_comp, *,
         payload = up_plan.encode(client_keys, params_stacked)
         ybar = flatbuf.reduce_payload_mean(payload, mask)
     else:
-        # leafwise uplink: the n clients' codecs in one call per leaf.
-        # Non-finite clients leave the mean; the plain mean is selected
-        # when all are finite, so that path stays the reference's
+        # a leafwise uplink with a flat or packed downlink
         compressed = up_plan.apply(client_keys, params_stacked)
-        fin = stacked_finite_mask(compressed)
-        all_ok = all_finite(fin)
-        w = fin if mask is None else mask.reshape(-1).to(torch.float32) * fin
-        denom = torch.sum(w)
-        safe = torch.where(denom > 0, denom, torch.ones_like(denom))
-        guarded = tree_map(lambda s: s / safe.to(s.dtype),
-                           weighted_client_sum(compressed, w))
-        plain = masked_client_mean(compressed, mask)
-        ybar = tree_map(lambda p, g: torch.where(all_ok, p, g), plain,
-                        guarded)
-        # the clients' compressed models leave before the downlink runs
-        del compressed, guarded, plain
+        ybar = tree_map(_guarded_mean(stacked_finite_mask(compressed),
+                                      mask), compressed)
+        del compressed
     return down_plan.apply(k_master, ybar)
+
+
+def _guarded_mean(fin, mask):
+    """The leafwise uplink's mean over clients of one compressed leaf (or
+    a piece of it), as a function: clients whose ``fin`` flag is 0 (a
+    non-finite value in some leaf) leave it; the plain (masked) mean is
+    selected when all are finite, so that path stays the reference's."""
+    all_ok = all_finite(fin)
+    w = fin if mask is None else mask.reshape(-1).to(torch.float32) * fin
+    denom = torch.sum(w)
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+
+    def mean(a):
+        guarded = weighted_client_sum(a, w) / safe.to(a.dtype)
+        return torch.where(all_ok, masked_client_mean(a, mask), guarded)
+
+    return mean
+
+
+def _pieces(leaf, dim, layered, size, codecs):
+    """The pieces a client-stacked leaf (this process's block, cut on
+    ``dim`` over ``size`` processes) is compressed in: (its layer on dim
+    1 or None for the whole leaf, the piece's first counter in a client's
+    whole leaf).  A layer stack's leaf goes a layer at a time where every
+    codec takes the offsets."""
+    layers = leaf.shape[1] if leaf.dim() > 1 else 1
+    if not layered or dim == 1 or layers == 1:
+        return [(None, 0)]
+    per = math.prod(leaf.shape[2:]) * (1 if dim is None else size)
+    if any(not c.slice_unit() or per % c.slice_unit() for c in codecs):
+        return [(None, 0)]
+    return [(i, i * per) for i in range(layers)]
+
+
+def _leafwise_average(up_plan, down_plan, client_keys, k_master, params,
+                      mask, cut, clients=None, n_clients=None):
+    """The average with leafwise plans both ways, a leaf piece at a time
+    (:func:`_pieces`), on this process's blocks when ``cut`` is given:
+    each piece is made whole, compressed with its leaf's key at its
+    offset, and cut back to the block.  One client row (``clients``
+    None): the clients' compressed blocks and their finite flags (ANDed
+    over the leaves), then for each piece the guarded mean of the blocks
+    (elementwise over clients, so the block of the mean) and C_M.
+    Several rows (``clients`` the MeshAxis of the rows, ``n_clients`` in
+    all): each piece's payload gathered over ``clients`` and decoded a
+    client at a time, its masked mean and C_M, with no flags.  The keys
+    are the whole-tree call's: leaf j of client i uses ``split(
+    client_keys[i], n_leaves)[j]``, of C_M ``split(k_master,
+    n_leaves)[j]``."""
+    leaves, treedef = tree_flatten(params)
+    if cut is None:
+        cut = ModelCut(None, (None,) * len(leaves), (False,) * len(leaves))
+    axis, count = cut.axis, max(len(leaves), 1)
+    size = 1 if axis is None else axis.size
+    m, device = leaves[0].shape[0], leaves[0].device
+    leaf_keys = prng.split(client_keys, count)
+    down_keys = prng.split(k_master, count)
+    up, down = up_plan.codec, down_plan.codec
+    pieces = [_pieces(a, d, lay, size, (up, down))
+              for a, d, lay in zip(leaves, cut.dims, cut.layered)]
+
+    def part(a, i):
+        return a if i is None else a.narrow(1, i, 1)
+
+    def into(dst, i, x):
+        if i is None:
+            return x
+        part(dst, i).copy_(x)
+        return dst
+
+    def downlink(j, i, offset, ybar_piece, out):
+        d = cut.dims[j]
+        d = None if d is None else d - 1
+        y = down.apply(down_keys[j], whole_of(ybar_piece, axis, d), offset)
+        # a piece of a mean leaf: the layer axis is its dim 0
+        if i is None:
+            return block_of(y, axis, d)
+        out.narrow(0, i, 1).copy_(block_of(y, axis, d))
+        return out
+
+    outs = [None] * len(leaves)
+    if clients is None:
+        fin = torch.ones((m,), dtype=torch.bool, device=device)
+        compressed = []
+        for j, a in enumerate(leaves):
+            c = None if pieces[j][0][0] is None else torch.empty_like(a)
+            for i, offset in pieces[j]:
+                y = up.apply(leaf_keys[:, j], whole_of(
+                    part(a, i), axis, cut.dims[j]), offset)
+                fin &= torch.isfinite(y.to(torch.float32)) \
+                    .reshape(m, math.prod(y.shape[1:])).all(dim=1)
+                c = into(c, i, block_of(y, axis, cut.dims[j]))
+                del y
+            compressed.append(c)
+        mean = _guarded_mean(fin.to(torch.float32), mask)
+        for j, c in enumerate(compressed):
+            out = None if pieces[j][0][0] is None else \
+                torch.empty_like(c[0])
+            for i, offset in pieces[j]:
+                out = downlink(j, i, offset, mean(part(c, i)), out)
+            compressed[j] = None
+            outs[j] = out
+        return tree_unflatten(treedef, outs)
+    for j, a in enumerate(leaves):
+        out = None if pieces[j][0][0] is None else torch.empty_like(a[0])
+        for i, offset in pieces[j]:
+            payload = up.encode(leaf_keys[:, j], whole_of(
+                part(a, i), axis, cut.dims[j]), offset)
+            gathered = _gather_payloads(payload, clients, batched=True)
+            del payload
+            blocks = None
+            for k in range(n_clients):
+                one = block_of(up.decode(_wire_map(
+                    lambda t: t[k:k + 1], gathered)), axis, cut.dims[j])
+                if blocks is None:
+                    blocks = one.new_empty((n_clients,) + one.shape[1:])
+                blocks[k:k + 1].copy_(one)
+            del gathered
+            out = downlink(j, i, offset, masked_client_mean(blocks, mask),
+                           out)
+        outs[j] = out
+    return tree_unflatten(treedef, outs)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +397,7 @@ def _local_keys(k_clients, n_clients: int, m: int, axis):
 
 
 def make_client_sharded_average(axis, n_clients: int, client_comp,
-                                master_comp):
+                                master_comp, cut=None):
     """``average_fn(key, params_local, mask=None)`` of the client-sharded
     rollout: each process holds m = n / axis.size clients (its slice of
     the leading client axis) and
@@ -273,12 +418,34 @@ def make_client_sharded_average(axis, n_clients: int, client_comp,
     gathers each cohort's batch, and weights client i by the static 0/1
     cohort membership x the mask x the finite guard before that cohort's
     fused fold; the cohort sums add in cohort order and divide once by
-    the participant weight, as the reference's."""
+    the participant weight, as the reference's.
+
+    With leafwise plans both ways the exchange goes a leaf piece at a
+    time (a layer stack's leaf a layer at a time), each piece's payload
+    gathered, decoded and averaged before the next: the same bits, with
+    one piece of the n clients' payloads at hand at once.  ``cut`` (a
+    :class:`ModelCut`, leafwise plans only) then takes and returns this
+    process's blocks of a tree cut over a model axis."""
     if isinstance(client_comp, (list, tuple)):
         from repro_torch.fl.fleet import fleet_from_plans
         client_comp = fleet_from_plans(client_comp)
     up = _resolve_uplink(client_comp)
     down_plan = as_plan(master_comp)
+    if cut is not None and not _leafwise(up, down_plan):
+        raise ValueError("a model cut takes leafwise plans both ways; a "
+                         "transport that spans leaves needs whole models")
+
+    if _leafwise(up, down_plan):
+
+        def average_fn(key, params_local, mask=None):
+            m = tree_leaves(params_local)[0].shape[0]
+            k_clients, k_master = prng.split(key)
+            return _leafwise_average(
+                up, down_plan, _local_keys(k_clients, n_clients, m, axis),
+                k_master, params_local, mask, cut, axis, n_clients)
+
+        average_fn.axis = axis
+        return average_fn
 
     if isinstance(up, CompressionPlan):
         up_plan = up

@@ -23,23 +23,46 @@ Collectives on an axis:
 :data:`GATHERED` counts the gathers and the bytes of their outputs (what
 crossed the wire plus each process's own part) since the last
 :func:`reset_gathered`.
+
+A tensor cut on one dim over an axis (each process holds its block, as
+the 2-D engine holds a leaf cut on ``model``) is made whole by
+:func:`whole_of`: the blocks gathered and joined on that dim in rank
+order.  :func:`gather_blocks` does the same as an autograd Function whose
+backward keeps this process's block of the whole gradient (every process
+computes the same whole gradient, so no reduce is needed), and
+:func:`block_of` cuts a whole tensor back to this process's block.  With
+one process on the axis, or no dim cut, all three return their input.
+``GATHERED["live"]`` holds the bytes of the whole tensors that
+:func:`whole_of` made and that are still alive, ``GATHERED["peak"]`` the
+most of them alive at once since the last :func:`reset_gathered`.
 """
 from __future__ import annotations
 
 import collections
 import math
+import weakref
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["MeshAxis", "GATHERED", "reset_gathered"]
+__all__ = ["MeshAxis", "GATHERED", "reset_gathered", "whole_of",
+           "gather_blocks", "block_of"]
 
-#: "calls" / "bytes": the all_gathers run and their output bytes
+#: "calls" / "bytes": the all_gathers run and their output bytes;
+#: "live" / "peak": the bytes of :func:`whole_of`'s tensors alive now and
+#: at most
 GATHERED: collections.Counter = collections.Counter()
 
 
 def reset_gathered() -> None:
+    """Zero the counts; the peak restarts from what is alive now."""
+    live = GATHERED["live"]
     GATHERED.clear()
+    GATHERED["live"] = GATHERED["peak"] = live
+
+
+def _release(nbytes: int) -> None:
+    GATHERED["live"] -= nbytes
 
 
 def _gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -118,3 +141,56 @@ class MeshAxis:
         for i in range(1, parts.shape[0]):
             acc += parts[i]
         return acc
+
+
+def _cut(axis, dim) -> bool:
+    return dim is not None and axis.size > 1
+
+
+def whole_of(block: torch.Tensor, axis: MeshAxis, dim) -> torch.Tensor:
+    """The whole tensor of which every process on ``axis`` holds a block
+    cut on ``dim``: the blocks gathered and joined on ``dim`` in rank
+    order (``block`` itself when nothing is cut)."""
+    if not _cut(axis, dim):
+        return block
+    out = torch.cat(list(axis.all_gather(block).unbind(0)), dim=dim)
+    nbytes = out.numel() * out.element_size()
+    GATHERED["live"] += nbytes
+    GATHERED["peak"] = max(GATHERED["peak"], GATHERED["live"])
+    weakref.finalize(out, _release, nbytes)
+    return out
+
+
+def block_of(x: torch.Tensor, axis: MeshAxis, dim) -> torch.Tensor:
+    """This process's block of a whole tensor cut on ``dim`` over
+    ``axis``, in a buffer of its own (``x`` itself when nothing is
+    cut)."""
+    if not _cut(axis, dim):
+        return x
+    size = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * size, size).clone(
+        memory_format=torch.contiguous_format)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """:func:`whole_of` forward; backward: this process's block of the
+    whole gradient (its own buffer, so the whole one is freed at once)."""
+
+    @staticmethod
+    def forward(ctx, block, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return whole_of(block, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return block_of(grad, ctx.axis, ctx.dim), None, None
+
+
+def gather_blocks(block: torch.Tensor, axis: MeshAxis, dim) -> torch.Tensor:
+    """:func:`whole_of` under autograd: the gradient reaching the whole
+    tensor comes back as this process's block of it.  Every process on
+    the axis must compute the same whole gradient (the 2-D engine's model
+    shards do: each sees its client row's whole batch)."""
+    if not _cut(axis, dim):
+        return block
+    return _GatherBlocks.apply(block, axis, dim)

@@ -13,7 +13,14 @@ Each compressor is a Codec:
 
 ``key`` is two uint32 words; keys (n, 2) with an ``x`` of leading axis n
 compress n clients' arrays in one call, each with its own key (the
-reference's vmap).  The randomness is the reference's: threefry draws of
+reference's vmap).  ``encode`` and ``apply`` also take ``offset``: ``x``
+is then the slice of a larger array whose flattened elements start there,
+and its compression is that slice of the larger array's, bit for bit
+(the draws start at counter ``offset``).  ``slice_unit()`` says which
+offsets a codec takes: any for the elementwise codecs, a multiple of the
+bucket for the bucketed ones (QSGD, TernGrad; the slice then ends on a
+bucket too, or at the array's end), none for rand-k and top-k, which see
+the whole array at once.  The randomness is the reference's: threefry draws of
 ``jax.random.uniform`` / ``bernoulli`` / ``permutation`` over the same
 shapes, made on the tensor's device (:mod:`repro_torch.core.prng`).
 Float rounding follows XLA:CPU's: a division by a constant (``x / q``,
@@ -100,11 +107,12 @@ class Compressor:
     elementwise: bool = dataclasses.field(default=False, init=False)
 
     # -- public API ---------------------------------------------------------
-    def encode(self, key, x: torch.Tensor):
+    def encode(self, key, x: torch.Tensor, offset: int = 0):
+        self._check_offset(offset)
         nb = _batch_dims(key)
         batch, shape = tuple(x.shape[:nb]), tuple(x.shape[nb:])
         flat = x.reshape(batch + (_nelem(shape),)).to(torch.float32)
-        p = self._encode_flat(key, flat)
+        p = self._encode_flat(key, flat, offset)
         return dataclasses.replace(p, shape=shape, dtype=x.dtype)
 
     def decode(self, payload) -> torch.Tensor:
@@ -112,10 +120,23 @@ class Compressor:
         return y.reshape(tuple(y.shape[:-1]) + tuple(payload.shape)) \
             .to(payload.dtype)
 
-    def apply(self, key, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, key, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         if self.elementwise:
-            return self._apply_flat(key, x.to(torch.float32)).to(x.dtype)
-        return self.decode(self.encode(key, x))
+            self._check_offset(offset)
+            return self._apply_flat(key, x.to(torch.float32),
+                                    offset).to(x.dtype)
+        return self.decode(self.encode(key, x, offset))
+
+    def slice_unit(self) -> int:
+        """What an ``offset`` must be a multiple of (0: only offset 0,
+        the codec sees the whole array at once)."""
+        return 1 if self.elementwise else 0
+
+    def _check_offset(self, offset: int) -> None:
+        unit = self.slice_unit()
+        if offset and (not unit or offset % unit):
+            raise ValueError(f"{self.name} compresses no slice at offset "
+                             f"{offset} (slice unit {unit})")
 
     def payload_spec(self, shape):
         """The payload of one array of ``shape``, as meta tensors."""
@@ -132,13 +153,13 @@ class Compressor:
         raise NotImplementedError
 
     # -- subclass hooks -----------------------------------------------------
-    def _encode_flat(self, key, x):
+    def _encode_flat(self, key, x, offset=0):
         raise NotImplementedError
 
     def _decode_flat(self, payload):
         raise NotImplementedError
 
-    def _apply_flat(self, key, x):
+    def _apply_flat(self, key, x, offset=0):
         raise NotImplementedError
 
     def _flat_spec(self, d: int):
@@ -152,10 +173,10 @@ class Identity(Compressor):
     name: str = dataclasses.field(default="identity", init=False)
     elementwise: bool = dataclasses.field(default=True, init=False)
 
-    def _apply_flat(self, key, x):
+    def _apply_flat(self, key, x, offset=0):
         return x
 
-    def _encode_flat(self, key, x):
+    def _encode_flat(self, key, x, offset=0):
         return DensePayload(values=x)
 
     def _decode_flat(self, p):
@@ -186,24 +207,28 @@ class QSGD(Compressor):
     def _code_dtype(self):
         return torch.int8 if self.levels <= 127 else torch.int16
 
-    def apply(self, key, x: torch.Tensor) -> torch.Tensor:
-        """``decode(encode(key, x))`` in one kernel launch: the buckets of
-        every client in the batch as the rows of one buffer, the noise
-        the encoder would draw."""
+    def apply(self, key, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """``decode(encode(key, x, offset))`` in one kernel launch: the
+        buckets of every client in the batch as the rows of one buffer,
+        the noise the encoder would draw."""
+        self._check_offset(offset)
         nb = _batch_dims(key)
         batch, d = tuple(x.shape[:nb]), _nelem(tuple(x.shape[nb:]))
         if d == 0:
             return torch.zeros_like(x)
         xp = flatbuf.bucketize(x.reshape(batch + (d,)).to(torch.float32),
                                self.bucket)
-        noise = prng.tensor_uniform(key, xp.shape[nb:], x.device)
+        noise = prng.tensor_uniform(key, xp.shape[nb:], x.device, offset)
         y = qsgd_dequantized(xp.reshape(-1, self.bucket).contiguous(),
                              noise.reshape(-1, self.bucket),
                              levels=self.levels)
         return flatbuf.unbucketize(y.reshape(xp.shape), d) \
             .reshape(x.shape).to(x.dtype)
 
-    def _encode_flat(self, key, x):
+    def slice_unit(self) -> int:
+        return self.bucket
+
+    def _encode_flat(self, key, x, offset=0):
         batch, d = tuple(x.shape[:-1]), x.shape[-1]
         if d == 0:
             return QSGDPayload(
@@ -212,7 +237,8 @@ class QSGD(Compressor):
                 torch.zeros(batch + (0, 1), device=x.device),
                 levels=self.levels)
         xp = flatbuf.bucketize(x, self.bucket)
-        noise = prng.tensor_uniform(key, xp.shape[len(batch):], x.device)
+        noise = prng.tensor_uniform(key, xp.shape[len(batch):], x.device,
+                                    offset)
         codes, norm = quantize_with_noise(xp, noise, self.levels)
         return QSGDPayload(flatbuf.unbucketize(codes.to(self._code_dtype()),
                                                d),
@@ -254,12 +280,13 @@ class Natural(Compressor):
     name: str = dataclasses.field(default="natural", init=False)
     elementwise: bool = dataclasses.field(default=True, init=False)
 
-    def _apply_flat(self, key, x):
-        noise = prng.tensor_uniform(key, x.shape[_batch_dims(key):], x.device)
+    def _apply_flat(self, key, x, offset=0):
+        noise = prng.tensor_uniform(key, x.shape[_batch_dims(key):], x.device,
+                                    offset)
         return natural_compress_2d(x.contiguous(), noise)
 
-    def _encode_flat(self, key, x):
-        exps, signs = natural_split(self._apply_flat(key, x))
+    def _encode_flat(self, key, x, offset=0):
+        exps, signs = natural_split(self._apply_flat(key, x, offset))
         return NaturalPayload(exps, pack_bits(_pad_last(signs, 8), 1))
 
     def _decode_flat(self, p):
@@ -286,7 +313,10 @@ class TernGrad(Compressor):
     bucket: int = 2048
     name: str = dataclasses.field(default="terngrad", init=False)
 
-    def _encode_flat(self, key, x):
+    def slice_unit(self) -> int:
+        return self.bucket
+
+    def _encode_flat(self, key, x, offset=0):
         batch, d = tuple(x.shape[:-1]), x.shape[-1]
         if d == 0:
             return TernPayload(
@@ -296,7 +326,8 @@ class TernGrad(Compressor):
         xp = flatbuf.bucketize(x, self.bucket)
         mx = torch.amax(torch.abs(xp), dim=-1, keepdim=True)
         safe = torch.where(mx == 0.0, torch.ones_like(mx), mx)
-        u = prng.tensor_uniform(key, xp.shape[len(batch):], x.device)
+        u = prng.tensor_uniform(key, xp.shape[len(batch):], x.device,
+                                offset)
         tern = (u < torch.abs(xp) / safe).to(torch.float32) * torch.sign(xp)
         enc = flatbuf.unbucketize(
             torch.where(tern < 0, torch.full_like(tern, 2.0), tern), d) \
@@ -341,18 +372,18 @@ class Bernoulli(Compressor):
     name: str = dataclasses.field(default="bernoulli", init=False)
     elementwise: bool = dataclasses.field(default=True, init=False)
 
-    def _draw(self, key, x):
+    def _draw(self, key, x, offset=0):
         return prng.tensor_bernoulli(key, self.q, x.shape[_batch_dims(key):],
-                                     x.device)
+                                     x.device, offset)
 
     def _scaled(self, b, x):
         return torch.where(b, x * _reciprocal(self.q), torch.zeros_like(x))
 
-    def _apply_flat(self, key, x):
-        return self._scaled(self._draw(key, x), x)
+    def _apply_flat(self, key, x, offset=0):
+        return self._scaled(self._draw(key, x, offset), x)
 
-    def _encode_flat(self, key, x):
-        b = self._draw(key, x)
+    def _encode_flat(self, key, x, offset=0):
+        b = self._draw(key, x, offset)
         return BernoulliPayload(pack_bits(_pad_last(b.to(torch.uint8), 8), 1),
                                 self._scaled(b, x), q=self.q)
 
@@ -401,7 +432,7 @@ class RandK(Compressor):
     fraction: float = 0.1
     name: str = dataclasses.field(default="randk", init=False)
 
-    def _encode_flat(self, key, x):
+    def _encode_flat(self, key, x, offset=0):
         d = x.shape[-1]
         if d == 0:
             return _sparse_empty(x)
@@ -438,7 +469,7 @@ class TopK(Compressor):
     fraction: float = 0.1
     name: str = dataclasses.field(default="topk", init=False)
 
-    def _encode_flat(self, key, x):
+    def _encode_flat(self, key, x, offset=0):
         d = x.shape[-1]
         if d == 0:
             return _sparse_empty(x)

@@ -35,6 +35,7 @@ needs an ``average_fn`` whose collective spans the axis
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -101,38 +102,63 @@ def init_state(params_stacked) -> L2GDState:
                      xi_prev=1, step=0)
 
 
+#: elements a client that an update takes at once: its float32
+#: temporaries hold this many a client, not a whole leaf (a layer stack's
+#: leaf of a large model is gigabytes)
+UPDATE_CHUNK = 1 << 24
+
+
+def _by_chunks(fn, x, *others):
+    """A new tensor like the stacked leaf ``x``: ``fn(x, *others)`` of
+    elementwise ops, taken UPDATE_CHUNK elements a client at a time over
+    the flattened leaf (the same bits as in one call).  An ``other`` of
+    one model (no client axis) is broadcast over the clients."""
+    m, size = x.shape[0], math.prod(x.shape[1:])
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    flat = out.view(m, size)
+    xs = x.reshape(m, size)
+    os_ = [o.reshape(m if o.dim() == x.dim() else 1, size) for o in others]
+    for lo in range(0, flat.shape[1], UPDATE_CHUNK):
+        hi = min(lo + UPDATE_CHUNK, flat.shape[1])
+        flat[:, lo:hi] = fn(xs[:, lo:hi], *(o[:, lo:hi] for o in os_))
+    return out
+
+
 def local_update(params_stacked, grads_stacked, hp: L2GDHyper):
     """x_i <- x_i - eta/(n(1-p)) grad f_i(x_i), in float32, rounded once
     to the parameter dtype.  The product is formed in a new buffer and the
-    difference written over it, so the step holds one model-sized
-    temporary, not two."""
+    difference written over it, a chunk of the leaf at a time
+    (UPDATE_CHUNK), so the step holds the new params and one chunk's
+    float32 temporaries."""
     s = float(hp.local_scale)
 
     def one(x, g):
         step = g.to(torch.float32) * s
         return torch.sub(x.to(torch.float32), step, out=step).to(x.dtype)
 
-    return tree_map(one, params_stacked, grads_stacked)
+    return tree_map(lambda x, g: _by_chunks(one, x, g), params_stacked,
+                    grads_stacked)
 
 
 def aggregation_update(params_stacked, target, hp: L2GDHyper, mask=None):
     """x_i <- x_i - (eta lam)/(n p) (x_i - t); t broadcast over the client
     axis.  ``mask`` (optional (n,) 0/1) gates the update per client.  The
-    difference, its scaling and the result share one temporary."""
+    difference, its scaling and the result share one temporary, a chunk
+    of the leaf at a time as :func:`local_update`."""
     c = float(hp.agg_scale)
+    mb = None if mask is None else mask.reshape(-1, 1).to(torch.float32)
 
     def one(x, t):
         xf = x.to(torch.float32)
-        diff = xf - t[None].to(torch.float32)
-        if mask is None:
+        diff = xf - t.to(torch.float32)
+        if mb is None:
             diff.mul_(c)
         else:
-            mb = mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1)) \
-                .to(torch.float32)
             diff.mul_(mb * c)
         return torch.sub(xf, diff, out=diff).to(x.dtype)
 
-    return tree_map(one, params_stacked, target)
+    return tree_map(lambda x, t: _by_chunks(one, x, t), params_stacked,
+                    target)
 
 
 def draw_xi(key, p) -> int:

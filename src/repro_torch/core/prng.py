@@ -265,11 +265,13 @@ def _threefry_tensor(k1, k2, x1, x2):
 DRAW_CHUNK = 1 << 22
 
 
-def _draw(key, shape, device, finish, dtype) -> torch.Tensor:
+def _draw(key, shape, device, finish, dtype, offset=0) -> torch.Tensor:
     """``finish(bits)`` of :func:`random_bits` on ``device``, computed
     DRAW_CHUNK counters at a time into one output of ``dtype``.  In
     partitionable threefry element i depends only on its counter i, so
-    slicing the counter range changes no bit."""
+    slicing the counter range changes no bit, and ``offset`` draws the
+    counters from ``offset`` on: the elements ``offset`` onward of a
+    larger draw with the same key."""
     keys = np.asarray(key, _U32)
     _words(keys)
     batch = keys.shape[:-1]
@@ -280,7 +282,8 @@ def _draw(key, shape, device, finish, dtype) -> torch.Tensor:
     out = torch.empty(batch + (total,), dtype=dtype, device=device)
     for start in range(0, total, DRAW_CHUNK):
         stop = min(start + DRAW_CHUNK, total)
-        count = torch.arange(start, stop, dtype=torch.int64, device=device)
+        count = torch.arange(offset + start, offset + stop,
+                             dtype=torch.int64, device=device)
         y1, y2 = _threefry_tensor(words[..., 0], words[..., 1], count >> 32,
                                   count & _MASK)
         out[..., start:stop] = finish(y1 ^ y2)
@@ -299,16 +302,18 @@ def tensor_bits(key, shape, device=None) -> torch.Tensor:
     return _draw(key, shape, device, lambda bits: bits, torch.int64)
 
 
-def tensor_uniform(key, shape, device=None) -> torch.Tensor:
-    """:func:`uniform` on ``device`` (float32)."""
-    return _draw(key, shape, device, _to_uniform, torch.float32)
+def tensor_uniform(key, shape, device=None, offset=0) -> torch.Tensor:
+    """:func:`uniform` on ``device`` (float32); ``offset``: the draw's
+    counters start there (see ``_draw``)."""
+    return _draw(key, shape, device, _to_uniform, torch.float32, offset)
 
 
-def tensor_bernoulli(key, p, shape, device=None) -> torch.Tensor:
-    """:func:`bernoulli` on ``device`` (``p`` compared in float32)."""
+def tensor_bernoulli(key, p, shape, device=None, offset=0) -> torch.Tensor:
+    """:func:`bernoulli` on ``device`` (``p`` compared in float32);
+    ``offset`` as :func:`tensor_uniform`'s."""
     p32 = float(np.float32(p))
     return _draw(key, shape, device, lambda bits: _to_uniform(bits) < p32,
-                 torch.bool)
+                 torch.bool, offset)
 
 
 def _to_normal(bits: torch.Tensor) -> torch.Tensor:

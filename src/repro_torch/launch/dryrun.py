@@ -7,12 +7,15 @@ device, with no allocation and no process group:
   * the bytes a process holds: the train state (client-stacked params
     and the cache), the serving params, and the decode caches, each leaf
     divided by the mesh axes its spec names.  For the train state this is
-    the layout at rest, between steps; within a step the port's 2-D
-    engine (``launch.steps.build_sharded_rollout_fn``) gathers its client
-    row's whole models and computes their whole gradient, so a train
-    record also gives ``engine_step_bytes_per_process``: the state at
-    rest plus one whole model and one whole gradient a client of the row
-    (the model axis divides the state at rest, not a step's peak);
+    the layout at rest, between steps.  A train record's
+    ``engine_step_bytes_per_process`` is the most that a step of the
+    port's 2-D engine (``launch.steps.build_sharded_rollout_fn``) holds
+    a process, activations left out (:func:`engine_step_bytes`): a local
+    step adds the gradient's blocks and one layer gathered whole at a
+    time, an aggregation step the leafwise average's blocks and one leaf
+    piece whole at a time.  That holds for the leafwise uplink the record
+    prices; a flat or packed uplink (or a fleet) gathers the row's whole
+    models for the aggregation;
   * the aggregation collective's bytes a round: each client's uplink
     message is ``round_bits() / 8`` bytes, and the payload ``all_gather``
     delivers all n of them to every process;
@@ -36,6 +39,7 @@ import os
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, ArchConfig, get_config
 from repro_torch.core import make_compressor, make_plan
+from repro_torch.core.l2gd import UPDATE_CHUNK
 from repro_torch.core.tree import spec_leaves, tree_leaves
 from repro_torch.launch.roofline import (analytic_flops, model_flops,
                                          roofline_terms)
@@ -43,8 +47,10 @@ from repro_torch.launch.sharding import (cache_pspecs, param_pspecs,
                                          train_state_pspecs)
 from repro_torch.launch.steps import (cache_specs, param_shapes,
                                       state_specs)
+from repro_torch.models.model import layer_stacks
 
-__all__ = ["n_params_active", "sharded_bytes", "dry_run", "main"]
+__all__ = ["n_params_active", "sharded_bytes", "engine_step_bytes",
+           "dry_run", "main"]
 
 
 def production_cfg(cfg: ArchConfig) -> ArchConfig:
@@ -107,6 +113,54 @@ def sharded_bytes(tree, spec_tree, axis_sizes: dict) -> int:
     return int(total)
 
 
+def _nbytes(tree) -> int:
+    return sum(a.numel() * a.element_size() for a in tree_leaves(tree))
+
+
+def engine_step_bytes(cfg: ArchConfig, params_bytes: int, cache_bytes: int,
+                      n_clients: int, m: int = 1, codec=None) -> int:
+    """The most a 2-D engine step holds a process, activations left out,
+    for ``n_clients`` clients, ``m`` of them on each client row, and a
+    leafwise uplink of ``codec`` (natural if None).  With P =
+    ``params_bytes`` and C = ``cache_bytes`` (this process's blocks of
+    the state at rest) and U the updates' float32 work on one chunk (2 x
+    m x ``l2gd.UPDATE_CHUNK`` x 4 bytes), the larger of:
+
+    * a local step, 2P + C + max(G, P + U): the state, the gradient's
+      blocks, and the larger of what the layer loop gathers (G: the
+      largest layer whole with its whole gradient, and the tied table
+      whole with its gradient; an encoder-decoder layer counts its
+      cross-attention) and the new params with U;
+    * an aggregation step, P + C + P/m + max(P + U, R + T): the state,
+      the target's blocks, and the larger of the new params with U and
+      what the average holds besides (R: the clients' compressed blocks,
+      P on one client row, none on several; T: the largest leaf piece S,
+      a layer of a layer stack's leaf or another leaf whole, at four
+      float32 copies for the row's m clients, 16 m S bytes, plus on
+      several rows the n clients' payloads of it)."""
+    shapes = param_shapes(cfg)
+    stacks = layer_stacks(cfg)
+    codec = codec or make_compressor("natural")
+    # a stack's leaves carry its layers on their first axis
+    layer = {key: _nbytes(shapes[key])
+             // tree_leaves(shapes[key])[0].shape[0] for key in stacks}
+    if cfg.is_encdec:
+        layer["layers"] += layer.pop("cross")
+    gathered = 2 * (max(layer.values()) + _nbytes(shapes["embed"]))
+    piece = max(a.numel() // (a.shape[0] if key in stacks else 1)
+                for key in shapes for a in tree_leaves(shapes[key]))
+    work = 2 * m * UPDATE_CHUNK * 4
+    several = n_clients > m
+    transient = 16 * m * piece + (n_clients * codec.payload_spec(
+        (piece,)).nbits / 8 if several else 0)
+    local = 2 * params_bytes + cache_bytes \
+        + max(gathered, params_bytes + work)
+    agg = params_bytes + cache_bytes + params_bytes // m + max(
+        params_bytes + work,
+        (0 if several else params_bytes) + transient)
+    return int(max(local, agg))
+
+
 def _mesh_axes(mesh: tuple) -> dict:
     """(clients, model) or (pod, data, model) sizes by name."""
     if len(mesh) == 3:
@@ -139,10 +193,8 @@ def dry_run(arch: str, shape_name: str, mesh=(16, 16)) -> dict:
         mem["params_bytes"] = sharded_bytes(state.params, specs.params,
                                             sizes)
         mem["cache_bytes"] = sharded_bytes(state.cache, specs.cache, sizes)
-        whole = sum(a.numel() * a.element_size()
-                    for a in tree_leaves(state.cache))
-        rec["engine_step_bytes_per_process"] = \
-            sum(mem.values()) + 2 * whole   # one client a row here
+        rec["engine_step_bytes_per_process"] = engine_step_bytes(
+            cfg, mem["params_bytes"], mem["cache_bytes"], n_clients)
         bits = make_plan(make_compressor("natural"), param_shapes(cfg),
                          transport="leafwise").round_bits()
         rec["aggregation"] = {

@@ -183,7 +183,9 @@ def _rank_main(fn, rank, world, store_path, args, results):
 def run_cpu_ranks(fn, world: int, *args) -> list:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned CPU processes
     joined in one gloo group (a ``FileStore`` in a temporary directory);
-    returns the results by rank.  ``fn`` and ``args`` must pickle (a
+    returns the results by rank.  Gloo takes CUDA tensors too, so ``fn``
+    may put its mesh on the card: several processes then share one card,
+    which NCCL refuses.  ``fn`` and ``args`` must pickle (a
     module-level function) and results should be numpy or plain Python.
     A rank that raises stops every rank and raises here with its
     traceback; so does a rank that dies, or RANK_TIMEOUT seconds."""

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.codec import CompressionPlan, make_plan
-from repro_torch.core.collective import MeshAxis
+from repro_torch.core.collective import (MeshAxis, block_of, gather_blocks,
+                                         whole_of)
 from repro_torch.core.compressors import Identity
 from repro_torch.core.l2gd import L2GDHyper, L2GDState, l2gd_step
 from repro_torch.core.rollout import rollout_l2gd
@@ -46,11 +47,11 @@ from repro_torch.fl.fleet import FleetPlan, fleet_from_plans, resolve_uplink
 from repro_torch.models import (blocks, decode_step, hidden, init_caches,
                                 init_params)
 from repro_torch.models import loss_fn as model_loss_fn
-from repro_torch.models.model import layer_stacks
+from repro_torch.models.model import layer_stacks, model_shards
 
 __all__ = ["param_shapes", "stacked_param_shapes", "stacked_grad_fn",
-           "stacked_loss_fn", "input_specs", "state_specs", "cache_specs",
-           "build_train_step", "build_rollout_fn", "build_async_rollout_fn",
+           "stacked_loss_fn", "lacks_remat", "input_specs", "state_specs",
+           "cache_specs", "build_train_step", "build_rollout_fn", "build_async_rollout_fn",
            "build_sharded_rollout_fn", "build_average_fn",
            "checkpointed_rollout", "build_prefill_step", "build_serve_step"]
 
@@ -149,7 +150,11 @@ def stacked_grad_fn(cfg: ArchConfig):
     leaf's gradient is copied into the stacked tensor as soon as the
     backward has it and then dropped: a layer's weight gradients do not
     wait out the rest of the backward (the values are autograd's, bit for
-    bit)."""
+    bit).  Inside the 2-D engine's :func:`repro_torch.models.model.
+    model_shards` scope the params are this process's blocks of a
+    model-sharded tree: the model makes each layer whole as it runs it,
+    the leaves' gradients arrive already cut to the blocks, and the
+    returned gradients are blocks too."""
     stacks = layer_stacks(cfg)
 
     def grad_fn(params, batch):
@@ -181,7 +186,8 @@ def stacked_grad_fn(cfg: ArchConfig):
 
 def stacked_loss_fn(cfg: ArchConfig):
     """``loss_fn(params, batch) -> losses (n,)``: the clients' losses
-    without autograd (the aggregation branches')."""
+    without autograd (the aggregation branches'); on blocks within
+    ``model_shards`` as :func:`stacked_grad_fn`."""
 
     @torch.no_grad()
     def loss_fn(params, batch):
@@ -358,6 +364,14 @@ def build_average_fn(*args, uplink="wire", kind: str = None, **kwargs):
                      f"got {uplink!r}")
 
 
+def lacks_remat(cfg: ArchConfig, model_shards: int) -> bool:
+    """Whether the 2-D engine refuses ``cfg`` on ``model_shards`` model
+    shards: more than one gathers each layer inside the layer loop, which
+    frees the whole weights after the layer's forward only under remat
+    (remat changes no bit)."""
+    return model_shards > 1 and not cfg.remat
+
+
 class _ModelShards:
     """The 2-D engine's view of one tree on the ``model`` axis: each leaf
     cut on the dim its spec names "model" (if any), this process's
@@ -370,20 +384,29 @@ class _ModelShards:
     def full(self, tree):
         """Every leaf whole: the model shards gathered (one process a
         shard: the leaf itself)."""
-        if self.axis.size == 1:
-            return tree
-        return _zip_dims(lambda a, d: a if d is None else torch.cat(
-            list(self.axis.all_gather(a).unbind(0)), dim=d),
-            tree, self.dims)
+        return _zip_dims(lambda a, d: whole_of(a, self.axis, d), tree,
+                         self.dims)
 
     def local(self, tree):
         """This process's block of each whole leaf."""
-        if self.axis.size == 1:
-            return tree
-        size, idx = self.axis.size, self.axis.index
-        return _zip_dims(lambda a, d: a if d is None else a.narrow(
-            d, idx * (a.shape[d] // size), a.shape[d] // size).contiguous(),
-            tree, self.dims)
+        return _zip_dims(lambda a, d: block_of(a, self.axis, d), tree,
+                         self.dims)
+
+    def layer_gather(self, cfg: ArchConfig):
+        """The ``whole(key, tree)`` of :func:`repro_torch.models.model.
+        model_shards` for a one-model tree of these specs: a layer
+        stack's dims less its layer axis, each leaf through
+        :func:`repro_torch.core.collective.gather_blocks`."""
+        stacks = layer_stacks(cfg)
+        dims = {key: _zip_dims(lambda _, d: d if d is None or key not in
+                               stacks else d - 1, val, val)
+                for key, val in self.dims.items()}
+
+        def whole(key, tree):
+            return _zip_dims(lambda a, d: gather_blocks(a, self.axis, d),
+                             tree, dims[key])
+
+        return whole
 
 
 def _spec_dims(specs):
@@ -415,25 +438,38 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
     is the 2-D engine.  Each process holds its client row's clients, and
     each leaf cut on "model" by ``launch.sharding.train_state_pspecs``
     (the cache too).  The reference lets GSPMD partition the stacked
-    scan; the port keeps its kernels on whole local tensors instead: a
-    step gathers the model shards of its clients' leaves (one process a
-    shard: no gather), computes the loss and the gradient on whole
-    leaves, and keeps this process's block of the gradient.  Every model
-    shard of a row sees the row's full batch, so each computes the same
-    whole gradient and no reduce is needed.  The model axis therefore
-    divides the state between steps, not a step's peak memory or its
-    FLOPs (``launch.dryrun``'s ``engine_step_bytes_per_process``).  The
-    aggregation encodes whole
-    leaves (the codecs' buckets and threefry counters run over the whole
-    leaf): one client row is the stacked ``compressed_average`` itself;
-    several rows gather their clients' payloads over ``clients``
-    (:func:`repro_torch.core.aggregation.make_client_sharded_average`).
-    Every replicated value (target, losses) is computed from the same
-    gathered tensors in the same order on every process.  Contract: on
-    one client row the params, cache, losses and xis equal
-    :func:`build_rollout_fn`'s bit for bit at any number of model shards
-    (the (1, 1) mesh keystone included); on several rows params, cache and
-    xis do, the losses to their summation order.
+    scan; the port keeps its kernels on whole tensors instead, one layer
+    at a time.  The step runs the model inside
+    :func:`repro_torch.models.model.model_shards`: each layer's
+    leaves (and the tied table, at its two points of use) are gathered
+    whole only while that layer runs, inside the function that remat
+    checkpoints, so the backward's recompute gathers them again, and the
+    gather's backward keeps this process's block of the layer's whole
+    gradient.  Every model shard of a row sees the row's full batch, so
+    each computes the same whole gradient and no reduce is needed.  A
+    process thus holds its blocks of the state and of the gradient, one
+    layer whole with its gradient, and the table whole with its gradient
+    (``launch.dryrun``'s ``engine_step_bytes_per_process``); on more
+    than one model shard remat is required (a ValueError without it).
+    The model axis divides a step's memory, not its FLOPs: every shard
+    runs its row's whole products (the reference's GSPMD divides those
+    too).  The aggregation's codecs see whole leaves (their buckets and
+    threefry counters run over the whole leaf).  With a leafwise uplink
+    it goes a leaf piece at a time, a layer stack's leaf a layer at a
+    time (its counters at their offsets in the whole leaf), each piece
+    made whole, compressed and cut back to the block: one client row is
+    the stacked ``compressed_average``, several rows gather their
+    clients' payloads over ``clients`` as :func:`repro_torch.core.
+    aggregation.make_client_sharded_average` does, both given the
+    engine's :class:`repro_torch.core.aggregation.ModelCut`.  A flat or
+    packed uplink, or a fleet, spans the leaves and still gathers the
+    row's whole models for the aggregation.  Every replicated value (target,
+    losses) is computed from the same gathered tensors in the same order
+    on every process.  Contract: on one client row the params, cache,
+    losses and xis equal :func:`build_rollout_fn`'s bit for bit at any
+    number of model shards (the (1, 1) mesh keystone included); on
+    several rows params, cache and xis do, the losses to their summation
+    order.
 
     Plans for plain compressors are leafwise; a FleetPlan keeps its
     cohorts' transports.  Returns ``rollout(state, batches, key) ->
@@ -443,7 +479,7 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
     ``train_batch_shardings``); the returned state is this process's
     part, and ``rollout.full_state(state)`` gathers it whole on every
     process."""
-    from repro_torch.core.aggregation import (compressed_average,
+    from repro_torch.core.aggregation import (ModelCut, compressed_average,
                                               make_client_sharded_average)
     from repro_torch.core.rollout import _cut_clients, rollout_l2gd_sharded
     from repro_torch.launch.mesh import model_shards_of
@@ -475,22 +511,44 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
         return rollout
 
     msize = model_shards_of(mesh)
+    if lacks_remat(cfg, msize):
+        raise ValueError(
+            f"the 2-D engine on {msize} model shards gathers each layer "
+            "inside the layer loop and drops it after the layer's forward, "
+            "which needs remat: with cfg.remat off autograd would keep "
+            "every layer's gathered weights (set remat=True)")
     stacked = stacked_param_shapes(cfg, n)
     p_specs = param_pspecs(stacked, msize, client_axes=(axis_name,))
     c_specs = param_pspecs(shapes, msize, client_axes=())
     p_shards = _ModelShards(mesh, p_specs)
     c_shards = _ModelShards(mesh, c_specs)
+    layer_gather = c_shards.layer_gather(cfg)
+    leafwise = isinstance(up_plan, CompressionPlan) \
+        and up_plan.transport == "leafwise"
+    # leafwise plans average the blocks a leaf piece at a time; a
+    # transport that spans leaves takes the clients' whole models
+    stacks = layer_stacks(cfg)
+    cut = ModelCut(p_shards.axis, tuple(tree_leaves(p_shards.dims)), tuple(
+        tree_leaves({key: _zip_dims(lambda _, d: key in stacks, val, val)
+                     for key, val in p_shards.dims.items()}))) \
+        if leafwise else None
     sharded_avg = None if clients.size == 1 else \
-        make_client_sharded_average(clients, n, up_plan, down_plan)
+        make_client_sharded_average(clients, n, up_plan, down_plan, cut)
 
     def grad2d(params, batch):
-        losses, grads = grad_fn(p_shards.full(params), batch)
-        return losses, p_shards.local(grads)
+        with model_shards(layer_gather):
+            return grad_fn(params, batch)
 
     def loss2d(params, batch):
-        return loss_fn(p_shards.full(params), batch)
+        with model_shards(layer_gather):
+            return loss_fn(params, batch)
 
     def average2d(key, params, mask=None):
+        if leafwise and sharded_avg is None:
+            return compressed_average(key, params, up_plan, down_plan,
+                                      mask=mask, cut=cut)
+        if leafwise:
+            return sharded_avg(key, params, mask)
         full = p_shards.full(params)
         if sharded_avg is None:
             target = compressed_average(key, full, up_plan, down_plan,

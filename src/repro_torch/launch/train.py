@@ -152,15 +152,24 @@ def run_mesh2d(args, cfg, hp, params, comp, mcomp, batch, n: int,
     """The 2-D mesh engine leg of the CLI: ONE ``build_sharded_rollout_fn``
     call over the whole run on ``make_train_mesh(model_shards=...)`` (the
     group's processes), the ledger replayed from the trace with leafwise
-    plans, tokens/s printed by rank 0."""
+    plans, tokens/s printed by rank 0.  More model shards divide a
+    step's memory (each layer is gathered whole only while it runs; remat
+    is required) but not its FLOPs: every shard runs its row's whole
+    products."""
     from repro_torch.core import init_state, make_plan
     from repro_torch.fl.ledger import BitsLedger
     from repro_torch.launch.mesh import make_train_mesh, model_shards_of
-    from repro_torch.launch.steps import build_sharded_rollout_fn
+    from repro_torch.launch.steps import build_sharded_rollout_fn, lacks_remat
 
     mesh = make_train_mesh(model_shards=args.model_shards, device=device)
     lead = _is_lead()
     say = print if lead else (lambda *a, **k: None)
+    if lacks_remat(cfg, model_shards_of(mesh)):
+        # the reduced configs run without remat, which the engine refuses
+        # on more than one model shard (it changes no bit)
+        say(f"mesh2d: remat on ({cfg.remat_policy}), which "
+            f"{model_shards_of(mesh)} model shards need", flush=True)
+        cfg = dataclasses.replace(cfg, remat=True)
     clients_axis = mesh.shape[mesh.mesh_dim_names.index("clients")]
     say(f"mesh2d: clients axis={clients_axis} "
         f"model shards={model_shards_of(mesh)} dtype={cfg.param_dtype} "

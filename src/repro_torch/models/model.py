@@ -39,6 +39,14 @@ reference's.  Its decode caches are {"self": KV cache, "cross_k",
 the reference does, and nothing here fills them: a caller fills them
 from ``encoder_forward`` (the reference's tests do the same).
 
+Within :func:`model_shards` (the 2-D engine on a ``model`` axis,
+``launch.steps.build_sharded_rollout_fn``) the parameters passed in are
+this process's blocks: each layer's are made whole at the start of the
+layer body, inside the function that remat checkpoints, so the
+recompute gathers them again and no op saves the whole weights; the tied
+table is made whole at each of its points of use (the embedding and the
+unembedding).
+
 Public API:
   init_params(generator, cfg, device)    -> params
   forward(params, cfg, batch)            -> (logits, aux_loss)
@@ -52,9 +60,11 @@ Public API:
                                             cross caches a layer)
   encoder_forward(params, cfg, frames)   -> the encoder's output
   decode_step(params, cfg, caches, index, batch) -> (logits, caches)
+  model_shards(whole)                    -> the 2-D engine's gather scope
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -71,7 +81,7 @@ from repro_torch.models import moe as moe_lib
 
 __all__ = ["init_params", "forward", "hidden", "loss_fn", "layer_kinds",
            "layer_stacks", "init_caches", "decode_step", "param_count",
-           "encoder_forward"]
+           "encoder_forward", "model_shards"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -245,6 +255,33 @@ def _layers(stacked: dict, n: int) -> list:
     return [{key: part[i] for key, part in parts.items()} for i in range(n)]
 
 
+#: set by :func:`model_shards`: ``whole(key, tree)`` or None.  A module
+#: global, not a ContextVar: the backward's recompute runs on autograd's
+#: own thread on the card, and must gather there too
+_WHOLE = None
+
+
+@contextlib.contextmanager
+def model_shards(whole):
+    """Within the block, the forward makes its parameters whole with
+    ``whole(key, tree)``: ``key`` is a top-level key of the parameter
+    tree and ``tree`` its subtree of this process's blocks, one layer's
+    dict for a layer stack (``layer_stacks``); ``whole`` returns the
+    tree with each leaf whole.  A layer's call runs inside the layer
+    body (and again in its recompute under remat), the table's at the
+    embedding and at the unembedding."""
+    global _WHOLE
+    before, _WHOLE = _WHOLE, whole
+    try:
+        yield
+    finally:
+        _WHOLE = before
+
+
+def _whole(key: str, tree):
+    return tree if _WHOLE is None else _WHOLE(key, tree)
+
+
 def _remat(cfg: ArchConfig, params):
     """The layers' checkpoint policy when a backward follows (autograd
     on, some parameter requiring grad) and ``cfg.remat`` asks for one:
@@ -318,7 +355,8 @@ def _add(total, part):
 
 
 def _decoder_layer(cfg: ArchConfig, kind: LayerKind, lp: dict, x, positions,
-                   mask, impl):
+                   mask, impl, stack: str):
+    lp = _whole(stack, lp)
     h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     x = x + _apply_mixer(cfg, lp, h, positions, mask, impl)
     return _apply_ffn(cfg, lp, x, kind.ffn)
@@ -361,6 +399,7 @@ def _run(layer, remat, *args):
 
 
 def _encoder_layer(cfg: ArchConfig, lp: dict, h):
+    lp = _whole("encoder", lp)
     # the reference normalizes ln1 twice from one input: once is the same
     x = blocks.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     h = h + attn.mha_attention(lp["attn"], x, x, n_heads=cfg.n_heads,
@@ -384,6 +423,7 @@ def encoder_forward(params, cfg: ArchConfig, frames):
 def _encdec_layer(cfg: ArchConfig, lp: dict, cp: dict, h, enc_out, mask):
     """A decoder layer: masked self-attention, cross-attention over the
     encoder's output, the MLP."""
+    lp, cp = _whole("layers", lp), _whole("cross", cp)
     x = blocks.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     h = h + attn.mha_attention(lp["attn"], x, x, n_heads=cfg.n_heads,
                                head_dim=cfg.hd, mask=mask)[0]
@@ -397,7 +437,8 @@ def _encdec_hidden(params, cfg: ArchConfig, batch):
     enc_out = encoder_forward(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = blocks.embed(params["embed"], tokens).to(_DTYPES[cfg.compute_dtype])
+    x = blocks.embed(_whole("embed", params["embed"]), tokens) \
+        .to(_DTYPES[cfg.compute_dtype])
     x = x + blocks.sinusoidal_positions(S, cfg.d_model,
                                         x.device)[None].to(x.dtype)
     mask = attn.causal_mask(S, S, device=x.device)
@@ -416,7 +457,7 @@ def _hidden_aux(params, cfg: ArchConfig, batch):
         return _encdec_hidden(params, cfg, batch), None
     tokens = batch["tokens"]
     cdt = _DTYPES[cfg.compute_dtype]
-    x = blocks.embed(params["embed"], tokens).to(cdt)
+    x = blocks.embed(_whole("embed", params["embed"]), tokens).to(cdt)
     if cfg.frontend == "vision" and "patches" in batch:
         x = torch.cat([batch["patches"].to(cdt), x], dim=1)
     B, S, _ = x.shape
@@ -435,7 +476,7 @@ def _hidden_aux(params, cfg: ArchConfig, batch):
         for lp, kind in zip(_layers(params[group], len(kinds)), kinds):
             mask = global_mask if kind.is_global else local_mask
             x, layer_aux = _run(_decoder_layer, remat, cfg, kind, lp, x,
-                                positions, mask, impl)
+                                positions, mask, impl, group)
             group_aux = _add(group_aux, layer_aux)
         aux = _add(aux, group_aux)
     return blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -449,7 +490,7 @@ def forward(params, cfg: ArchConfig, batch):
     x, aux = _hidden_aux(params, cfg, batch)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return blocks.unembed(params["embed"], x), aux
+    return blocks.unembed(_whole("embed", params["embed"]), x), aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch):

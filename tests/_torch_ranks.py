@@ -125,8 +125,9 @@ def _tiny_lm(dtype="float32", remat_policy="full"):
 
 def mesh2d_rollouts(rank, world, params_np, tokens_np, key):
     """The 2-D engine of the tiny LM on a (1, world) and a (world, 1) mesh
-    (natural both ways, leafwise), each against build_rollout_fn run
-    in-process, and the sharding helpers on the (1, world) mesh."""
+    (natural both ways, leafwise; remat on, which the engine needs on more
+    than one model shard), each against build_rollout_fn run in-process
+    without remat, and the sharding helpers on the (1, world) mesh."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import init_state, make_compressor, make_hyper
     from repro_torch.core.tree import tree_leaves
@@ -151,7 +152,8 @@ def mesh2d_rollouts(rank, world, params_np, tokens_np, key):
            "ref_cache": [a.numpy() for a in tree_leaves(ref.cache)]}
     for shape in ((1, world), (world, 1)):
         mesh = make_mesh(shape, ("clients", "model"), "cpu")
-        roll = build_sharded_rollout_fn(cfg, hp, mesh=mesh, **kw)
+        roll = build_sharded_rollout_fn(dataclasses.replace(cfg, remat=True),
+                                        hp, mesh=mesh, **kw)
         st, tr = roll(init_state(params), batches, key)
         full = roll.full_state(st)
         out[shape] = {
@@ -172,4 +174,163 @@ def mesh2d_rollouts(rank, world, params_np, tokens_np, key):
                                  for a in tree_leaves(state.params)]
     bl = sharding.train_batch_shardings(mesh, batches)
     out["batch_local_shape"] = tuple(bl["tokens"].shape)
+    return out
+
+
+def _same_bits(a, b):
+    """Every leaf of two float32 trees equal bit for bit (NaNs too)."""
+    from repro_torch.core.tree import tree_leaves
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def whole_tree_average(key, tree, plan, mask=None, guarded=True):
+    """The leafwise average written as one call a tree: every client's
+    whole tree through ``plan`` (keys of the global schedule), the mean
+    over clients (``guarded``: clients with a non-finite leaf leave it
+    unless all are finite, as one client row averages; else the plain
+    masked mean of the decoded payloads, as several rows do), then C_M on
+    the whole mean."""
+    from repro_torch.core import prng
+    from repro_torch.core.aggregation import (all_finite, masked_client_mean,
+                                              stacked_finite_mask,
+                                              weighted_client_sum)
+    from repro_torch.core.tree import tree_leaves, tree_map
+    n = tree_leaves(tree)[0].shape[0]
+    k_clients, k_master = prng.split(key)
+    keys = prng.split(k_clients, n)
+    if not guarded:
+        ybar = masked_client_mean(plan.decode(plan.encode(keys, tree)), mask)
+        return plan.apply(k_master, ybar)
+    c = plan.apply(keys, tree)
+    fin = stacked_finite_mask(c)
+    w = fin if mask is None else mask.to(torch.float32) * fin
+    safe = torch.where(w.sum() > 0, w.sum(), torch.ones(()))
+    plain = masked_client_mean(c, mask)
+    ybar = plain if bool(all_finite(fin)) else tree_map(
+        lambda s_: s_ / safe.to(s_.dtype), weighted_client_sum(c, w))
+    return plan.apply(k_master, ybar)
+
+
+def _peak_of(fn):
+    """(fn(), the most bytes of gathered whole tensors that it made alive
+    at once, over those alive before it ran)."""
+    from repro_torch.core.collective import GATHERED, reset_gathered
+    reset_gathered()
+    before = GATHERED["live"]
+    out = fn()
+    return out, GATHERED["peak"] - before
+
+
+def mesh2d_layer_runs(rank, world, cases, key, local_key, agg_vocab):
+    """For each case (name, arch, config changes, remat policy, stacked
+    numpy params, numpy batches over steps): build_rollout_fn (remat off)
+    and the 2-D engine on a (1, world) mesh (remat on), the engine's
+    gathered state; then the engine's peak of gathered bytes over one
+    local step (``local_key`` draws xi 0 first), and the leafwise average
+    a leaf piece at a time against the whole-tree averages (one row;
+    several rows' path on the size-1 clients axis) with the first case's
+    config at vocab ``agg_vocab``, natural and QSGD, unmasked and masked,
+    on its seeded params and with client 1's table made non-finite in one
+    element; and the engine's error with remat off."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import init_state, make_compressor, make_hyper
+    from repro_torch.core import make_plan
+    from repro_torch.core.aggregation import (ModelCut, compressed_average,
+                                              make_client_sharded_average)
+    from repro_torch.core.collective import MeshAxis
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import (_ModelShards, build_rollout_fn,
+                                          build_sharded_rollout_fn,
+                                          param_shapes, stacked_param_shapes)
+    from repro_torch.launch.train import init_stacked_params
+    from repro_torch.models.model import layer_stacks
+    init_process_group("cpu")
+    mesh = make_mesh((1, world), ("clients", "model"), "cpu")
+    comp = make_compressor("natural")
+    out = {}
+    for name, arch, changes, policy, params_np, batches_np in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+        engine_cfg = dataclasses.replace(cfg, remat=True,
+                                         remat_policy=policy)
+        n = next(iter(batches_np.values())).shape[1]
+        length = next(iter(batches_np.values())).shape[0]
+        hp = make_hyper(eta=0.1, lam=0.5, p=0.5, n=n)
+        kw = dict(client_comp=comp, master_comp=comp, length=length)
+        params = params_from_numpy(params_np)
+        batches = {k: torch.from_numpy(v) for k, v in batches_np.items()}
+        ref, rtr = build_rollout_fn(cfg, hp, **kw)(init_state(params),
+                                                  batches, key)
+        roll = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh, **kw)
+        st, tr = roll(init_state(params), batches, key)
+        full = roll.full_state(st)
+        one = dict(kw, length=1)
+        local = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh, **one)
+        (_, ltr), step_peak = _peak_of(lambda: local(
+            init_state(params), tree_map(lambda a: a[:1], batches),
+            local_key))
+        out[name] = {
+            "ref_xis": rtr.xis, "ref_branches": rtr.branches,
+            "ref_losses": rtr.losses.numpy(),
+            "ref_params": [a.numpy() for a in tree_leaves(ref.params)],
+            "ref_cache": [a.numpy() for a in tree_leaves(ref.cache)],
+            "xis": tr.xis, "losses": tr.losses.numpy(),
+            "params": [a.numpy() for a in tree_leaves(full.params)],
+            "cache": [a.numpy() for a in tree_leaves(full.cache)],
+            "local_shapes": [tuple(a.shape) for a in tree_leaves(st.params)],
+            "local_branches": ltr.branches, "step_peak": step_peak}
+    # the aggregation a leaf piece at a time, on a narrow-vocab case of the
+    # first family (a layer of a stack outweighs the table), natural and
+    # QSGD (its buckets divide a layer)
+    name, arch, changes, _, params_np, _ = cases[0]
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              **dict(changes, vocab_size=agg_vocab))
+    n = tree_leaves(params_np)[0].shape[0]
+    shapes = param_shapes(cfg)
+    p_specs = sharding.param_pspecs(stacked_param_shapes(cfg, n), world,
+                                    client_axes=("clients",))
+    p_shards = _ModelShards(mesh, p_specs)
+    c_shards = _ModelShards(
+        mesh, sharding.param_pspecs(shapes, world, client_axes=()))
+    stacks = layer_stacks(cfg)
+    cut = ModelCut(p_shards.axis, tuple(tree_leaves(p_shards.dims)),
+                   tuple(tree_leaves({k: tree_map(lambda _: k in stacks, v)
+                                      for k, v in shapes.items()})))
+    clients = MeshAxis(mesh, "clients")
+    whole = init_stacked_params(cfg, n, 0, "cpu")
+    poisoned = tree_map(lambda a: a.clone(), whole)
+    poisoned["embed"]["table"][1, 0, 0] = float("inf")
+    agg = {}
+    for codec in ("natural", "qsgd"):
+        plan = make_plan(make_compressor(codec), shapes,
+                         transport="leafwise")
+        for what, tree in (("finite", whole), ("non-finite", poisoned)):
+            local = p_shards.local(tree)
+            for mask in (None, torch.tensor([1.0] + [0.0] * (n - 1))):
+                want = c_shards.local(whole_tree_average(key, tree, plan,
+                                                         mask))
+                got, peak = _peak_of(lambda: compressed_average(
+                    key, local, plan, plan, mask=mask, cut=cut))
+                rows_want = c_shards.local(whole_tree_average(
+                    key, tree, plan, mask, guarded=False))
+                rows, rows_peak = _peak_of(
+                    lambda: make_client_sharded_average(
+                        clients, n, plan, plan, cut)(key, local, mask))
+                agg[(codec, what, mask is not None)] = {
+                    "equal": _same_bits(got, want),
+                    "rows_equal": _same_bits(rows, rows_want),
+                    "finite": all(bool(torch.isfinite(a).all())
+                                  for a in tree_leaves(got)),
+                    "peak": peak, "rows_peak": rows_peak}
+    out["aggregation"] = agg
+    try:
+        build_sharded_rollout_fn(cfg, make_hyper(0.1, 0.5, 0.5, n),
+                                 mesh=mesh, client_comp=comp,
+                                 master_comp=comp)
+        out["remat_off"] = None
+    except ValueError as e:
+        out["remat_off"] = str(e)
     return out

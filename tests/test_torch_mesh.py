@@ -31,6 +31,7 @@ from repro.launch import steps as jsteps
 from repro.models import init_caches as jinit_caches
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.core import make_compressor, make_plan
+from repro_torch.core.l2gd import UPDATE_CHUNK
 from repro_torch.core.tree import spec_leaves, tree_leaves
 from repro_torch.launch import dryrun, mesh, roofline, sharding, steps
 from repro_torch.models import param_count
@@ -263,10 +264,40 @@ def test_roofline_and_dry_run(arch):
     assert rec["memory_per_process"]["params_bytes"] == \
         dryrun.sharded_bytes(state.params, specs.params,
                              {"data": 16, "model": 16})
-    # a step of the 2-D engine holds the row's whole model and gradient
-    whole = total // 16
-    assert rec["engine_step_bytes_per_process"] == \
-        sum(rec["memory_per_process"].values()) + 2 * whole
+    # a step of the 2-D engine, activations left out: a local step holds
+    # the state and the gradient's blocks, plus the largest layer and the
+    # table whole with their gradients or the new blocks with the
+    # updates' float32 work on a chunk, whichever is more; an aggregation
+    # step on 16 rows of one client the state and the target's blocks,
+    # plus the new blocks with that work or the largest leaf piece (a
+    # layer of a stack's leaf) at four float32 copies with the 16
+    # clients' natural payloads of it, whichever is more
+    shapes = steps.param_shapes(cfg16)
+    nbytes = lambda tree: sum(a.numel() * a.element_size()
+                              for a in tree_leaves(tree))
+    depth = {"layers": cfg16.n_layers - cfg16.first_dense_layers,
+             "dense_layers": cfg16.first_dense_layers,
+             "encoder": cfg16.encoder_layers}
+    layer = max(nbytes(shapes[g]) // n for g, n in depth.items()
+                if g in shapes)
+    if cfg16.is_encdec:
+        layer = max(layer, (nbytes(shapes["layers"]) + nbytes(shapes["cross"]))
+                    // cfg16.n_layers)
+    mem = rec["memory_per_process"]
+    params, cache = mem["params_bytes"], mem["cache_bytes"]
+    work = 2 * UPDATE_CHUNK * 4
+    local = 2 * params + cache + max(2 * (layer + nbytes(shapes["embed"])),
+                                     params + work)
+    stacked = set(depth) | {"cross"}
+    piece = max(a.numel() // (a.shape[0] if g in stacked else 1)
+                for g in shapes for a in tree_leaves(shapes[g]))
+    transient = 16 * piece + 16 * (piece + -(-piece // 8))
+    agg = 2 * params + cache + max(params + work, transient)
+    assert rec["engine_step_bytes_per_process"] == max(local, agg)
+    # below what gathering the row's whole models held: the state, the
+    # whole model and its gradient, and the 16 clients' whole payloads
+    assert rec["engine_step_bytes_per_process"] < \
+        sum(mem.values()) + 2 * total // 16 + 16 * up / 8
     if arch == "mistral-large-123b":
         # 122.2 B bf16 params over 16 clients: one client's model a
         # client row, cut 16 ways over "model"
