@@ -90,9 +90,9 @@ these phases and fails (non-zero exit, no result line) on any error:
            276,824,064 elements) against its plain version and its
            bound, and the threefry draw that feeds it (again after each
            MoE train run below, on its expert stack);
-  train (Mamba)  hymba-1.5b at full width and depth (32 hybrid layers,
-           leafwise natural) and falcon-mamba-7b at full width and 4 of
-           its 64 layers (leafwise QSGD), as the train phase: the scan
+  train (Mamba)  hymba-1.5b at full width and 16 of its 32 hybrid
+           layers (leafwise natural) and falcon-mamba-7b at full width and
+           4 of its 64 layers (leafwise QSGD), as the train phase: the scan
            forward 2 clients x layers x (5 steps + 2 local recomputes),
            its backward 2 clients x layers x 2 local steps, the codec 2 x
            leaves x 2; profiles with the scan's shares;
@@ -222,12 +222,24 @@ these phases and fails (non-zero exit, no result line) on any error:
            equal; each branch's seconds and the peak, <= 70 GB;
   mesh2d shards  stablelm-1.6b at full width (SHARDS_LAYERS layers), 2
            clients x one 4096-token sequence, leafwise natural, a local
-           then a fresh step: the 2-D engine on a (1, 2) train mesh of two
-           processes sharing the card in one gloo group (each gathers a
-           layer's leaves only while the layer runs, and aggregates a
-           leaf at a time), against build_rollout_fn in this process:
-           the gathered state's digest, losses and branches equal; each
-           rank's peak below the one-process peak; seconds a branch.
+           then a fresh step: the 2-D engine's Megatron split on a (1, 2)
+           train mesh of two processes sharing the card in one gloo group
+           (each runs its block of every product; the aggregation a leaf
+           piece at a time), against build_rollout_fn in this process:
+           branches equal, losses and each rank's blocks of the params
+           and cache within rtol 1e-5 / atol 1e-6 outside a Poisson
+           bound of codec flips, the leaves the model axis leaves whole
+           equal across the ranks, no leaf gathered in the local step;
+           then the engine that gathers each layer whole
+           (gather_layers; SHARDS_GATHER_LAYERS layers) bit for bit by
+           the digest; each rank's peak below the one-process peak;
+           seconds a branch, the gathers' and reduces' bytes;
+  hymba split  hymba-1.5b at full width and HYMBA_SPLIT_LAYERS layers
+           through the split on the same mesh, against the same
+           references: the scan kernel and its backward on each rank's
+           800 of 1600 channels, the MLP split, the attention (25 heads)
+           gathered; then both scan kernels at that shape against their
+           plain versions and bounds.
 
 Each group of phases logs its seconds ("lap ..."), the total the sum.
 
@@ -332,14 +344,15 @@ SCAN_BWD_REPLACES = "src/repro/models/mamba.py:75"
 # + carry, dh*h, *decay, *dt, + dA, *A, + sum, dh*B, + sum, dh*dx, g*h,
 # decay*dh) and the sums over E of dB's and dC's terms
 SCAN_BWD_OPS = 19
-# phases train (Mamba): hymba-1.5b at full width and depth; falcon-mamba-7b
-# at full width and 4 of its 64 layers (two clients' f32 params, cache and
-# gradients at 64 layers exceed the card's 80 GB; 4, not 8, keeps the
-# script inside its time limit as later phases join it)
-MAMBA_TRAIN = (("hymba-1.5b", None, "natural"),
+# phases train (Mamba): hymba-1.5b at full width and 16 of its 32 layers
+# (32 until the split's phases joined the script: the cut keeps it inside
+# its time limit); falcon-mamba-7b at full width and 4 of its 64 layers
+# (two clients' f32 params, cache and gradients at 64 layers exceed the
+# card's 80 GB; 4, not 8, keeps the script inside its time limit)
+MAMBA_TRAIN = (("hymba-1.5b", 16, "natural"),
                ("falcon-mamba-7b", 4, "qsgd"))
 TRAIN_PARAMS = {("stablelm-1.6b", None): STABLELM_PARAMS,
-                ("hymba-1.5b", None): 1_352_246_400,
+                ("hymba-1.5b", 16): 701_724_800,
                 ("falcon-mamba-7b", 4): 687_591_424,
                 ("granite-moe-1b-a400m", None): 1_334_628_352,
                 ("deepseek-v2-lite-16b", 3): 1_460_420_096,
@@ -425,13 +438,27 @@ MISTRAL_TRAIN_PARAMS = 1_786_810_368
 # protocol's streams), the key's trace over these steps: cached, local,
 # fresh, cached
 MESH2D_XI = [1, 0, 1, 1]
-# phase mesh2d shards: stablelm-1.6b's layers there (4 of 24: gloo moves
-# ~0.7 GB/s a rank; all 24 layers took 163.5 s, 8 took 72), its trace
-# (local, fresh), and the model shards (two processes on the one card,
-# gloo)
-SHARDS_LAYERS = 4
+# phase mesh2d shards: stablelm-1.6b's layers under the split (4 of 24)
+# and under the gather engine (2: gloo moves ~0.7 GB/s a rank; the
+# gather at 24 layers took 163.5 s, at 4 69.2), hymba-1.5b's under the
+# split (2 of 32), the trace (local, fresh), the model shards (two
+# processes on the one card, gloo); (phase, arch, layers, gather_layers)
+SHARDS_LAYERS, SHARDS_GATHER_LAYERS, HYMBA_SPLIT_LAYERS = 4, 2, 2
+SHARDS_RUNS = (("mesh2d shards", "stablelm-1.6b", SHARDS_LAYERS, False),
+               ("mesh2d shards (gather)", "stablelm-1.6b",
+                SHARDS_GATHER_LAYERS, True),
+               ("hymba split", "hymba-1.5b", HYMBA_SPLIT_LAYERS, False))
 SHARDS_XI = [0, 1]
 SHARDS_RANKS = 2
+# the split against one process: the reference's tolerance
+# (tests/test_mesh2d.py:349), and the chance that natural rounds a
+# compressed element the other way when its input moved by the split's
+# ulp-level differences (about the input's relative difference, under
+# 1e-8 after one local step: the step moves a weight by ~1e-3 of
+# itself, its gradient differs by ~1e-6 of itself; 1e-6 is a margin of
+# 100)
+SHARDS_RTOL, SHARDS_ATOL = 1e-5, 1e-6
+SHARDS_FLIP_RATE = 1e-6
 # phase mesh width: the digest's positional multiplier (odd: a single
 # changed element always changes the sum mod 2^64) and its chunk
 DIGEST_MUL, DIGEST_CHUNK = -7046029254386353131, 1 << 26
@@ -2111,7 +2138,8 @@ def phase_scan_bwd_width(dev, launches):
     plain backward and the plain route, its carry pass and chunk kernel
     timed alone, the carries against the plain backward's; the forward
     timed with and without the checkpoints, in turns.  Returns the kernels line's row (the
-    shape of hymba-1.5b, whose train run at full depth gave ``launches``)."""
+    shape of hymba-1.5b, whose train run at 16 layers gave
+    ``launches``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.selective_scan import kernel as sk
@@ -4633,21 +4661,26 @@ def phase_mesh2d_train(dev):
     return launches["mesh2d (dots)"]
 
 
-def shards_cfg(layers):
+def shards_cfg(arch, layers):
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     check(cfg.remat and cfg.attn_impl == "dense", "mesh2d shards config")
     return cfg
 
 
 def shards_steps(rollout, state, tokens, key, dev):
     """A step a call of a built rollout over ``tokens`` (steps, n, B, S):
-    (state, seconds, losses, branches, each step's peak allocated)."""
+    (state, seconds, losses, branches, each step's peak allocated, each
+    step's GATHERED and REDUCED counts)."""
     import torch
-    seconds, losses, branches, peaks = [], [], [], []
+    from repro_torch.core.collective import (GATHERED, REDUCED,
+                                             reset_gathered, reset_reduced)
+    seconds, losses, branches, peaks, counts = [], [], [], [], []
     for k in range(tokens.shape[0]):
         torch.cuda.reset_peak_memory_stats(dev)
+        reset_gathered()
+        reset_reduced()
         t0 = time.perf_counter()
         state, trace = rollout(state, {"tokens": tokens[k:k + 1]}, key)
         torch.cuda.synchronize(dev)
@@ -4655,18 +4688,50 @@ def shards_steps(rollout, state, tokens, key, dev):
         peaks.append(torch.cuda.max_memory_allocated(dev))
         losses.append(float(trace.losses[0]))
         branches.append(int(trace.branches[0]))
-    return state, seconds, losses, branches, peaks
+        counts.append({"gathered": dict(GATHERED), "reduced": dict(REDUCED)})
+    return state, seconds, losses, branches, peaks, counts
 
 
-def mesh2d_shards_rank(rank, world, dev, layers, tokens_np, seed):
-    """One model shard of phase mesh2d shards, in a process of its own
-    (``launch.mesh.run_cpu_ranks`` opened the gloo group): this rank's
-    blocks of the clients' params drawn a client at a time, the 2-D
-    engine's steps, then the gathered state's digest."""
+def shards_against(mesh, cfg, state, ref_dir, dev):
+    """This rank's blocks of the final state against the one-process
+    run's leaves saved under ``ref_dir``: elements outside SHARDS_RTOL /
+    SHARDS_ATOL, the largest |d| / (atol + rtol |want|), and the digests
+    of the leaves the model axis leaves whole (to be held equal across
+    the ranks)."""
+    import torch
+    from repro_torch.core.tree import spec_leaves, tree_leaves
+    from repro_torch.launch.sharding import local_slice, train_state_pspecs
+    from repro_torch.launch.steps import state_specs
+    specs = train_state_pspecs(state_specs(cfg, TRAIN_CLIENTS), SHARDS_RANKS)
+    outside, worst, replicated = 0, 0.0, []
+    for i, (got, spec) in enumerate(zip(
+            tree_leaves([state.params, state.cache]),
+            spec_leaves([specs.params, specs.cache]))):
+        ref = np.load(os.path.join(ref_dir, f"{i}.npy"), mmap_mode="r")
+        want = torch.from_numpy(np.array(local_slice(mesh, spec, ref))
+                                ).to(dev)
+        check(want.shape == got.shape, f"leaf {i}: block {tuple(got.shape)} "
+              f"against {tuple(want.shape)}")
+        tol = SHARDS_ATOL + SHARDS_RTOL * want.abs()
+        outside += int((~((got - want).abs() <= tol)).sum())
+        worst = max(worst, float(((got - want).abs() / tol).max()))
+        if "model" not in spec:
+            replicated.append(bits_digest(got))
+        del want, tol
+    return {"outside": outside, "worst": worst, "replicated": replicated}
+
+
+def mesh2d_shards_rank(rank, world, dev, runs, ref_dir):
+    """The model shards of phase mesh2d shards, in a process of their own
+    (``launch.mesh.run_cpu_ranks`` opened the gloo group).  For each run
+    (phase, arch, layers, gather_layers, tokens, seed): this rank's blocks
+    of the clients' params drawn a client at a time, the 2-D engine's
+    steps (the split, or each layer gathered whole with
+    ``gather_layers``), then the gathered state's digest (the gather) or
+    this rank's blocks against the one-process run's saved leaves."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import L2GDHyper, init_state, make_compressor, prng
-    from repro_torch.core.collective import GATHERED, reset_gathered
     from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_train_mesh, model_shards_of
@@ -4679,48 +4744,66 @@ def mesh2d_shards_rank(rank, world, dev, layers, tokens_np, seed):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(dev)
     torch.cuda.set_device(dev)
-    cfg = shards_cfg(layers)
     n = TRAIN_CLIENTS
     mesh = make_train_mesh(model_shards=world, device=dev)
     check(dist.get_backend() == "gloo" and model_shards_of(mesh) == world
           and mesh.device_type == dev.type,
           f"mesh2d shards: {dist.get_backend()} mesh on {mesh.device_type}")
-    specs = param_pspecs(stacked_param_shapes(cfg, n), world,
-                         client_axes=("clients",))
-    blocks = None
-    for i in range(n):      # init_stacked_params' draws, cut a client a time
-        gen = torch.Generator(device=dev).manual_seed(i)
-        one = tree_local(mesh, specs, tree_map(
-            lambda a: a[None], init_params(gen, cfg, dev)))
-        leaves, treedef = tree_flatten(one)
-        if blocks is None:
-            blocks = [torch.empty((n,) + tuple(a.shape[1:]), dtype=a.dtype,
-                                  device=dev) for a in leaves]
-        for dst, a in zip(blocks, leaves):
-            dst[i].copy_(a[0])
-        del one, leaves
-    state = init_state(tree_unflatten(treedef, blocks))
-    del blocks
-    init_peak = torch.cuda.max_memory_allocated(dev)
-    hp = L2GDHyper(eta=0.1, lam=0.5, p=0.5, n=n)
-    comp = make_compressor("natural")
-    rollout = build_sharded_rollout_fn(cfg, hp, mesh=mesh, client_comp=comp,
-                                       master_comp=comp, length=1)
-    tokens = torch.from_numpy(tokens_np).to(dev)
-    reset_gathered()
-    reset_launches()            # the main path starts here
-    state, seconds, losses, branches, peaks = shards_steps(
-        rollout, state, tokens, prng.PRNGKey(seed), dev)
-    launches = dict(LAUNCHES)   # and ends here
-    gathered = dict(GATHERED)
-    t0 = time.perf_counter()
-    digest = state_digest(rollout.full_state(state))
-    return {"digest": digest, "losses": losses, "branches": branches,
-            "seconds": seconds, "peaks": peaks, "init_peak": init_peak,
-            "launches": launches, "gathered": gathered,
-            "digest_s": time.perf_counter() - t0,
-            "local_bytes": sum(a.numel() * a.element_size() for a in
-                               tree_flatten((state.params, state.cache))[0])}
+    out = {}
+    for what, arch, layers, gather, tokens_np, seed in runs:
+        cfg = shards_cfg(arch, layers)
+        specs = param_pspecs(stacked_param_shapes(cfg, n), world,
+                             client_axes=("clients",))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        blocks = None
+        for i in range(n):  # init_stacked_params' draws, cut a client a time
+            gen = torch.Generator(device=dev).manual_seed(i)
+            one = tree_local(mesh, specs, tree_map(
+                lambda a: a[None], init_params(gen, cfg, dev)))
+            leaves, treedef = tree_flatten(one)
+            if blocks is None:
+                blocks = [torch.empty((n,) + tuple(a.shape[1:]),
+                                      dtype=a.dtype, device=dev)
+                          for a in leaves]
+            for dst, a in zip(blocks, leaves):
+                dst[i].copy_(a[0])
+            del one, leaves
+        state = init_state(tree_unflatten(treedef, blocks))
+        del blocks
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        hp = L2GDHyper(eta=0.1, lam=0.5, p=0.5, n=n)
+        comp = make_compressor("natural")
+        rollout = build_sharded_rollout_fn(
+            cfg, hp, mesh=mesh, client_comp=comp, master_comp=comp,
+            length=1, gather_layers=gather)
+        tokens = torch.from_numpy(tokens_np).to(dev)
+        reset_launches()            # the main path starts here
+        state, seconds, losses, branches, peaks, counts = shards_steps(
+            rollout, state, tokens, prng.PRNGKey(seed), dev)
+        launches = dict(LAUNCHES)   # and ends here
+        res = {"losses": losses, "branches": branches, "seconds": seconds,
+               "peaks": peaks, "init_peak": init_peak, "counts": counts,
+               "launches": launches,
+               "gather_peak": max(c["gathered"].get("peak", 0)
+                                  for c in counts),
+               "local_bytes": sum(a.numel() * a.element_size() for a in
+                                  tree_flatten((state.params,
+                                                state.cache))[0])}
+        if cfg.mixer in ("mamba", "hybrid"):
+            res["channels"] = int(state.params["layers"][
+                "mixer" if cfg.mixer == "mamba" else "mamba"]["A_log"]
+                .shape[-2])
+        t0 = time.perf_counter()
+        if gather:
+            res["digest"] = state_digest(rollout.full_state(state))
+        else:
+            res.update(shards_against(mesh, cfg, state,
+                                      os.path.join(ref_dir, what), dev))
+        res["check_s"] = time.perf_counter() - t0
+        out[what] = res
+        del state, rollout, tokens
+    return out
 
 
 def gb(values):
@@ -4728,7 +4811,7 @@ def gb(values):
 
 
 def shards_gather_peak(cfg, n, world):
-    """The most bytes whole at once that phase mesh2d shards allows a
+    """The most bytes whole at once that the gather engine allows a
     rank: a step's largest layer of one client or the tied table
     (gathered inside the layer loop), or the n clients' largest leaf
     piece in the aggregation (a layer of a stack's leaf; natural takes
@@ -4752,86 +4835,226 @@ def shards_gather_peak(cfg, n, world):
     return max(max(whole.values()), n * piece)
 
 
+def split_gathered_bytes(cfg, world):
+    """Bytes of the leaves one layer's forward gathers whole under the
+    split (``launch.steps.split_gathers``), summed over the layers."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.steps import param_shapes, split_gathers
+    shapes, gathers = param_shapes(cfg), split_gathers(cfg, world)
+    return sum(a.numel() * a.element_size() for key in shapes
+               for a, g in zip(tree_leaves(shapes[key]),
+                               tree_leaves(gathers[key])) if g)
+
+
+def shards_flip_bound(n, n_params):
+    """The most elements of the params and cache outside SHARDS_RTOL /
+    SHARDS_ATOL that SHARDS_FLIP_RATE allows after one fresh round: the
+    n uplinks and the downlink compress (n + 1) x n_params elements, a
+    flipped rounding moves at most the n clients' and the cache's
+    element, and the flips are bounded by a Poisson mean and five of its
+    standard deviations."""
+    mean = SHARDS_FLIP_RATE * (n + 1) * n_params
+    return (n + 1) * (mean + 5 * mean ** 0.5)
+
+
+def scan_split_width(dev, E):
+    """The scan kernel with its state checkpoints and its backward at the
+    split's train shape (B = 1, L = 4096, E channels a rank): each
+    against its plain version, timed against its bound and the plain
+    version's time."""
+    import torch
+    from repro_torch.kernels.selective_scan import kernel as sk
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_ref, selective_scan_ref)
+    B, L, N = TRAIN_B, TRAIN_S, 16
+    chunk = sk.ckpt_chunk(N)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dt, Bm, Cm, x, A = scan_inputs(gen, B, L, E, N, dev)
+    g = torch.randn((B, L, E), generator=gen, device=dev)
+    y, h = sk._launch(dt, Bm, Cm, x, A, ckpt=True)
+    fwd_ms = time_ms(lambda: sk._launch(dt, Bm, Cm, x, A, ckpt=True),
+                     reps=25)
+    plain, plain_s = timed(lambda: selective_scan_ref(dt, Bm, Cm, x, A))
+    err = float(torch.max(torch.abs(y - plain)))
+    check(err <= scan_bound(plain), f"selective_scan at E={E}: {err:.3g}")
+    got = sk._launch_bwd(dt, Bm, Cm, x, A, h, g)
+    bwd_ms = time_ms(lambda: sk._launch_bwd(dt, Bm, Cm, x, A, h, g),
+                     reps=25)
+    want, bwd_plain_s = timed(lambda: selective_scan_bwd_ref(
+        dt, Bm, Cm, x, A, h, g, chunk))
+    rel, bwd_err = scan_bwd_compare(f"selective_scan_bwd at E={E}", got,
+                                    want)
+    fwd_bound = max(scan_bound_ms(B, L, E, N, 4))
+    bwd_bound = max(scan_bwd_bound_ms(B, L, E, N, chunk))
+    log(f"time selective_scan at the split (B={B} L={L} E={E} N={N} f32, "
+        f"with checkpoints): {fwd_ms:.3f} ms (bound {fwd_bound:.3f} ms, "
+        f"{fwd_bound / fwd_ms:.0%}); plain {plain_s * 1e3:.1f} ms; max |d| "
+        f"{err:.3g}; selective_scan_bwd: {bwd_ms:.3f} ms (bound "
+        f"{bwd_bound:.3f} ms, {bwd_bound / bwd_ms:.0%}; plan "
+        f"{sk.bwd_plan(B, E, N, sk.bwd_slots(dev, N))}); plain "
+        f"{bwd_plain_s * 1e3:.1f} ms; within {rel:.3g} x max |plain| (max "
+        f"|d| {bwd_err:.3g})")
+    del dt, Bm, Cm, x, A, g, y, h, got, want, plain
+    torch.cuda.empty_cache()
+
+
 def phase_mesh2d_shards(dev):
-    """stablelm-1.6b at full width (SHARDS_LAYERS layers) through the 2-D
-    engine on a (1, 2) train mesh, the two model shards two processes on
-    this card in one gloo group, against build_rollout_fn in this
-    process at the same shape and trace; returns the two ranks' summed
-    launches."""
+    """The 2-D engine on a (1, 2) train mesh, the two model shards two
+    processes on this card in one gloo group, each run of SHARDS_RUNS
+    against build_rollout_fn in this process at the same shape and
+    trace: stablelm-1.6b's split (SHARDS_LAYERS layers) and hymba-1.5b's
+    (HYMBA_SPLIT_LAYERS; its attention gathered, the scan kernels on
+    each rank's d_inner block) within SHARDS_RTOL / SHARDS_ATOL outside
+    the counted flips, the leaves the model axis leaves whole equal
+    across the ranks; the gather engine (``gather_layers``) bit
+    for bit.  Returns each run's launches, the two ranks' summed."""
+    import tempfile
     import torch
     from repro_torch.core import L2GDHyper, init_state, make_compressor, prng
     from repro_torch.core.rollout import window_streams
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.data import TokenStream
     from repro_torch.launch.mesh import run_cpu_ranks
     from repro_torch.launch.steps import build_rollout_fn
     from repro_torch.launch.train import init_stacked_params
     from repro_torch.models import param_count
 
-    cfg = shards_cfg(SHARDS_LAYERS)
     n = TRAIN_CLIENTS
     hp = L2GDHyper(eta=0.1, lam=0.5, p=0.5, n=n)
     seed = next(s for s in range(100) if list(window_streams(
         prng.PRNGKey(s), hp.p, 0, len(SHARDS_XI))[0]) == SHARDS_XI)
-    stream = TokenStream(n_clients=n, vocab=cfg.vocab_size, batch=TRAIN_B,
-                         seq=TRAIN_S)
-    tokens_np = np.stack([stream.batch_at(k)
-                          for k in range(len(SHARDS_XI))])
     comp = make_compressor("natural")
-    torch.cuda.empty_cache()
-    state = init_state(init_stacked_params(cfg, n, 0, dev))
-    n_params = param_count(state.params) // n
-    state, ref_s, ref_losses, ref_branches, ref_peaks = shards_steps(
-        build_rollout_fn(cfg, hp, comp, comp, length=1), state,
-        torch.from_numpy(tokens_np).to(dev), prng.PRNGKey(seed), dev)
-    ref_peak = max(ref_peaks)
-    want = state_digest(state)
-    del state
-    torch.cuda.empty_cache()
-    check(ref_branches == [0, 1], f"mesh2d shards: branches {ref_branches}")
-    t0 = time.perf_counter()
-    ranks = run_cpu_ranks(mesh2d_shards_rank, SHARDS_RANKS, str(dev),
-                          SHARDS_LAYERS, tokens_np, seed)
-    ranks_s = time.perf_counter() - t0
-    for r, got in enumerate(ranks):
-        what = f"mesh2d shards, rank {r}"
-        gathered = got["gathered"]
-        check(got["branches"] == ref_branches, f"{what}: branches")
-        check(got["losses"] == ref_losses,
-              f"{what}: losses {got['losses']} against {ref_losses}")
-        check(got["digest"] == want, f"{what}: the gathered params / cache "
-              "differ from build_rollout_fn's")
-        check(max(got["peaks"]) < ref_peak,
-              f"{what}: peak {max(got['peaks']) / 1e9:.2f} GB, the "
-              f"one-process run's {ref_peak / 1e9:.2f} GB")
-        check(got["launches"].get("natural_compress_2d", 0) > 0,
-              f"{what}: launches {got['launches']}")
-        check(gathered["peak"] == shards_gather_peak(cfg, n, SHARDS_RANKS),
-              f"{what}: {gathered['peak']} bytes whole at once, not "
-              f"{shards_gather_peak(cfg, n, SHARDS_RANKS)}")
-        log(f"phase mesh2d shards, rank {r}: step seconds "
-            f"{[round(t, 3) for t in got['seconds']]} (local, fresh); "
-            f"peak allocated {gb(got['peaks'])} GB a step (init "
-            f"{got['init_peak'] / 1e9:.2f} GB; state blocks "
-            f"{got['local_bytes'] / 1e9:.2f} GB); gathers "
-            f"{gathered['calls']}, {gathered['bytes'] / 1e9:.2f} GB out, "
-            f"at most {gathered['peak'] / 1e9:.3f} GB whole at once; "
-            f"digest gather {got['digest_s']:.1f} s; "
-            f"launches {got['launches']}")
-    launches = {}
-    for got in ranks:
-        for k, v in got["launches"].items():
-            launches[k] = launches.get(k, 0) + v
-    log(f"phase mesh2d shards: stablelm-1.6b {cfg.n_layers} layers, {n} "
-        f"clients x {n_params:,} params, B={TRAIN_B} S={TRAIN_S}, leafwise "
-        f"natural, xi {SHARDS_XI}; {SHARDS_RANKS} gloo processes on one "
-        f"card ({ranks_s:.1f} s with their start) equal build_rollout_fn "
-        f"in one process bit for bit (params and cache by the digest, "
-        f"losses {ref_losses}); one process: step seconds "
-        f"{[round(t, 3) for t in ref_s]}, peak allocated "
-        f"{gb(ref_peaks)} GB a step; ranks' peaks "
-        f"{[max(gb(g['peaks'])) for g in ranks]} GB; launches "
-        f"{launches}")
-    return launches
+    runs, refs = [], {}
+    with tempfile.TemporaryDirectory(prefix="shards-ref-") as ref_dir:
+        for what, arch, layers, gather in SHARDS_RUNS:
+            cfg = shards_cfg(arch, layers)
+            stream = TokenStream(n_clients=n, vocab=cfg.vocab_size,
+                                 batch=TRAIN_B, seq=TRAIN_S)
+            tokens_np = np.stack([stream.batch_at(k)
+                                  for k in range(len(SHARDS_XI))])
+            torch.cuda.empty_cache()
+            state = init_state(init_stacked_params(cfg, n, 0, dev))
+            n_params = param_count(state.params) // n
+            state, ref_s, ref_losses, ref_branches, ref_peaks, _ = \
+                shards_steps(build_rollout_fn(cfg, hp, comp, comp, length=1),
+                             state, torch.from_numpy(tokens_np).to(dev),
+                             prng.PRNGKey(seed), dev)
+            check(ref_branches == [0, 1],
+                  f"{what}: branches {ref_branches}")
+            refs[what] = {"seconds": ref_s, "losses": ref_losses,
+                          "peaks": ref_peaks, "n_params": n_params,
+                          "cfg": cfg}
+            if gather:
+                refs[what]["digest"] = state_digest(state)
+            else:
+                os.makedirs(os.path.join(ref_dir, what))
+                for i, a in enumerate(tree_leaves([state.params,
+                                                   state.cache])):
+                    np.save(os.path.join(ref_dir, what, f"{i}.npy"),
+                            a.cpu().numpy())
+            del state
+            torch.cuda.empty_cache()
+            runs.append((what, arch, layers, gather, tokens_np, seed))
+        t0 = time.perf_counter()
+        ranks = run_cpu_ranks(mesh2d_shards_rank, SHARDS_RANKS, str(dev),
+                              runs, ref_dir)
+        ranks_s = time.perf_counter() - t0
+    out = {}
+    for what, arch, layers, gather in SHARDS_RUNS:
+        ref = refs[what]
+        cfg = ref["cfg"]
+        got = [r[what] for r in ranks]
+        for r, res in enumerate(got):
+            tag = f"{what}, rank {r}"
+            check(res["branches"] == [0, 1], f"{tag}: branches")
+            check(max(res["peaks"]) < max(ref["peaks"]),
+                  f"{tag}: peak {max(res['peaks']) / 1e9:.2f} GB, the "
+                  f"one-process run's {max(ref['peaks']) / 1e9:.2f} GB")
+            check(res["launches"].get("natural_compress_2d", 0) > 0,
+                  f"{tag}: launches {res['launches']}")
+            if gather:
+                check(res["losses"] == ref["losses"],
+                      f"{tag}: losses {res['losses']} against "
+                      f"{ref['losses']}")
+                check(res["digest"] == ref["digest"], f"{tag}: the "
+                      "gathered params / cache differ from "
+                      "build_rollout_fn's")
+                check(res["gather_peak"] == shards_gather_peak(
+                    cfg, n, SHARDS_RANKS), f"{tag}: {res['gather_peak']} "
+                    "bytes whole at once")
+            else:
+                check(bool(np.all(np.isclose(res["losses"], ref["losses"],
+                                             rtol=SHARDS_RTOL,
+                                             atol=SHARDS_ATOL))),
+                      f"{tag}: losses {res['losses']} against "
+                      f"{ref['losses']}")
+                # the local step gathers only the leaves off whole heads,
+                # once a forward (and again in the remat's recompute)
+                local = res["counts"][0]["gathered"].get("bytes", 0)
+                per = n * split_gathered_bytes(cfg, SHARDS_RANKS)
+                check(local in (per, 2 * per),
+                      f"{tag}: the local step gathered {local} bytes, "
+                      f"not {per} a forward")
+            log(f"phase {what}, rank {r}: step seconds "
+                f"{[round(t, 3) for t in res['seconds']]} (local, fresh); "
+                f"peak allocated {gb(res['peaks'])} GB a step (init "
+                f"{res['init_peak'] / 1e9:.2f} GB; state blocks "
+                f"{res['local_bytes'] / 1e9:.2f} GB); a step's gathers "
+                + ", ".join(f"{c['gathered'].get('calls', 0)} / "
+                            f"{c['gathered'].get('bytes', 0) / 1e9:.3f} GB"
+                            for c in res["counts"])
+                + "; reduces " + ", ".join(
+                    f"{c['reduced'].get('calls', 0)} / "
+                    f"{c['reduced'].get('bytes', 0) / 1e9:.3f} GB"
+                    for c in res["counts"])
+                + f" (local, fresh); most whole at once "
+                f"{res['gather_peak'] / 1e9:.3f} GB; "
+                + (f"{res['channels']} channels a scan; "
+                   if "channels" in res else "")
+                + (f"against the one process: {res['outside']} elements "
+                   f"outside rtol {SHARDS_RTOL} / atol {SHARDS_ATOL}, "
+                   f"the largest difference {res['worst']:.3g} of it; "
+                   if not gather else "")
+                + f"check {res['check_s']:.1f} s; launches "
+                f"{res['launches']}")
+        if not gather:
+            flips = sum(res["outside"] for res in got)
+            bound = shards_flip_bound(n, ref["n_params"])
+            check(flips <= bound, f"{what}: {flips} elements outside the "
+                  f"tolerance, more than the flip bound {bound:.0f}")
+            check(got[0]["replicated"] == got[1]["replicated"],
+                  f"{what}: the ranks' replicated leaves differ")
+        launches = {}
+        for res in got:
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        out[what] = launches
+        log(f"phase {what}: {arch} {layers} layers, {n} clients x "
+            f"{ref['n_params']:,} params, B={TRAIN_B} S={TRAIN_S}, leafwise "
+            f"natural, xi {SHARDS_XI}; {SHARDS_RANKS} gloo processes on one "
+            f"card against build_rollout_fn in one process "
+            + ("bit for bit (params and cache by the digest, losses "
+               f"{ref['losses']})" if gather else
+               f"(losses {got[0]['losses']} against {ref['losses']}; "
+               f"{sum(res['outside'] for res in got)} elements outside "
+               f"the tolerance, bound "
+               f"{shards_flip_bound(n, ref['n_params']):.0f}; replicated "
+               f"leaves equal across the ranks)")
+            + f"; one process: step seconds "
+            f"{[round(t, 3) for t in ref['seconds']]}, peak allocated "
+            f"{gb(ref['peaks'])} GB a step; ranks' peaks "
+            f"{[max(gb(res['peaks'])) for res in got]} GB; launches "
+            f"{launches}")
+    log(f"phase mesh2d shards: the ranks' {len(SHARDS_RUNS)} runs took "
+        f"{ranks_s:.1f} s with their start")
+    for k in ("selective_scan", "selective_scan_bwd"):
+        check(out["hymba split"].get(k, 0) > 0,
+              f"hymba split: {k} launches {out['hymba split']}")
+    channels = {res["hymba split"]["channels"] for res in ranks}
+    check(channels == {shards_cfg("hymba-1.5b", 1).d_inner // SHARDS_RANKS},
+          f"hymba split: {channels} channels a rank")
+    scan_split_width(dev, channels.pop())
+    return out
 
 
 def _key_paths(tree, path=""):
@@ -5005,8 +5228,8 @@ def main():
     lap("mistral prefill, serve")
     slice_launches["mistral mesh2d train"] = phase_mesh2d_train(dev)
     lap("mistral mesh2d train")
-    slice_launches["mesh2d shards"] = phase_mesh2d_shards(dev)
-    lap("mesh2d shards")
+    slice_launches.update(phase_mesh2d_shards(dev))
+    lap("mesh2d shards, hymba split")
     import torch.distributed as dist
     dist.destroy_process_group()
     add_launches(rows, slice_launches)

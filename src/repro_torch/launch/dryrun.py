@@ -11,16 +11,24 @@ device, with no allocation and no process group:
     ``engine_step_bytes_per_process`` is the most that a step of the
     port's 2-D engine (``launch.steps.build_sharded_rollout_fn``) holds
     a process, activations left out (:func:`engine_step_bytes`): a local
-    step adds the gradient's blocks and one layer gathered whole at a
-    time, an aggregation step the leafwise average's blocks and one leaf
-    piece whole at a time.  That holds for the leafwise uplink the record
+    step adds the gradient's blocks and the leaves the split gathers
+    whole (one layer's at a time), an aggregation step the leafwise
+    average's blocks and one leaf piece whole at a time.  That holds for the leafwise uplink the record
     prices; a flat or packed uplink (or a fleet) gathers the row's whole
     models for the aggregation;
   * the aggregation collective's bytes a round: each client's uplink
     message is ``round_bits() / 8`` bytes, and the payload ``all_gather``
     delivers all n of them to every process;
   * the analytic FLOPs (``launch.roofline``) and the roofline terms on
-    the H100 at the compute dtype's peak.
+    the H100 at the compute dtype's peak.  A train record's
+    ``analytic_per_process`` is what the 2-D engine's split runs on one
+    process (:func:`per_process_flops`): a product split on whole heads,
+    experts or channels is divided by the chips, one the split runs
+    whole on every model shard (a leaf whole on every process, or
+    gathered) by the client rows only; GQA's kv projections where the kv
+    heads do not divide run the kv heads each process's query heads
+    read.  Prefill and decode records divide evenly by the chips (the
+    reference's GSPMD layout; the port has no sharded serving engine).
 
 The reference lowers and compiles each combination with XLA on 512
 placeholder devices; that lowering has no counterpart here.
@@ -45,12 +53,12 @@ from repro_torch.launch.roofline import (analytic_flops, model_flops,
                                          roofline_terms)
 from repro_torch.launch.sharding import (cache_pspecs, param_pspecs,
                                          train_state_pspecs)
-from repro_torch.launch.steps import (cache_specs, param_shapes,
-                                      state_specs)
+from repro_torch.launch.steps import (cache_specs, model_dims, param_shapes,
+                                      split_gathers, state_specs)
 from repro_torch.models.model import layer_stacks
 
 __all__ = ["n_params_active", "sharded_bytes", "engine_step_bytes",
-           "dry_run", "main"]
+           "flop_terms", "per_process_flops", "dry_run", "main"]
 
 
 def production_cfg(cfg: ArchConfig) -> ArchConfig:
@@ -97,6 +105,110 @@ def n_params_active(cfg: ArchConfig) -> float:
     return float(L * (attn + ffn) + emb + enc)
 
 
+def flop_terms(cfg: ArchConfig, shape, size: int) -> list:
+    """``launch.roofline.analytic_flops`` (with :func:`n_params_active`)
+    by product: [(what, global FLOPs, the share of a client row's work
+    one of its ``size`` model shards runs)], the FLOPs summing to
+    ``analytic_flops``.  The share is 1 / size where the 2-D engine's
+    split runs the product on blocks, 1 where every model shard runs it
+    whole, and for GQA's kv projections that fall back, the kv heads
+    one shard's query heads read over n_kv (the most of any shard)."""
+    from repro_torch.launch.roofline import analytic_flops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import blocks
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import moe as moe_lib
+    S, B = shape.seq_len, shape.global_batch
+    tokens = B * S if shape.kind != "decode" else B
+    mult = 3.0 if shape.kind == "train" else 1.0
+    dims = model_dims(cfg, size)
+    d, L, H, hd = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.hd
+    layer = dims["layers"]
+    one = 1.0 / size
+
+    def share(split):
+        return one if split else 1.0
+
+    def mm(params):     # a product's FLOPs a step from its params a token
+        return mult * 2.0 * params * tokens
+
+    terms = []
+    heads = attn.heads_split(layer.get("attn", {}), H, size) \
+        and (cfg.mixer == "mla" or cfg.is_encdec
+             or cfg.attn_layout == "fused")
+    if cfg.mixer == "mla":
+        terms += [("attn q, uk, uv, o", mm(L * (
+            d * H * (cfg.mla_nope_dim + cfg.mla_rope_dim)
+            + cfg.kv_lora_rank * H * (cfg.mla_nope_dim + cfg.mla_v_dim)
+            + H * cfg.mla_v_dim * d)), share(heads)),
+            ("attn dkv", mm(L * d * (cfg.kv_lora_rank + cfg.mla_rope_dim)),
+             1.0)]
+    if cfg.mixer in ("mamba", "hybrid"):
+        e = cfg.ssm_expand * d
+        split = mb.channels_split(layer["mixer" if cfg.mixer == "mamba"
+                                        else "mamba"])
+        terms += [("mamba", mm(L * (2 * d * e + e * (max(d // 16, 1)
+                                                     + 2 * cfg.ssm_state)
+                                    + max(d // 16, 1) * e + e * d)),
+                   share(split)),
+                  ("scan", mult * L * 10.0 * tokens * e * cfg.ssm_state,
+                   share(split))]
+    if cfg.mixer in ("gqa", "hybrid"):
+        kv = cfg.n_kv_heads
+        if not heads:
+            kv_share = 1.0
+        elif attn.kv_split(layer["attn"], kv, size):
+            kv_share = one
+        else:       # the kv heads of one shard's H / size query heads
+            local, group = H // size, H // kv
+            kv_share = max((r * local + local - 1) // group
+                           - r * local // group + 1
+                           for r in range(size)) / kv
+        terms += [("attn q, o", mm(L * 2 * d * H * hd), share(heads)),
+                  ("attn k, v", mm(L * 2 * d * kv * hd), kv_share)]
+    if cfg.is_encdec:
+        terms += [("cross q, k, v, o", mm(L * 4 * d * H * hd),
+                   share(heads)),
+                  ("encoder attn", mm(cfg.encoder_layers * 4 * d * H * hd),
+                   share(heads)),
+                  ("encoder mlp", mm(cfg.encoder_layers * 3 * d * cfg.d_ff),
+                   share(blocks.mlp_splits(dims["encoder"]["ffn"])))]
+    for group, n in (("dense_layers", cfg.first_dense_layers),
+                     ("layers", L - cfg.first_dense_layers)):
+        ffn = dims.get(group, {}).get("ffn")
+        kind = "dense" if group == "dense_layers" else cfg.ffn
+        if not n or kind == "none":
+            continue
+        if kind == "dense":
+            terms.append(("mlp " + group, mm(n * 3 * d * cfg.d_ff),
+                          share(blocks.mlp_splits(ffn))))
+            continue
+        terms += [("experts", mm(n * 3 * d * cfg.moe_d_ff
+                                 * cfg.experts_per_token),
+                   share(moe_lib.experts_split(ffn, cfg.moe_impl)))]
+        if cfg.n_shared_experts:
+            terms.append(("shared experts", mm(n * 3 * d * cfg.moe_d_ff
+                                               * cfg.n_shared_experts),
+                          share(moe_lib.shared_split(ffn))))
+    terms.append(("unembed", mm(cfg.vocab_size * d),
+                  share(dims["embed"]["table"] is not None)))
+    # the attention scores and values, by the heads
+    rest = analytic_flops(cfg, shape, n_params_active(cfg)) \
+        - sum(f for _, f, _ in terms)
+    if cfg.mixer != "mamba":
+        terms.append(("scores", rest, share(heads)))
+    return terms
+
+
+def per_process_flops(cfg: ArchConfig, shape, sizes: dict) -> float:
+    """One process's FLOPs of a train step of the 2-D engine on a mesh of
+    these axis sizes (:func:`flop_terms`): each product's FLOPs over the
+    client rows, times the share of a row its model shard runs."""
+    rows = math.prod(v for k, v in sizes.items() if k != "model")
+    return sum(f * part for _, f, part in
+               flop_terms(cfg, shape, sizes["model"])) / rows
+
+
 def _entries(entry) -> tuple:
     if entry is None:
         return ()
@@ -113,24 +225,24 @@ def sharded_bytes(tree, spec_tree, axis_sizes: dict) -> int:
     return int(total)
 
 
-def _nbytes(tree) -> int:
-    return sum(a.numel() * a.element_size() for a in tree_leaves(tree))
-
-
 def engine_step_bytes(cfg: ArchConfig, params_bytes: int, cache_bytes: int,
-                      n_clients: int, m: int = 1, codec=None) -> int:
+                      n_clients: int, m: int = 1, codec=None,
+                      model_shards: int = 1) -> int:
     """The most a 2-D engine step holds a process, activations left out,
-    for ``n_clients`` clients, ``m`` of them on each client row, and a
-    leafwise uplink of ``codec`` (natural if None).  With P =
-    ``params_bytes`` and C = ``cache_bytes`` (this process's blocks of
-    the state at rest) and U the updates' float32 work on one chunk (2 x
-    m x ``l2gd.UPDATE_CHUNK`` x 4 bytes), the larger of:
+    for ``n_clients`` clients, ``m`` of them on each client row, a
+    leafwise uplink of ``codec`` (natural if None), and the split on
+    ``model_shards`` model shards.  With P = ``params_bytes`` and C =
+    ``cache_bytes`` (this process's blocks of the state at rest) and U
+    the updates' float32 work on one chunk (2 x m x
+    ``l2gd.UPDATE_CHUNK`` x 4 bytes), the larger of:
 
     * a local step, 2P + C + max(G, P + U): the state, the gradient's
       blocks, and the larger of what the layer loop gathers (G: the
-      largest layer whole with its whole gradient, and the tied table
-      whole with its gradient; an encoder-decoder layer counts its
-      cross-attention) and the new params with U;
+      leaves of ``launch.steps.split_gathers`` of the largest layer
+      whole with their whole gradient, plus the model shards' whole
+      gradients of its largest such leaf, gathered to be summed; an
+      encoder-decoder layer counts its cross-attention; the split
+      gathers no table) and the new params with U;
     * an aggregation step, P + C + P/m + max(P + U, R + T): the state,
       the target's blocks, and the larger of the new params with U and
       what the average holds besides (R: the clients' compressed blocks,
@@ -141,12 +253,16 @@ def engine_step_bytes(cfg: ArchConfig, params_bytes: int, cache_bytes: int,
     shapes = param_shapes(cfg)
     stacks = layer_stacks(cfg)
     codec = codec or make_compressor("natural")
+    gathers = split_gathers(cfg, model_shards)
     # a stack's leaves carry its layers on their first axis
-    layer = {key: _nbytes(shapes[key])
-             // tree_leaves(shapes[key])[0].shape[0] for key in stacks}
+    sizes = {key: [a.numel() * a.element_size() // a.shape[0] for a, g in
+                   zip(tree_leaves(shapes[key]), tree_leaves(gathers[key]))
+                   if g] for key in stacks}
+    layer = {key: sum(v) for key, v in sizes.items()}
     if cfg.is_encdec:
         layer["layers"] += layer.pop("cross")
-    gathered = 2 * (max(layer.values()) + _nbytes(shapes["embed"]))
+    largest = max((b for v in sizes.values() for b in v), default=0)
+    gathered = 2 * max(layer.values()) + model_shards * largest
     piece = max(a.numel() // (a.shape[0] if key in stacks else 1)
                 for key in shapes for a in tree_leaves(shapes[key]))
     work = 2 * m * UPDATE_CHUNK * 4
@@ -194,7 +310,8 @@ def dry_run(arch: str, shape_name: str, mesh=(16, 16)) -> dict:
                                             sizes)
         mem["cache_bytes"] = sharded_bytes(state.cache, specs.cache, sizes)
         rec["engine_step_bytes_per_process"] = engine_step_bytes(
-            cfg, mem["params_bytes"], mem["cache_bytes"], n_clients)
+            cfg, mem["params_bytes"], mem["cache_bytes"], n_clients,
+            model_shards=msize)
         bits = make_plan(make_compressor("natural"), param_shapes(cfg),
                          transport="leafwise").round_bits()
         rec["aggregation"] = {
@@ -223,12 +340,13 @@ def dry_run(arch: str, shape_name: str, mesh=(16, 16)) -> dict:
         else shape.global_batch
     flops = analytic_flops(cfg, shape, n_act)
     mf = model_flops(n_act, tokens) / (1.0 if shape.kind == "train" else 3.0)
+    per = per_process_flops(cfg, shape, sizes) \
+        if shape.kind == "train" else flops / chips
     rec.update({
         "status": "OK", "tokens": tokens,
-        "flops": {"analytic_global": flops,
-                  "analytic_per_process": flops / chips},
+        "flops": {"analytic_global": flops, "analytic_per_process": per},
         "model_flops_global": mf,
-        "roofline": roofline_terms(flops / chips, float(sum(mem.values())),
+        "roofline": roofline_terms(per, float(sum(mem.values())),
                                    wire, dtype=cfg.compute_dtype)})
     return rec
 

@@ -36,8 +36,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.codec import CompressionPlan, make_plan
-from repro_torch.core.collective import (MeshAxis, block_of, gather_blocks,
-                                         whole_of)
+from repro_torch.core.collective import (MeshAxis, ModelSplit, block_of,
+                                         gather_blocks, whole_of)
 from repro_torch.core.compressors import Identity
 from repro_torch.core.l2gd import L2GDHyper, L2GDState, l2gd_step
 from repro_torch.core.rollout import rollout_l2gd
@@ -47,10 +47,12 @@ from repro_torch.fl.fleet import FleetPlan, fleet_from_plans, resolve_uplink
 from repro_torch.models import (blocks, decode_step, hidden, init_caches,
                                 init_params)
 from repro_torch.models import loss_fn as model_loss_fn
-from repro_torch.models.model import layer_stacks, model_shards
+from repro_torch.models.model import (gathered_leaves, layer_stacks,
+                                      model_shards)
 
 __all__ = ["param_shapes", "stacked_param_shapes", "stacked_grad_fn",
-           "stacked_loss_fn", "lacks_remat", "input_specs", "state_specs",
+           "stacked_loss_fn", "lacks_remat", "model_dims", "split_gathers",
+           "input_specs", "state_specs",
            "cache_specs", "build_train_step", "build_rollout_fn", "build_async_rollout_fn",
            "build_sharded_rollout_fn", "build_average_fn",
            "checkpointed_rollout", "build_prefill_step", "build_serve_step"]
@@ -152,9 +154,10 @@ def stacked_grad_fn(cfg: ArchConfig):
     wait out the rest of the backward (the values are autograd's, bit for
     bit).  Inside the 2-D engine's :func:`repro_torch.models.model.
     model_shards` scope the params are this process's blocks of a
-    model-sharded tree: the model makes each layer whole as it runs it,
-    the leaves' gradients arrive already cut to the blocks, and the
-    returned gradients are blocks too."""
+    model-sharded tree: the model runs its products on the blocks (or
+    makes each layer whole as it runs it), the leaves' gradients arrive
+    already cut to the blocks, and the returned gradients are blocks
+    too."""
     stacks = layer_stacks(cfg)
 
     def grad_fn(params, batch):
@@ -364,12 +367,34 @@ def build_average_fn(*args, uplink="wire", kind: str = None, **kwargs):
                      f"got {uplink!r}")
 
 
-def lacks_remat(cfg: ArchConfig, model_shards: int) -> bool:
+def model_dims(cfg: ArchConfig, model_shards: int) -> dict:
+    """The one-model parameter tree with each leaf's cut dim on
+    ``model_shards`` model shards (None where whole), a layer stack's
+    without its layer axis: what the split's modules see."""
+    from repro_torch.launch.sharding import param_pspecs
+    return _layer_dims(cfg, _spec_dims(param_pspecs(
+        param_shapes(cfg), model_shards, client_axes=())))
+
+
+def split_gathers(cfg: ArchConfig, model_shards: int) -> dict:
+    """The one-model tree of :func:`repro_torch.models.model.
+    gathered_leaves` on ``model_shards`` model shards: True where the 2-D
+    engine's split still makes a cut leaf whole inside the layer (its
+    cut not on whole heads, experts or channels)."""
+    return gathered_leaves(cfg, model_dims(cfg, model_shards), model_shards)
+
+
+def lacks_remat(cfg: ArchConfig, model_shards: int,
+                gather_layers: bool = False) -> bool:
     """Whether the 2-D engine refuses ``cfg`` on ``model_shards`` model
-    shards: more than one gathers each layer inside the layer loop, which
-    frees the whole weights after the layer's forward only under remat
-    (remat changes no bit)."""
-    return model_shards > 1 and not cfg.remat
+    shards: a layer that gathers leaves inside the layer loop (every
+    layer with ``gather_layers``; under the split, a layer with a leaf of
+    :func:`split_gathers`) frees the whole weights after the layer's
+    forward only under remat (remat changes no bit)."""
+    if model_shards <= 1 or cfg.remat:
+        return False
+    return gather_layers or any(tree_leaves(split_gathers(cfg,
+                                                          model_shards)))
 
 
 class _ModelShards:
@@ -397,16 +422,32 @@ class _ModelShards:
         model_shards` for a one-model tree of these specs: a layer
         stack's dims less its layer axis, each leaf through
         :func:`repro_torch.core.collective.gather_blocks`."""
-        stacks = layer_stacks(cfg)
-        dims = {key: _zip_dims(lambda _, d: d if d is None or key not in
-                               stacks else d - 1, val, val)
-                for key, val in self.dims.items()}
+        dims = _layer_dims(cfg, self.dims)
 
         def whole(key, tree):
             return _zip_dims(lambda a, d: gather_blocks(a, self.axis, d),
                              tree, dims[key])
 
         return whole
+
+    def layer_split(self, cfg: ArchConfig):
+        """The ``split(key)`` of :func:`repro_torch.models.model.
+        model_shards` for a one-model tree of these specs: a
+        :class:`repro_torch.core.collective.ModelSplit` of each top-level
+        key's dims (a layer stack's less its layer axis)."""
+        splits = {key: ModelSplit(self.axis, val) for key, val in
+                  _layer_dims(cfg, self.dims).items()
+                  if isinstance(val, dict)}
+        return splits.get
+
+
+def _layer_dims(cfg: ArchConfig, dims):
+    """The dims of a one-model tree with a layer stack's less its layer
+    axis."""
+    stacks = layer_stacks(cfg)
+    return {key: _zip_dims(lambda _, d: d if d is None or key not in stacks
+                           else d - 1, val, val)
+            for key, val in dims.items()}
 
 
 def _spec_dims(specs):
@@ -426,7 +467,8 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
                              client_comp=Identity(), master_comp=Identity(),
                              participation: Optional[float] = None,
                              length: int = 8, axis_name: str = "clients",
-                             local_steps: int = 1):
+                             local_steps: int = 1,
+                             gather_layers: bool = False):
     """Client-sharded multi-round train function, SPMD over the processes
     of ``mesh`` (``launch.mesh``).
 
@@ -438,22 +480,27 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
     is the 2-D engine.  Each process holds its client row's clients, and
     each leaf cut on "model" by ``launch.sharding.train_state_pspecs``
     (the cache too).  The reference lets GSPMD partition the stacked
-    scan; the port keeps its kernels on whole tensors instead, one layer
-    at a time.  The step runs the model inside
-    :func:`repro_torch.models.model.model_shards`: each layer's
-    leaves (and the tied table, at its two points of use) are gathered
-    whole only while that layer runs, inside the function that remat
-    checkpoints, so the backward's recompute gathers them again, and the
-    gather's backward keeps this process's block of the layer's whole
-    gradient.  Every model shard of a row sees the row's full batch, so
-    each computes the same whole gradient and no reduce is needed.  A
-    process thus holds its blocks of the state and of the gradient, one
-    layer whole with its gradient, and the table whole with its gradient
-    (``launch.dryrun``'s ``engine_step_bytes_per_process``); on more
-    than one model shard remat is required (a ValueError without it).
-    The model axis divides a step's memory, not its FLOPs: every shard
-    runs its row's whole products (the reference's GSPMD divides those
-    too).  The aggregation's codecs see whole leaves (their buckets and
+    scan with the Megatron specs; the port runs the model inside
+    :func:`repro_torch.models.model.model_shards` with the same split
+    written out: each product runs on this process's blocks (column
+    products q / k / v, gate and up; row products o and down, their
+    partial sums summed over "model" in rank order, so every model shard
+    of a row holds the same bits; expert-parallel MoE, d_inner-parallel
+    Mamba on the scan kernels, a vocab-parallel table and loss), and the
+    gradients' blocks come straight from autograd.  A leaf whose cut does
+    not fall on whole heads, experts or channels
+    (:func:`split_gathers`) is gathered whole inside the layer instead,
+    where remat is required (a ValueError without it,
+    :func:`lacks_remat`).  Every model shard of a row sees the row's full
+    batch.  A process holds its blocks of the state and of the gradient
+    (``launch.dryrun``'s ``engine_step_bytes_per_process``).
+    ``gather_layers=True`` keeps the engine that divides only the
+    memory: each layer's leaves (and the tied table, at its two points
+    of use) are gathered whole only while that layer runs, inside the
+    function that remat checkpoints (remat required), the gather's
+    backward keeping this process's block of the layer's whole gradient,
+    and every shard runs its row's whole products.  The aggregation's
+    codecs see whole leaves (their buckets and
     threefry counters run over the whole leaf).  With a leafwise uplink
     it goes a leaf piece at a time, a layer stack's leaf a layer at a
     time (its counters at their offsets in the whole leaf), each piece
@@ -467,9 +514,14 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
     losses) is computed from the same gathered tensors in the same order
     on every process.  Contract: on one client row the params, cache,
     losses and xis equal :func:`build_rollout_fn`'s bit for bit at any
-    number of model shards (the (1, 1) mesh keystone included); on
-    several rows params, cache and xis do, the losses to their summation
-    order.
+    number of model shards (the (1, 1) mesh keystone included) with
+    ``gather_layers``, and with the split on one model shard (the plain
+    path); on several rows params, cache and xis do, the losses to their
+    summation order.  The split on more than one model shard sums each
+    product's blocks in another order than one process: the reference's
+    contract holds, xis equal and params within rtol 1e-5 / atol 1e-6 (a
+    stochastic codec may then round an element whose input moved by an
+    ulp the other way).
 
     Plans for plain compressors are leafwise; a FleetPlan keeps its
     cohorts' transports.  Returns ``rollout(state, batches, key) ->
@@ -511,18 +563,20 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
         return rollout
 
     msize = model_shards_of(mesh)
-    if lacks_remat(cfg, msize):
+    if lacks_remat(cfg, msize, gather_layers):
         raise ValueError(
-            f"the 2-D engine on {msize} model shards gathers each layer "
-            "inside the layer loop and drops it after the layer's forward, "
-            "which needs remat: with cfg.remat off autograd would keep "
-            "every layer's gathered weights (set remat=True)")
+            f"the 2-D engine on {msize} model shards gathers leaves "
+            "inside the layer loop and drops them after the layer's "
+            "forward, which needs remat: with cfg.remat off autograd would "
+            "keep every layer's gathered weights (set remat=True)")
     stacked = stacked_param_shapes(cfg, n)
     p_specs = param_pspecs(stacked, msize, client_axes=(axis_name,))
     c_specs = param_pspecs(shapes, msize, client_axes=())
     p_shards = _ModelShards(mesh, p_specs)
     c_shards = _ModelShards(mesh, c_specs)
-    layer_gather = c_shards.layer_gather(cfg)
+    # one model shard runs the plain path
+    scope = {} if msize == 1 else dict(whole=c_shards.layer_gather(cfg)) \
+        if gather_layers else dict(split=c_shards.layer_split(cfg))
     leafwise = isinstance(up_plan, CompressionPlan) \
         and up_plan.transport == "leafwise"
     # leafwise plans average the blocks a leaf piece at a time; a
@@ -536,11 +590,11 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
         make_client_sharded_average(clients, n, up_plan, down_plan, cut)
 
     def grad2d(params, batch):
-        with model_shards(layer_gather):
+        with model_shards(**scope):
             return grad_fn(params, batch)
 
     def loss2d(params, batch):
-        with model_shards(layer_gather):
+        with model_shards(**scope):
             return loss_fn(params, batch)
 
     def average2d(key, params, mask=None):
@@ -561,8 +615,11 @@ def build_sharded_rollout_fn(cfg: ArchConfig, hp: L2GDHyper, *, mesh,
     axis = None if clients.size == 1 else clients
 
     def _place(state, batches):
-        glob = tree_leaves(stacked)[0].shape
-        if tuple(tree_leaves(state.params)[0].shape) == tuple(glob):
+        # whole where every leaf has its global shape (a leaf the axes
+        # leave whole says nothing: the table of a vocab that does not
+        # divide)
+        if all(tuple(a.shape) == tuple(g.shape) for a, g in zip(
+                tree_leaves(state.params), tree_leaves(stacked))):
             from repro_torch.launch.sharding import train_state_pspecs
             state = tree_local(mesh, train_state_pspecs(state, msize,
                                                         axis_name), state)

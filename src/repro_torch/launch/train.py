@@ -38,7 +38,9 @@ mesh engine (``launch.steps.build_sharded_rollout_fn``, one call over
 the whole run; the ledger replayed from its xi trace, tokens/s printed)
 over the processes of the group: ``torchrun --nproc-per-node K`` on the
 cards, a world of one without ``torchrun``, or ``--cpu-ranks K`` spawned
-CPU processes (``launch.mesh.run_cpu_ranks``; with ``device="cpu"``):
+CPU processes (``launch.mesh.run_cpu_ranks``; with ``device="cpu"``).
+More than one model shard runs the Megatron split (each shard its block
+of every product that splits on whole heads, experts or channels):
 
   PYTHONPATH=src python -m repro_torch.launch.train --engine mesh2d \
       --model-shards 2 --clients 1 --cpu-ranks 2 --steps 4
@@ -153,9 +155,9 @@ def run_mesh2d(args, cfg, hp, params, comp, mcomp, batch, n: int,
     call over the whole run on ``make_train_mesh(model_shards=...)`` (the
     group's processes), the ledger replayed from the trace with leafwise
     plans, tokens/s printed by rank 0.  More model shards divide a
-    step's memory (each layer is gathered whole only while it runs; remat
-    is required) but not its FLOPs: every shard runs its row's whole
-    products."""
+    step's memory and its FLOPs (the engine's split: each shard runs its
+    block of each split product); a layer whose leaves the split still
+    gathers needs remat, which the CLI turns on."""
     from repro_torch.core import init_state, make_plan
     from repro_torch.fl.ledger import BitsLedger
     from repro_torch.launch.mesh import make_train_mesh, model_shards_of
@@ -166,7 +168,7 @@ def run_mesh2d(args, cfg, hp, params, comp, mcomp, batch, n: int,
     say = print if lead else (lambda *a, **k: None)
     if lacks_remat(cfg, model_shards_of(mesh)):
         # the reduced configs run without remat, which the engine refuses
-        # on more than one model shard (it changes no bit)
+        # where the split gathers a layer's leaves (it changes no bit)
         say(f"mesh2d: remat on ({cfg.remat_policy}), which "
             f"{model_shards_of(mesh)} model shards need", flush=True)
         cfg = dataclasses.replace(cfg, remat=True)

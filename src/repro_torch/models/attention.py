@@ -19,6 +19,17 @@ nope + rope differs from its v dim): the prefill expands the latent into
 keys and values and takes a dense causal softmax; decode takes the
 absorbed form against the latent cache.  The encoder-decoder's
 attention is dense too (``attention_core``), as the reference's.
+
+On a model axis (``split``, a :class:`repro_torch.core.collective.
+ModelSplit`; training only) an attention whose query projection is cut
+on whole heads (H % k == 0) runs this process's H / k heads: the query
+(and MHA's key and value, MLA's ``w_uk`` / ``w_uv``) columns of its
+block, ``wo``'s rows, then the sum over the axis.  GQA's key and value
+heads split too when n_kv % k == 0; otherwise ``wk`` / ``wv`` are made
+whole and each process projects the kv heads its query heads read (their
+gradients summed over the axis).  MLA's ``w_dkv`` and latent stay
+replicated.  An attention whose heads do not divide makes its cut leaves
+whole and runs every head on every process.
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ from repro_torch.models.blocks import (apply_rope, dense_init, init_rmsnorm,
 
 __all__ = ["NEG_INF", "attention_core", "causal_mask", "init_gqa", "KVCache",
            "init_kv_cache", "gqa_attention", "init_mla", "MLACache",
-           "init_mla_cache", "mla_attention", "init_mha", "mha_attention"]
+           "init_mla_cache", "mla_attention", "init_mha", "mha_attention",
+           "heads_split", "kv_split"]
 
 NEG_INF = -1e30
 
@@ -129,6 +141,56 @@ def _project(params: dict, x, n_heads: int, n_kv: int, head_dim: int):
             (x @ params["wv"]).reshape(B, S, n_kv, head_dim))
 
 
+def heads_split(dims: dict, n_heads: int, size: int) -> bool:
+    """Whether an attention of these cut dims runs on its block of the
+    heads: the 2-D query projection cut and H % size == 0 (its block is
+    then whole heads, and so are its other head-cut leaves')."""
+    return "wqkv" not in dims and dims.get("wq") is not None \
+        and n_heads % size == 0
+
+
+def kv_split(dims: dict, n_kv: int, size: int) -> bool:
+    """Whether GQA's key and value projections run on their block of the
+    kv heads (n_kv % size == 0); else they are made whole."""
+    return dims.get("wk") is not None and n_kv % size == 0
+
+
+def _kv_heads(split, n_heads: int, n_kv: int):
+    """The kv heads this process's query heads read: (first, last, the
+    index into first..last of each local query head's, or None where
+    the local heads take them evenly in order)."""
+    local = n_heads // split.size
+    group = n_heads // n_kv
+    heads = range(split.index * local, (split.index + 1) * local)
+    first, last = heads[0] // group, heads[-1] // group + 1
+    idx = [h // group - first for h in heads]
+    rep = local // (last - first)
+    even = local % (last - first) == 0 and idx == [j // rep
+                                                   for j in range(local)]
+    return first, last, None if even else idx
+
+
+def _project_heads(params: dict, h, split, n_heads: int, n_kv: int,
+                   head_dim: int):
+    """q, k, v of this process's block of the query heads
+    (:func:`heads_split`) from ``h``, x through *f*: the kv heads' block
+    where they split (:func:`kv_split`), else the kv heads its query
+    heads read, projected from ``wk`` / ``wv`` made whole (their
+    gradients summed over the axis)."""
+    B, S, _ = h.shape
+    q = (h @ params["wq"]).reshape(B, S, n_heads // split.size, head_dim)
+    if kv_split(split.dims, n_kv, split.size):
+        return (q,) + tuple((h @ params[n]).reshape(
+            B, S, n_kv // split.size, head_dim) for n in ("wk", "wv"))
+    first, last, idx = _kv_heads(split, n_heads, n_kv)
+    cols = slice(first * head_dim, last * head_dim)
+    k, v = ((h @ split.whole_partial(params[n], n)[:, cols])
+            .reshape(B, S, last - first, head_dim) for n in ("wk", "wv"))
+    if idx is not None:
+        k, v = k[:, :, idx], v[:, :, idx]
+    return q, k, v
+
+
 def _write_cache(tensors, values, idx: int) -> None:
     """Write ``values`` at positions idx.. of the (B, C, ...) caches."""
     C, S = tensors[0].shape[1], values[0].shape[1]
@@ -147,8 +209,9 @@ def gqa_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                   cache: Optional[KVCache] = None,
                   cache_index: Optional[int] = None, ring: bool = False,
                   mask_override: Optional[torch.Tensor] = None,
-                  impl: str = "dense"):
-    """Returns (out, cache).  Train/prefill when cache is None.
+                  impl: str = "dense", split=None):
+    """Returns (out, cache).  Train/prefill when cache is None; ``split``
+    (training only) runs this process's heads of a model axis.
     ``mask_override`` replaces the computed causal mask (the model passes
     its per-layer global / windowed mask).
 
@@ -158,11 +221,23 @@ def gqa_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     ``causal_mask(S, S, window)`` (models/model.py gates it on
     ``cfg.sliding_window is None``).  Decode always takes the dense cache
     path; ``cache_index`` is the position of the first new token."""
+    if split is not None and not (params["wq"].dim() == 2 and heads_split(
+            split.dims, n_heads, split.size)):
+        params, split = split.whole(params), None
     B, S, _ = x.shape
-    q, k, v = _project(params, x, n_heads, n_kv, head_dim)
+    if split is None:
+        q, k, v = _project(params, x, n_heads, n_kv, head_dim)
+        q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
+    else:
+        q, k, v = _project_heads(params, split.copy(x), split, n_heads, n_kv,
+                                 head_dim)
+        n_heads //= split.size
+        if qk_norm:     # every local head reads them: partial gradients
+            q_norm, k_norm = ({"scale": split.copy(params[n]["scale"])}
+                              for n in ("q_norm", "k_norm"))
     if qk_norm:
-        q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
+        q = rmsnorm(q_norm, q)
+        k = rmsnorm(k_norm, k)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
 
@@ -192,7 +267,7 @@ def gqa_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
         out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     else:
         out = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
-    return out, cache
+    return (out if split is None else split.reduce(out)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -231,16 +306,26 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
                   n_heads: int, kv_lora: int, theta: float,
                   nope_dim: int = 128, rope_dim: int = 64, v_dim: int = 128,
                   cache: Optional[MLACache] = None,
-                  cache_index: Optional[int] = None):
+                  cache_index: Optional[int] = None, split=None):
     """Latent attention.  Returns (out, cache): the cache is None on the
     prefill path and written in place on the decode path, whose scores
     are taken against the cached latent (q absorbed through ``w_uk``) and
-    whose values are expanded from the latent through ``w_uv``."""
+    whose values are expanded from the latent through ``w_uv``.
+    ``split`` (training only) runs this process's heads of a model axis:
+    the latent is computed whole and enters the heads' products through
+    *f*."""
     B, S, _ = x.shape
     H = n_heads
     scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    xq = x
+    if split is not None:
+        if heads_split(split.dims, n_heads, split.size):
+            H = n_heads // split.size
+            xq = split.copy(x)
+        else:
+            params, split = split.whole(params), None
 
-    q = (x @ params["wq"]).reshape(B, S, H, nope_dim + rope_dim)
+    q = (xq @ params["wq"]).reshape(B, S, H, nope_dim + rope_dim)
     q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
     q_rope = apply_rope(q_rope, positions, theta)
 
@@ -249,6 +334,8 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
     c_kv = rmsnorm(params["kv_norm"], dkv[..., :kv_lora])         # (B,S,R)
     # one rope key shared by every head
     k_rope = apply_rope(dkv[..., None, kv_lora:], positions, theta)[:, :, 0]
+    if split is not None:
+        c_kv, k_rope = split.copy(c_kv), split.copy(k_rope)
 
     if cache is None:
         k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, nope_dim)
@@ -278,7 +365,7 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor, *,
         out = torch.einsum("bshr,rhd->bshd", ctx_latent, wuv)
 
     out = out.reshape(B, S, H * v_dim) @ params["wo"]
-    return out, cache
+    return (out if split is None else split.reduce(out)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +384,22 @@ def init_mha(generator, d_model: int, n_heads: int, head_dim: int, dtype, *,
 
 
 def mha_attention(params: dict, x: torch.Tensor, kv_src, *, n_heads: int,
-                  head_dim: int, mask=None, precomputed_kv=None):
+                  head_dim: int, mask=None, precomputed_kv=None, split=None):
     """Bidirectional (``mask=None``), masked or cross attention of ``x``
     over ``kv_src``, no RoPE (the encoder-decoder adds its sinusoidal
     positions to the embeddings).  ``precomputed_kv`` = (k, v), each
     (B, T, H, D), replaces the key and value projections (the decode
-    path's cross-attention caches).  Returns (out, (k, v))."""
+    path's cross-attention caches).  ``split`` (training only) runs this
+    process's heads of a model axis.  Returns (out, (k, v))."""
     B, S, _ = x.shape
+    if split is not None:
+        if heads_split(split.dims, n_heads, split.size):
+            n_heads //= split.size
+            same = kv_src is x
+            x = split.copy(x)
+            kv_src = x if same else split.copy(kv_src)
+        else:
+            params, split = split.whole(params), None
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
     if precomputed_kv is None:
         T = kv_src.shape[1]
@@ -312,4 +408,5 @@ def mha_attention(params: dict, x: torch.Tensor, kv_src, *, n_heads: int,
     else:
         k, v = precomputed_kv
     out = attention_core(q, k, v, mask)
-    return out.reshape(B, S, n_heads * head_dim) @ params["wo"], (k, v)
+    out = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    return (out if split is None else split.reduce(out)), (k, v)

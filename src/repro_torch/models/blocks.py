@@ -5,6 +5,15 @@ Everything is functional: ``init_*`` returns a parameter dict, and the
 apply functions take (params, x).  Layer params are stacked over a
 leading layer axis by :mod:`repro_torch.models.model`, as the reference
 stacks them for its scan.
+
+On a model axis (``split``, a :class:`repro_torch.core.collective.
+ModelSplit`; the 2-D engine's Megatron split) the MLP runs its gate / up
+columns and its down rows of this process's d_ff block, and the table's
+vocab block gives the embedding rows of its vocab range, a vocab block
+of the logits, and the loss over the blocks (the global max and the sum
+of exponentials over the axis in rank order, the target's logit from
+the block that holds it).  A leaf the axis leaves whole runs the plain
+path.
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ import torch.nn.functional as F
 __all__ = ["dense_init", "init_rmsnorm", "rmsnorm", "rope_frequencies",
            "apply_rope", "init_mlp", "mlp", "init_embedding", "embed",
            "unembed", "sinusoidal_positions", "sinusoidal_position_at",
-           "cross_entropy_loss"]
+           "cross_entropy_loss", "mlp_splits"]
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +116,23 @@ def _activation(name: str):
     return lambda t: F.gelu(t, approximate="tanh")
 
 
-def mlp(params: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+def mlp_splits(dims: dict) -> bool:
+    """Whether the MLP of these cut dims runs on its d_ff block: gate and
+    up cut on their columns (a fused ``w_in`` block would hold gate
+    columns on one process and up columns on another: it is gathered)."""
+    return dims.get("w_gate") is not None
+
+
+def mlp(params: dict, x: torch.Tensor, activation: str = "silu",
+        split=None) -> torch.Tensor:
     act = _activation(activation)
+    if split is not None:
+        if mlp_splits(split.dims):
+            h = split.copy(x)
+            gate = act(h @ params["w_gate"])
+            return split.reduce((gate * (h @ params["w_up"]))
+                                @ params["w_down"])
+        params = split.whole(params)
     if "w_in" in params:
         gate, up = torch.chunk(x @ params["w_in"], 2, dim=-1)
         return (act(gate) * up) @ params["w_down"]
@@ -126,12 +150,38 @@ def init_embedding(generator, vocab: int, d_model: int, dtype, *,
                                 device=device, scale=0.02)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def _vocab_block(split):
+    """The split of a table cut on its vocab rows over more than one
+    process, else None."""
+    return split if split is not None and split.size > 1 \
+        and split.dim("table") is not None else None
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied LM head: logits = x @ table^T (computed in fp32)."""
+def _in_block(ids: torch.Tensor, lo: int, n: int):
+    """(ids - lo clamped into the block's rows, whether each id lies in
+    [lo, lo + n))."""
+    local = ids.long() - lo
+    inside = (local >= 0) & (local < n)
+    return torch.where(inside, local, 0), inside
+
+
+def embed(params: dict, tokens: torch.Tensor, split=None) -> torch.Tensor:
+    """The table's rows of ``tokens``; on a vocab block each process
+    looks up the tokens of its vocab range, zeros elsewhere, and the
+    blocks are summed (one of them is non-zero: exact)."""
+    table = params["table"]
+    if _vocab_block(split) is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local, inside = _in_block(tokens, split.index * rows, rows)
+    return split.reduce(torch.where(inside[..., None], table[local], 0.0))
+
+
+def unembed(params: dict, x: torch.Tensor, split=None) -> torch.Tensor:
+    """Tied LM head: logits = x @ table^T (computed in fp32); on a vocab
+    block, this block's columns of the logits (B, S, V / k)."""
+    if _vocab_block(split) is not None:
+        x = split.copy(x)
     return x.float() @ params["table"].float().T
 
 
@@ -172,11 +222,25 @@ def sinusoidal_position_at(index: int, d_model: int,
 # ---------------------------------------------------------------------------
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token cross-entropy in fp32.  logits: (..., V), labels int."""
+                       mask: Optional[torch.Tensor] = None,
+                       split=None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32.  logits: (..., V), labels int.
+    With ``split`` (the table's, cut on its vocab rows) the logits are
+    this process's vocab block (..., V / k): the max, the sum of
+    exponentials and the target's logit are taken over the blocks."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if _vocab_block(split) is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        n = logits.shape[-1]
+        top = split.max(logits.amax(dim=-1))
+        local, inside = _in_block(labels, split.index * n, n)
+        own = torch.gather(logits, -1, local[..., None])[..., 0]
+        sums = split.reduce(torch.stack([
+            torch.sum(torch.exp(logits - top[..., None]), dim=-1),
+            torch.where(inside, own, 0.0)]))
+        logz, gold = top + torch.log(sums[0]), sums[1]
     nll = logz - gold
     if mask is not None:
         nll = nll * mask

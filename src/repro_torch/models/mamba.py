@@ -16,6 +16,15 @@ Decode carries (conv window, ssm state) and is O(1) per token.  The port
 writes both into the cache tensors IN PLACE (the reference returns a new
 ``MambaCache``) and returns the same cache object.
 
+On a model axis (``split``, a :class:`repro_torch.core.collective.
+ModelSplit`; training only) the mixer runs this process's d_inner block
+of E / k channels: ``in_proj_x`` / ``in_proj_z`` / ``conv_*`` /
+``dt_proj`` / ``dt_bias`` by columns, ``A_log`` / ``D`` by rows, the
+scan on the block's channels; ``x_proj``'s rows give a partial
+(dt_low, B, C), summed over the axis (*g*) and entering the block's
+products through *f* (every channel reads them, so each process's
+gradient of them is partial); ``out_proj``'s rows, then *g*.
+
 Where the numbers differ from the reference's (each pinned by a test):
   * softplus is written as the reference's ``jnp.logaddexp(x, 0)``,
     ``max(x, 0) + log1p(exp(-|x|))``, not ``F.softplus``, whose identity
@@ -41,7 +50,8 @@ from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models.blocks import dense_init
 
 __all__ = ["init_mamba", "mamba_forward", "mamba_decode_step", "MambaCache",
-           "init_mamba_cache", "selective_scan_chunked", "softplus"]
+           "init_mamba_cache", "selective_scan_chunked", "softplus",
+           "channels_split"]
 
 
 def init_mamba(generator, d_model: int, d_state: int = 16, expand: int = 2,
@@ -92,11 +102,20 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssm_inputs(params: dict, x_conv: torch.Tensor, d_state: int):
+def channels_split(dims: dict) -> bool:
+    """Whether the mixer of these cut dims runs on its d_inner block."""
+    return dims.get("in_proj_x") is not None
+
+
+def _ssm_inputs(params: dict, x_conv: torch.Tensor, d_state: int,
+                split=None):
     """Shared projection math.  x_conv: (..., d_inner) -> dt, Bm, Cm (in
-    x_conv's dtype) and A = -exp(A_log) (float32)."""
+    x_conv's dtype) and A = -exp(A_log) (float32); on a d_inner block
+    (``split``) x_proj's partial product is summed over the axis."""
     dt_rank = params["dt_proj"].shape[0]
     dbc = x_conv @ params["x_proj"]
+    if split is not None:
+        dbc = split.copy(split.reduce(dbc))
     dt = softplus(dbc[..., :dt_rank] @ params["dt_proj"] + params["dt_bias"])
     Bm = dbc[..., dt_rank:dt_rank + d_state]
     Cm = dbc[..., dt_rank + d_state:]
@@ -133,14 +152,20 @@ def selective_scan_chunked(dt, Bm, Cm, x, A, h0, chunk: int = 16):
 
 
 def mamba_forward(params: dict, x: torch.Tensor, *, d_state: int = 16,
-                  chunk: int = 16) -> torch.Tensor:
+                  chunk: int = 16, split=None) -> torch.Tensor:
     """Full-sequence forward from a zero state.  x: (B, L, d_model) ->
     (B, L, d_model).  The scan runs the CUDA kernel on a CUDA tensor and
-    the chunked scan (``chunk`` positions at a time) on a CPU tensor."""
+    the chunked scan (``chunk`` positions at a time) on a CPU tensor.
+    ``split``: this process's d_inner block of a model axis."""
+    if split is not None:
+        if channels_split(split.dims):
+            x = split.copy(x)
+        else:
+            params, split = split.whole(params), None
     xi = x @ params["in_proj_x"]
     z = x @ params["in_proj_z"]
     xc = F.silu(_causal_conv1d(xi, params["conv_w"], params["conv_b"]))
-    dt, Bm, Cm, A = _ssm_inputs(params, xc, d_state)
+    dt, Bm, Cm, A = _ssm_inputs(params, xc, d_state, split)
     if use_kernel(xc):
         y = scan_ops.selective_scan_op(dt, Bm, Cm, xc, A)
     else:
@@ -148,7 +173,8 @@ def mamba_forward(params: dict, x: torch.Tensor, *, d_state: int = 16,
                          dtype=torch.float32, device=x.device)
         y, _ = selective_scan_chunked(dt, Bm, Cm, xc, A, h0, chunk)
     y = y.to(x.dtype) + params["D"] * xc
-    return (y * F.silu(z)) @ params["out_proj"]
+    out = (y * F.silu(z)) @ params["out_proj"]
+    return out if split is None else split.reduce(out)
 
 
 class MambaCache(NamedTuple):

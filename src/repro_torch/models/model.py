@@ -41,11 +41,18 @@ from ``encoder_forward`` (the reference's tests do the same).
 
 Within :func:`model_shards` (the 2-D engine on a ``model`` axis,
 ``launch.steps.build_sharded_rollout_fn``) the parameters passed in are
-this process's blocks: each layer's are made whole at the start of the
-layer body, inside the function that remat checkpoints, so the
-recompute gathers them again and no op saves the whole weights; the tied
-table is made whole at each of its points of use (the embedding and the
-unembedding).
+this process's blocks.  With ``split`` (the engine's default) each
+module runs its products on the blocks, Megatron's split (the MLP's
+d_ff, attention's heads, MoE's experts, Mamba's d_inner, the table's
+vocab: ``blocks``, ``attention``, ``moe``, ``mamba``), and makes whole
+inside the layer body only the cut leaves whose cut does not fall on
+whole heads, experts or channels (:func:`gathered_leaves`); ``forward``
+then returns this process's vocab block of the logits and ``loss_fn``
+the loss over the blocks.  With ``whole`` each layer's leaves are made
+whole at the start of the layer body, inside the function that remat
+checkpoints, so the recompute gathers them again and no op saves the
+whole weights; the tied table is made whole at each of its points of
+use (the embedding and the unembedding).
 
 Public API:
   init_params(generator, cfg, device)    -> params
@@ -60,7 +67,9 @@ Public API:
                                             cross caches a layer)
   encoder_forward(params, cfg, frames)   -> the encoder's output
   decode_step(params, cfg, caches, index, batch) -> (logits, caches)
-  model_shards(whole)                    -> the 2-D engine's gather scope
+  model_shards(whole=, split=)           -> the 2-D engine's scope
+  gathered_leaves(cfg, dims, size)       -> the cut leaves the split
+                                            still makes whole
 """
 from __future__ import annotations
 
@@ -81,7 +90,7 @@ from repro_torch.models import moe as moe_lib
 
 __all__ = ["init_params", "forward", "hidden", "loss_fn", "layer_kinds",
            "layer_stacks", "init_caches", "decode_step", "param_count",
-           "encoder_forward", "model_shards"]
+           "encoder_forward", "model_shards", "gathered_leaves"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -255,31 +264,96 @@ def _layers(stacked: dict, n: int) -> list:
     return [{key: part[i] for key, part in parts.items()} for i in range(n)]
 
 
-#: set by :func:`model_shards`: ``whole(key, tree)`` or None.  A module
-#: global, not a ContextVar: the backward's recompute runs on autograd's
-#: own thread on the card, and must gather there too
+#: set by :func:`model_shards`: ``whole(key, tree)`` and ``split(key)``,
+#: or None.  Module globals, not ContextVars: the backward's recompute
+#: runs on autograd's own thread on the card, and must gather there too
 _WHOLE = None
+_SPLIT = None
 
 
 @contextlib.contextmanager
-def model_shards(whole):
-    """Within the block, the forward makes its parameters whole with
-    ``whole(key, tree)``: ``key`` is a top-level key of the parameter
-    tree and ``tree`` its subtree of this process's blocks, one layer's
-    dict for a layer stack (``layer_stacks``); ``whole`` returns the
-    tree with each leaf whole.  A layer's call runs inside the layer
-    body (and again in its recompute under remat), the table's at the
-    embedding and at the unembedding."""
-    global _WHOLE
-    before, _WHOLE = _WHOLE, whole
+def model_shards(whole=None, split=None):
+    """Within the block the parameters are this process's blocks.
+
+    ``split(key)`` gives the :class:`repro_torch.core.collective.
+    ModelSplit` of a top-level key of the parameter tree (one layer's
+    dims for a layer stack, ``layer_stacks``; the table's for "embed"):
+    the modules run their products on the blocks.  Or ``whole(key,
+    tree)`` makes each leaf of ``tree`` (a key's subtree of blocks, one
+    layer's dict for a layer stack) whole: a layer's call runs inside
+    the layer body (and again in its recompute under remat), the table's
+    at the embedding and at the unembedding."""
+    global _WHOLE, _SPLIT
+    before, (_WHOLE, _SPLIT) = (_WHOLE, _SPLIT), (whole, split)
     try:
         yield
     finally:
-        _WHOLE = before
+        _WHOLE, _SPLIT = before
 
 
 def _whole(key: str, tree):
     return tree if _WHOLE is None else _WHOLE(key, tree)
+
+
+def _split(key: str):
+    return None if _SPLIT is None else _SPLIT(key)
+
+
+def _sub(split, name: str):
+    return None if split is None else split.sub(name)
+
+
+def gathered_leaves(cfg: ArchConfig, dims: dict, size: int) -> dict:
+    """The leaves of a one-model tree whose dims (``dims``: the
+    parameter tree with each leaf's cut dim on the model axis, None where
+    whole; a layer stack's without its layer axis) the split on ``size``
+    model shards still makes whole inside the layer: True where a leaf is
+    cut but its product does not run on blocks (the rules of
+    ``blocks.mlp_splits``, ``attention.heads_split`` / ``kv_split``,
+    ``mamba.channels_split``, ``moe.experts_split`` / ``shared_split``);
+    the table never is (a vocab block, or whole on every process)."""
+    def cut(tree, names=None):
+        return {k: cut(v, names) if isinstance(v, dict) else
+                v is not None and (names is None or k in names)
+                for k, v in tree.items()}
+
+    def attention(d, mha=False):
+        if not attn.heads_split(d, cfg.n_heads, size) or (
+                not mha and cfg.mixer != "mla"
+                and cfg.attn_layout != "fused"):
+            return cut(d)
+        if mha or cfg.mixer == "mla" \
+                or attn.kv_split(d, cfg.n_kv_heads, size):
+            return cut(d, ())
+        return cut(d, ("wk", "wv"))
+
+    def layer(d, kind, mha):
+        out = cut(d, ())
+        for name, sub in d.items():
+            if name == "attn":
+                out[name] = attention(sub, mha)
+            elif name in ("mixer", "mamba"):
+                out[name] = cut(sub, () if mb.channels_split(sub) else None)
+            elif name == "ffn" and kind == "moe":
+                names = () if moe_lib.experts_split(sub, cfg.moe_impl) \
+                    else ("w_gate", "w_up", "w_down")
+                if not moe_lib.shared_split(sub):
+                    names += ("shared_gate", "shared_up", "shared_down")
+                out[name] = cut(sub, names)
+            elif name == "ffn":
+                out[name] = cut(sub, () if blocks.mlp_splits(sub) else None)
+        return out
+
+    kinds = dict(_groups(cfg))
+    out = {}
+    for key, d in dims.items():
+        if key in kinds:
+            out[key] = layer(d, kinds[key][0].ffn, cfg.is_encdec)
+        elif key in ("encoder", "cross"):
+            out[key] = layer(d, "dense", True)
+        else:
+            out[key] = cut(d, ())
+    return out
 
 
 def _remat(cfg: ArchConfig, params):
@@ -316,35 +390,42 @@ def _mla(cfg: ArchConfig, p: dict, x, positions, **kw):
         rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim, **kw)
 
 
-def _apply_mixer(cfg: ArchConfig, lp: dict, x, positions, mask, impl):
+def _apply_mixer(cfg: ArchConfig, lp: dict, x, positions, mask, impl,
+                 split=None):
     """The full-sequence mixer of one layer (the reference's
-    ``_apply_mixer_train``)."""
+    ``_apply_mixer_train``); ``split``: the layer's on a model axis."""
     if cfg.mixer == "mla":
-        return _mla(cfg, lp["attn"], x, positions)[0]
+        return _mla(cfg, lp["attn"], x, positions,
+                    split=_sub(split, "attn"))[0]
     if cfg.mixer == "mamba":
         return mb.mamba_forward(lp["mixer"], x, d_state=cfg.ssm_state,
-                                chunk=cfg.scan_chunk)
+                                chunk=cfg.scan_chunk,
+                                split=_sub(split, "mixer"))
     a, _ = _attention(cfg, lp["attn"], x, positions, impl=impl,
-                      mask_override=mask)
+                      mask_override=mask, split=_sub(split, "attn"))
     if cfg.mixer == "gqa":
         return a
     return _fuse(lp, a, mb.mamba_forward(lp["mamba"], x,
                                          d_state=cfg.ssm_state,
-                                         chunk=cfg.scan_chunk))
+                                         chunk=cfg.scan_chunk,
+                                         split=_sub(split, "mamba")))
 
 
-def _apply_ffn(cfg: ArchConfig, lp: dict, x, kind: str, with_aux=True):
+def _apply_ffn(cfg: ArchConfig, lp: dict, x, kind: str, with_aux=True,
+               split=None):
     """(x + ffn(x), the layer's aux loss: a 0-d float32 for MoE when
-    ``with_aux``, else None)."""
+    ``with_aux``, else None); ``split``: the layer's on a model axis."""
     if kind == "none":
         return x, None
     h = blocks.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if kind == "dense":
-        return x + blocks.mlp(lp["ffn"], h, cfg.activation), None
+        return x + blocks.mlp(lp["ffn"], h, cfg.activation,
+                              split=_sub(split, "ffn")), None
     y, aux = moe_lib.moe_ffn(
         lp["ffn"], h, n_experts=cfg.n_experts, k=cfg.experts_per_token,
         capacity_factor=cfg.capacity_factor, impl=cfg.moe_impl,
-        n_shared=cfg.n_shared_experts, with_aux=with_aux)
+        n_shared=cfg.n_shared_experts, with_aux=with_aux,
+        split=_sub(split, "ffn"))
     return x + y, aux
 
 
@@ -356,10 +437,10 @@ def _add(total, part):
 
 def _decoder_layer(cfg: ArchConfig, kind: LayerKind, lp: dict, x, positions,
                    mask, impl, stack: str):
-    lp = _whole(stack, lp)
+    lp, split = _whole(stack, lp), _split(stack)
     h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    x = x + _apply_mixer(cfg, lp, h, positions, mask, impl)
-    return _apply_ffn(cfg, lp, x, kind.ffn)
+    x = x + _apply_mixer(cfg, lp, h, positions, mask, impl, split)
+    return _apply_ffn(cfg, lp, x, kind.ffn, split=split)
 
 
 def hidden(params, cfg: ArchConfig, batch):
@@ -399,12 +480,13 @@ def _run(layer, remat, *args):
 
 
 def _encoder_layer(cfg: ArchConfig, lp: dict, h):
-    lp = _whole("encoder", lp)
+    lp, split = _whole("encoder", lp), _split("encoder")
     # the reference normalizes ln1 twice from one input: once is the same
     x = blocks.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     h = h + attn.mha_attention(lp["attn"], x, x, n_heads=cfg.n_heads,
-                               head_dim=cfg.hd)[0]
-    return _apply_ffn(cfg, lp, h, "dense")[0]
+                               head_dim=cfg.hd,
+                               split=_sub(split, "attn"))[0]
+    return _apply_ffn(cfg, lp, h, "dense", split=split)[0]
 
 
 def encoder_forward(params, cfg: ArchConfig, frames):
@@ -424,21 +506,24 @@ def _encdec_layer(cfg: ArchConfig, lp: dict, cp: dict, h, enc_out, mask):
     """A decoder layer: masked self-attention, cross-attention over the
     encoder's output, the MLP."""
     lp, cp = _whole("layers", lp), _whole("cross", cp)
+    split, cross = _split("layers"), _split("cross")
     x = blocks.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     h = h + attn.mha_attention(lp["attn"], x, x, n_heads=cfg.n_heads,
-                               head_dim=cfg.hd, mask=mask)[0]
+                               head_dim=cfg.hd, mask=mask,
+                               split=_sub(split, "attn"))[0]
     x = blocks.rmsnorm(cp["ln_cross"], h, cfg.norm_eps)
     h = h + attn.mha_attention(cp["attn"], x, enc_out, n_heads=cfg.n_heads,
-                               head_dim=cfg.hd)[0]
-    return _apply_ffn(cfg, lp, h, "dense")[0]
+                               head_dim=cfg.hd,
+                               split=_sub(cross, "attn"))[0]
+    return _apply_ffn(cfg, lp, h, "dense", split=split)[0]
 
 
 def _encdec_hidden(params, cfg: ArchConfig, batch):
     enc_out = encoder_forward(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = blocks.embed(_whole("embed", params["embed"]), tokens) \
-        .to(_DTYPES[cfg.compute_dtype])
+    x = blocks.embed(_whole("embed", params["embed"]), tokens,
+                     split=_split("embed")).to(_DTYPES[cfg.compute_dtype])
     x = x + blocks.sinusoidal_positions(S, cfg.d_model,
                                         x.device)[None].to(x.dtype)
     mask = attn.causal_mask(S, S, device=x.device)
@@ -457,7 +542,8 @@ def _hidden_aux(params, cfg: ArchConfig, batch):
         return _encdec_hidden(params, cfg, batch), None
     tokens = batch["tokens"]
     cdt = _DTYPES[cfg.compute_dtype]
-    x = blocks.embed(_whole("embed", params["embed"]), tokens).to(cdt)
+    x = blocks.embed(_whole("embed", params["embed"]), tokens,
+                     split=_split("embed")).to(cdt)
     if cfg.frontend == "vision" and "patches" in batch:
         x = torch.cat([batch["patches"].to(cdt), x], dim=1)
     B, S, _ = x.shape
@@ -486,11 +572,13 @@ def forward(params, cfg: ArchConfig, batch):
     """batch: {"tokens": (B, S)} plus {"patches": (B, P, d_model)} for a
     vision config (logits (B, P + S, V)) or {"frames": (B, F, d_model)}
     for the encoder-decoder.  Returns (logits float32, aux_loss 0-d
-    float32)."""
+    float32); within :func:`model_shards`'s split of a table cut on its
+    vocab rows, the logits are this process's vocab block."""
     x, aux = _hidden_aux(params, cfg, batch)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return blocks.unembed(_whole("embed", params["embed"]), x), aux
+    return blocks.unembed(_whole("embed", params["embed"]), x,
+                          split=_split("embed")), aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
@@ -501,7 +589,8 @@ def loss_fn(params, cfg: ArchConfig, batch):
     tokens = batch["tokens"]
     if cfg.frontend == "vision" and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:]
-    loss = blocks.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+    loss = blocks.cross_entropy_loss(logits[:, :-1], tokens[:, 1:],
+                                     split=_split("embed"))
     total = loss + cfg.aux_loss_weight * aux
     return total, {"ce": loss, "aux": aux}
 

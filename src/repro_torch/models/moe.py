@@ -31,6 +31,16 @@ Two differences of layout, none of arithmetic:
   two identical training runs would differ.  Under remat the layer's
   forward runs again in the backward; the router's products are
   deterministic, so the recompute routes every token as the forward did.
+
+On a model axis (``split``, a :class:`repro_torch.core.collective.
+ModelSplit`; training, gather dispatch) the experts run expert-parallel:
+the router stays replicated (every process routes every token alike and
+computes the aux loss once from the replicated gates), each process
+fills and runs only its E / k experts' buffer rows and combines their
+outputs; the combine weights enter through *f* (the router's gradient
+reaches them only through this process's experts), and the shared
+experts split d_ff as the MLP does.  The partial outputs are summed over
+the axis once (*g*).
 """
 from __future__ import annotations
 
@@ -42,7 +52,8 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.models.blocks import dense_init
 
-__all__ = ["init_moe", "moe_ffn", "moe_capacity"]
+__all__ = ["init_moe", "moe_ffn", "moe_capacity", "experts_split",
+           "shared_split"]
 
 
 def init_moe(generator, d_model: int, n_experts: int, n_shared: int,
@@ -172,18 +183,41 @@ class _RowGather(torch.autograd.Function):
         return out, None, None
 
 
+def experts_split(dims: dict, impl: str) -> bool:
+    """Whether the routed experts of these cut dims run expert-parallel
+    (the expert stacks cut on E; the gather dispatch)."""
+    return dims.get("w_gate") is not None and impl == "gather"
+
+
+def shared_split(dims: dict) -> bool:
+    """Whether the shared experts run on their d_ff block."""
+    return dims.get("shared_gate") is not None
+
+
 def _moe_gather(params, x, *, n_experts: int, k: int, capacity: int,
-                with_aux: bool = True):
-    """Capacity-bounded gather dispatch.  x: (G, S, d)."""
+                with_aux: bool = True, split=None, h=None):
+    """Capacity-bounded gather dispatch.  x: (G, S, d).  With ``split``
+    the expert stacks are this process's E / k experts: only their
+    buffer rows are filled and run (from ``h``, x through *f*), and the
+    output is this process's partial sum."""
     G, S, d = x.shape
     E, C = n_experts, capacity
     gates, topv, topi = _route(x, params["router"], k)
     flat_e, pos, keep = _positions(topi, E, C)
     slot, src, tok = _maps(flat_e, pos, keep, S, E, C)
+    if split is not None:
+        # this process's buffer rows; assignments elsewhere take the pad
+        rows = params["w_gate"].shape[0] * G * C
+        lo = split.index * rows
+        slot = torch.where((slot >= lo) & (slot < lo + rows), slot - lo,
+                           rows)
+        tok, src, x = tok[lo:lo + rows], src[lo:lo + rows], h
+        topv = split.copy(topv)
+    n_exp = tok.shape[0] // (G * C)
     expert_in = _RowGather.apply(x.reshape(G * S, d), tok, slot)
-    expert_out = _experts_apply(params, expert_in.view(E, G * C, d))
+    expert_out = _experts_apply(params, expert_in.view(n_exp, G * C, d))
     # combine: each kept assignment's output row, weighted by its gate
-    gathered = _RowGather.apply(expert_out.view(E * G * C, d),
+    gathered = _RowGather.apply(expert_out.view(n_exp * G * C, d),
                                 slot.reshape(-1), src[None])
     gathered = gathered.view(k, G * S, d)
     w = (topv.transpose(1, 2) * keep.view(G, k, S)).transpose(0, 1) \
@@ -224,17 +258,42 @@ def _moe_einsum(params, x, *, n_experts: int, k: int, capacity: int,
     return y, _aux_loss(gates, topi, E) if with_aux else None
 
 
+def _sum(a, b):
+    return b if a is None else a if b is None else a + b
+
+
 def moe_ffn(params: dict, x: torch.Tensor, *, n_experts: int, k: int,
             capacity_factor: float = 1.25, impl: str = "gather",
-            n_shared: int = 0, with_aux: bool = True):
+            n_shared: int = 0, with_aux: bool = True, split=None):
     """MoE FFN over x: (B, S, d) (B = routing groups).  Returns (y, aux);
-    aux is None unless ``with_aux`` (decode discards it)."""
+    aux is None unless ``with_aux`` (decode discards it).  ``split``:
+    this process's experts of a model axis (a part that does not split
+    makes its cut leaves whole and runs on every process)."""
     B, S, d = x.shape
     C = moe_capacity(S, n_experts, k, capacity_factor)
+    routed = split is not None and experts_split(split.dims, impl)
+    shared = split is not None and n_shared > 0 and shared_split(split.dims)
+    h = x
+    if split is not None:
+        names = [n for n in ("w_gate", "w_up", "w_down") if not routed] \
+            + [n for n in ("shared_gate", "shared_up", "shared_down")
+               if n_shared > 0 and not shared]
+        params = {**params, **split.whole({n: params[n] for n in names})}
+        if routed or shared:
+            h = split.copy(x)
     fn = _moe_gather if impl == "gather" else _moe_einsum
     y, aux = fn(params, x, n_experts=n_experts, k=k, capacity=C,
-                with_aux=with_aux)
+                with_aux=with_aux,
+                **(dict(split=split, h=h) if routed else {}))
+    partial, whole = (y, None) if routed else (None, y)
     if n_shared > 0:
-        gate = F.silu(x @ params["shared_gate"])
-        y = y + (gate * (x @ params["shared_up"])) @ params["shared_down"]
-    return y, aux
+        hs = h if shared else x
+        gate = F.silu(hs @ params["shared_gate"])
+        ys = (gate * (hs @ params["shared_up"])) @ params["shared_down"]
+        if shared:
+            partial = _sum(partial, ys)
+        else:
+            whole = _sum(whole, ys)
+    if partial is not None:
+        partial = split.reduce(partial)
+    return _sum(whole, partial), aux

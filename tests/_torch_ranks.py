@@ -125,9 +125,10 @@ def _tiny_lm(dtype="float32", remat_policy="full"):
 
 def mesh2d_rollouts(rank, world, params_np, tokens_np, key):
     """The 2-D engine of the tiny LM on a (1, world) and a (world, 1) mesh
-    (natural both ways, leafwise; remat on, which the engine needs on more
-    than one model shard), each against build_rollout_fn run in-process
-    without remat, and the sharding helpers on the (1, world) mesh."""
+    (natural both ways, leafwise; each layer gathered whole,
+    ``gather_layers``, with remat on, which that needs on more than one
+    model shard), each against build_rollout_fn run in-process without
+    remat, and the sharding helpers on the (1, world) mesh."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import init_state, make_compressor, make_hyper
     from repro_torch.core.tree import tree_leaves
@@ -153,7 +154,8 @@ def mesh2d_rollouts(rank, world, params_np, tokens_np, key):
     for shape in ((1, world), (world, 1)):
         mesh = make_mesh(shape, ("clients", "model"), "cpu")
         roll = build_sharded_rollout_fn(dataclasses.replace(cfg, remat=True),
-                                        hp, mesh=mesh, **kw)
+                                        hp, mesh=mesh, gather_layers=True,
+                                        **kw)
         st, tr = roll(init_state(params), batches, key)
         full = roll.full_state(st)
         out[shape] = {
@@ -225,9 +227,10 @@ def _peak_of(fn):
 def mesh2d_layer_runs(rank, world, cases, key, local_key, agg_vocab):
     """For each case (name, arch, config changes, remat policy, stacked
     numpy params, numpy batches over steps): build_rollout_fn (remat off)
-    and the 2-D engine on a (1, world) mesh (remat on), the engine's
-    gathered state; then the engine's peak of gathered bytes over one
-    local step (``local_key`` draws xi 0 first), and the leafwise average
+    and the 2-D engine gathering each layer whole (``gather_layers``) on
+    a (1, world) mesh (remat on), the engine's gathered state; then the
+    engine's peak of gathered bytes over one local step (``local_key``
+    draws xi 0 first), and the leafwise average
     a leaf piece at a time against the whole-tree averages (one row;
     several rows' path on the size-1 clients axis) with the first case's
     config at vocab ``agg_vocab``, natural and QSGD, unmasked and masked,
@@ -264,11 +267,13 @@ def mesh2d_layer_runs(rank, world, cases, key, local_key, agg_vocab):
         batches = {k: torch.from_numpy(v) for k, v in batches_np.items()}
         ref, rtr = build_rollout_fn(cfg, hp, **kw)(init_state(params),
                                                   batches, key)
-        roll = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh, **kw)
+        roll = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh,
+                                        gather_layers=True, **kw)
         st, tr = roll(init_state(params), batches, key)
         full = roll.full_state(st)
         one = dict(kw, length=1)
-        local = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh, **one)
+        local = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh,
+                                         gather_layers=True, **one)
         (_, ltr), step_peak = _peak_of(lambda: local(
             init_state(params), tree_map(lambda a: a[:1], batches),
             local_key))
@@ -329,8 +334,178 @@ def mesh2d_layer_runs(rank, world, cases, key, local_key, agg_vocab):
     try:
         build_sharded_rollout_fn(cfg, make_hyper(0.1, 0.5, 0.5, n),
                                  mesh=mesh, client_comp=comp,
-                                 master_comp=comp)
+                                 master_comp=comp, gather_layers=True)
         out["remat_off"] = None
     except ValueError as e:
         out["remat_off"] = str(e)
+    return out
+
+
+def _replicated_leaves(tree, specs):
+    """The leaves of ``tree`` whose specs name no "model" dim."""
+    from repro_torch.core.tree import spec_leaves, tree_leaves
+    return [a.numpy() for a, s in zip(tree_leaves(tree), spec_leaves(specs))
+            if "model" not in s]
+
+
+def _split_grads(cfg, params, batches, mesh, world):
+    """One client's gradient through the split (this process's blocks)
+    and through one process (cut to the blocks), each as numpy leaves."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import (_ModelShards, param_shapes,
+                                          stacked_grad_fn,
+                                          stacked_param_shapes)
+    from repro_torch.models.model import model_shards
+    n = tree_leaves(params)[0].shape[0]
+    p_shards = _ModelShards(mesh, sharding.param_pspecs(
+        stacked_param_shapes(cfg, n), world, client_axes=("clients",)))
+    c_shards = _ModelShards(mesh, sharding.param_pspecs(
+        param_shapes(cfg), world, client_axes=()))
+    batch = tree_map(lambda a: a[0], batches)
+    plain = dataclasses.replace(cfg, remat=False)
+    want = p_shards.local(stacked_grad_fn(plain)(params, batch)[1])
+    with model_shards(split=c_shards.layer_split(cfg)):
+        got = stacked_grad_fn(cfg)(p_shards.local(params), batch)[1]
+    return ([a.numpy() for a in tree_leaves(got)],
+            [a.numpy() for a in tree_leaves(want)])
+
+
+def _region_checks(rank, world, mesh):
+    """f, g and the vocab-parallel embedding and loss on the model axis
+    against one process's values and gradients; and on a size-1 axis
+    (a (world, 1) mesh) the identity."""
+    from repro_torch.core.collective import (MeshAxis, ModelSplit, copy_to,
+                                             reduce_from)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks
+    axis = MeshAxis(mesh, "model")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 6, 8, generator=gen)
+    w1 = torch.randn(8, 12, generator=gen)
+    w2 = torch.randn(12, 8, generator=gen)
+    g_out = torch.randn(2, 6, 8, generator=gen)
+    out = {}
+    # f alone: the identity forward, the backward the rank-ordered sum
+    parts = [torch.randn(2, 6, 8, generator=gen) for _ in range(world)]
+    xf = x.clone().requires_grad_()
+    y = copy_to(xf, axis)
+    y.backward(parts[rank])
+    want = parts[0].clone()
+    for p in parts[1:]:
+        want += p
+    out["f"] = bool(torch.equal(y, x)) and bool(torch.equal(xf.grad, want))
+    # g alone: the rank-ordered sum forward, the identity backward
+    xg = parts[rank].clone().requires_grad_()
+    y = reduce_from(xg, axis)
+    y.backward(g_out)
+    out["g"] = bool(torch.equal(y, want)) \
+        and bool(torch.equal(xg.grad, g_out))
+    # a column product then a row product between f and g
+    cols = slice(rank * 12 // world, (rank + 1) * 12 // world)
+    plain = [t.clone().requires_grad_() for t in (x, w1, w2)]
+    ref = torch.tanh(plain[0] @ plain[1]) @ plain[2]
+    ref.backward(g_out)
+    mine = [t.clone().requires_grad_() for t in (x, w1[:, cols], w2[cols])]
+    got = reduce_from(torch.tanh(copy_to(mine[0], axis) @ mine[1])
+                      @ mine[2], axis)
+    got.backward(g_out)
+    out["fg"] = [(got.detach().numpy(), ref.detach().numpy())] + [
+        (m.grad.numpy(), r.grad[..., cols].numpy() if i == 1 else
+         r.grad[cols].numpy() if i == 2 else r.grad.numpy())
+        for i, (m, r) in enumerate(zip(mine, plain))]
+    # the vocab-parallel embedding and loss, V = 10 on the axis
+    V, rows = 10, 10 // world
+    table = torch.randn(V, 8, generator=gen)
+    tokens = torch.randint(0, V, (2, 6), generator=gen)
+    split = ModelSplit(axis, {"table": 0})
+    block = table[rank * rows:(rank + 1) * rows]
+    out["embed"] = bool(torch.equal(
+        blocks.embed({"table": block}, tokens, split=split),
+        blocks.embed({"table": table}, tokens)))
+    logits = (4 * torch.randn(2, 6, V, generator=gen)).requires_grad_()
+    ref = blocks.cross_entropy_loss(logits, tokens)
+    ref.backward()
+    mine = logits.detach()[..., rank * rows:(rank + 1) * rows] \
+        .clone().requires_grad_()
+    got = blocks.cross_entropy_loss(mine, tokens, split=split)
+    got.backward()
+    out["loss"] = [(got.detach().numpy(), ref.detach().numpy()),
+                   (mine.grad.numpy(),
+                    logits.grad[..., rank * rows:(rank + 1) * rows].numpy())]
+    # one model shard: the identity, bit for bit
+    one = MeshAxis(make_mesh((world, 1), ("clients", "model"), "cpu"),
+                   "model")
+    split1 = ModelSplit(one, {"table": 0})
+    out["one"] = copy_to(x, one) is x and reduce_from(x, one) is x \
+        and bool(torch.equal(
+            blocks.cross_entropy_loss(logits.detach(), tokens,
+                                      split=split1),
+            blocks.cross_entropy_loss(logits.detach(), tokens))) \
+        and bool(torch.equal(
+            blocks.embed({"table": table}, tokens, split=split1),
+            blocks.embed({"table": table}, tokens)))
+    return out
+
+
+def mesh2d_split_runs(rank, world, cases, key, local_key):
+    """For each case (name, arch, config changes, remat policy, stacked
+    numpy params, numpy batches over steps): the 2-D engine's split on a
+    (1, world) mesh (remat on) over the batches' steps, its gathered
+    state and this rank's replicated leaves; one client's gradient
+    blocks against one process's; the ``GATHERED`` and ``REDUCED``
+    counts of one local step from this rank's blocks (``local_key`` draws
+    xi 0 first); then the region functions' checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import init_state, make_compressor, make_hyper
+    from repro_torch.core.collective import (GATHERED, REDUCED,
+                                             reset_gathered, reset_reduced)
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import build_sharded_rollout_fn
+    init_process_group("cpu")
+    mesh = make_mesh((1, world), ("clients", "model"), "cpu")
+    comp = make_compressor("natural")
+    out = {}
+    for name, arch, changes, policy, params_np, batches_np in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+        engine_cfg = dataclasses.replace(cfg, remat=True,
+                                         remat_policy=policy)
+        n = next(iter(batches_np.values())).shape[1]
+        length = next(iter(batches_np.values())).shape[0]
+        hp = make_hyper(eta=0.1, lam=0.5, p=0.5, n=n)
+        kw = dict(client_comp=comp, master_comp=comp)
+        params = params_from_numpy(params_np)
+        batches = {k: torch.from_numpy(v) for k, v in batches_np.items()}
+        roll = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh,
+                                        length=length, **kw)
+        st, tr = roll(init_state(params), batches, key)
+        full = roll.full_state(st)
+        specs = sharding.train_state_pspecs(init_state(params), world)
+        got, want = _split_grads(engine_cfg, params, batches, mesh, world)
+        local = build_sharded_rollout_fn(engine_cfg, hp, mesh=mesh,
+                                         length=1, **kw)
+        reset_gathered()
+        reset_reduced()
+        # from this rank's blocks (the engine cuts a whole state itself);
+        # the recompute runs each layer's forward whole: every reduce and
+        # gather of the forward twice
+        blocks = sharding.train_state_shardings(mesh, init_state(params))
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            _, ltr = local(blocks, tree_map(lambda a: a[:1], batches),
+                           local_key)
+        out[name] = {
+            "xis": tr.xis, "branches": tr.branches,
+            "losses": tr.losses.numpy(),
+            "params": [a.numpy() for a in tree_leaves(full.params)],
+            "cache": [a.numpy() for a in tree_leaves(full.cache)],
+            "replicated": _replicated_leaves(st.params, specs.params)
+            + _replicated_leaves(st.cache, specs.cache),
+            "grads": got, "want_grads": want,
+            "local_branches": ltr.branches,
+            "gathered": (GATHERED["calls"], GATHERED["bytes"]),
+            "reduced": (REDUCED["calls"], REDUCED["bytes"])}
+    out["regions"] = _region_checks(rank, world, mesh)
     return out
