@@ -1574,13 +1574,12 @@ def phase_serve(dev, cfg, params, tokens, moe=False, frames=None):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     check(not LAUNCHES, f"{cfg.name} decode launched {dict(LAUNCHES)}")
-    spans = Spans() if moe else contextlib.nullcontext()
-    with spans:
+    with Recorded() as spans:
         wall, by_kind, count = device_profile(lambda: serve(
             params, caches, PROMPT + GENERATE - 1,
             {"tokens": generated[-1][:, None]}))
     log(profile_line(f"{cfg.name} decode step", wall, by_kind, count)
-        + (f"; {spans.shares(wall)}" if moe else ""))
+        + (f"; {spans.moe_shares(wall)}" if moe else ""))
     generated = torch.stack(generated, 1)
     decoded = torch.stack(prompt_logits + gen_logits, 1)
     batch = {"tokens": torch.cat([prompt, generated[:, :-1]], 1),
@@ -2323,34 +2322,19 @@ def train_profile(fn):
     product (the attention's included), "attention" its softmax, "kernel"
     the codecs' hand-written kernels, "scan" and "scan_bwd" the selective
     scan's forward and backward kernels; "draw" is the threefry draws'
-    device time, bracketed by CUDA events around each draw (one stream:
-    nothing else runs in between), and comes out of the elementwise
-    kernels, which are the rest.  The device ms do not overlap."""
+    device time, the program's ``draw`` spans (:class:`Recorded`), and
+    comes out of the elementwise kernels, which are the rest.  The device
+    ms do not overlap."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import prng
-    draw, spans = prng._draw, []
-
-    def timed_draw(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = draw(*args)
-        end.record()
-        spans.append((start, end))
-        return out
-
-    prng._draw = timed_draw
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        prng._draw = draw
+    with Recorded() as spans, profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_kind = {"gemm": 0.0, "attention": 0.0, "draw": 0.0, "kernel": 0.0,
                "scan": 0.0, "scan_bwd": 0.0, "elementwise": 0.0}
     count = 0
@@ -2367,8 +2351,7 @@ def train_profile(fn):
             "attention" if "softmax" in name else "elementwise"
         by_kind[kind] += e.self_device_time_total / 1e3
         count += e.count
-    by_kind["draw"] = min(sum(s.elapsed_time(e) for s, e in spans),
-                          by_kind["elementwise"])
+    by_kind["draw"] = min(spans.ms("draw"), by_kind["elementwise"])
     by_kind["elementwise"] -= by_kind["draw"]
     return wall_ms, by_kind, count
 
@@ -2400,7 +2383,6 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
     local and one fresh aggregation step under the profiler (``profile``
     True; "local": the local step only).  Returns the trained stacked
     params and the launch counts."""
-    import contextlib
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -2496,12 +2478,11 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
         if not profile or (profile == "local" and k == 6):
             break
         out = []
-        spans = Spans() if moe else contextlib.nullcontext()
-        with spans:
+        with Recorded() as spans:
             wall, by_kind, count = train_profile(
                 lambda: out.append(step(state, batches[k], xis[k], keys[k])))
         log(train_line(f"train {arch} ({name}) {what}", wall, by_kind, count)
-            + (f"; {spans.shares(wall)}" if moe else ""))
+            + (f"; {spans.moe_shares(wall)}" if moe else ""))
         state = out[0][0]
     return state.params, launches
 
@@ -3335,52 +3316,34 @@ def clean_err(a, b, clean):
     return float(diff.max()), int(clean.sum())
 
 
-class Spans:
-    """CUDA events around every call of the MoE layer's parts (one
-    stream: the device time between a call's events is its own): the
-    router (``_route``), the expert products (``_experts_apply``), the
-    whole gather dispatch (``_moe_gather``) and the dispatch's backward
-    gathers (``_RowGather.backward``).  ``shares(wall_ms)`` is the line,
-    dispatch / combine being the dispatch less the router and experts."""
+class Recorded:
+    """The program's spans (``repro_torch.tracing``) that close inside the
+    block.  The profiler turns them on, so a block around a profile holds
+    the spans of what it profiled; each carries the device time between
+    its CUDA events (one stream: a span's own work)."""
 
     def __enter__(self):
-        import torch
-        from repro_torch.models import moe
-        self.events = {"moe": [], "router": [], "experts": [], "bwd": []}
-        self.saved = [(moe, "_moe_gather"), (moe, "_route"),
-                      (moe, "_experts_apply"), (moe._RowGather, "backward")]
-        self.raw = [vars(owner)[name] for owner, name in self.saved]
-        for (owner, name), raw, label in zip(self.saved, self.raw,
-                                             self.events):
-            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
-
-            def wrapped(*args, _fn=fn, _label=label, **kw):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                try:
-                    return _fn(*args, **kw)
-                finally:
-                    # a remat recompute may stop early by raising
-                    end.record()
-                    self.events[_label].append((start, end))
-
-            setattr(owner, name, staticmethod(wrapped)
-                    if isinstance(raw, staticmethod) else wrapped)
+        from repro_torch import tracing
+        self.first = len(tracing.spans())
         return self
 
     def __exit__(self, *exc):
-        for (owner, name), raw in zip(self.saved, self.raw):
-            setattr(owner, name, raw)
+        from repro_torch import tracing
+        self.spans = tracing.spans()[self.first:]
 
-    def shares(self, wall_ms):
-        import torch
-        torch.cuda.synchronize()
-        ms = {k: sum(s.elapsed_time(e) for s, e in v)
-              for k, v in self.events.items()}
+    def ms(self, name):
+        return 1e3 * sum(s.device_s for s in self.spans if s.name == name)
+
+    def moe_shares(self, wall_ms):
+        """The MoE layer's parts: the router (``moe.router``), the expert
+        products (``moe.experts``), dispatch / combine (the gather
+        dispatch ``moe.dispatch`` less the two) and the dispatch's
+        backward gathers (``moe.gather_bwd``)."""
+        ms = {k: self.ms(f"moe.{k}")
+              for k in ("dispatch", "router", "experts", "gather_bwd")}
         parts = {"router": ms["router"], "expert GEMMs": ms["experts"],
-                 "dispatch / combine": ms["moe"] - ms["router"]
-                 - ms["experts"], "dispatch backward": ms["bwd"]}
+                 "dispatch / combine": ms["dispatch"] - ms["router"]
+                 - ms["experts"], "dispatch backward": ms["gather_bwd"]}
         return "moe spans: " + ", ".join(
             f"{k} {v:.1f} ms ({v / wall_ms:.1%})" for k, v in parts.items()
             if v or k != "dispatch backward")
@@ -3433,10 +3396,10 @@ def phase_moe_prefill(dev, arch, layers):
     dropped = routes.dropped / routes.assigned
     _, prefill_s = timed(lambda: prefill(params, batch))
     peak = torch.cuda.max_memory_allocated(dev)
-    with Spans() as spans:
+    with Recorded() as spans:
         wall, by_kind, count = device_profile(lambda: prefill(params, batch))
     log(profile_line(f"{arch} prefill step", wall, by_kind, count) + "; "
-        + spans.shares(wall))
+        + spans.moe_shares(wall))
     seen, restore = [], None
     if flash:   # forward keeps the last layer's attention operands
         from repro_torch.kernels.flash_attention import kernel as fk

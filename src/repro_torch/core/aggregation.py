@@ -42,6 +42,14 @@ whole leaf, so the bits are the whole leaf's), any other leaf whole, and
 each piece cut back to this process's block once it is compressed.  A
 transport that spans leaves (flat, packed, a fleet) needs the whole
 models.
+
+The stacked average records ``repro_torch.tracing`` spans: leafwise,
+``uplink`` around the compression of every leaf piece, then ``mean``
+and ``downlink`` a piece at a time; flat and packed, ``encode``,
+``reduce`` and ``downlink``.  Every message compressed adds its payload
+bits to ``wire.up_bits`` (each client's) or ``wire.down_bits`` (the
+master's): the payload tensors' where they are made, else the codec's
+payload for the piece's shape.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import flatbuf, prng
 from repro_torch.core.codec import (CompressionPlan, TreePayload, as_plan,
                                     make_plan)
@@ -66,6 +75,35 @@ __all__ = ["compressed_average", "compressed_average_wire",
            "make_client_sharded_average", "ModelCut", "masked_client_mean",
            "stacked_finite_mask", "weighted_client_sum", "client_mean",
            "all_finite"]
+
+
+#: "up_bits" / "down_bits": the payload bits of the messages compressed,
+#: every client's up and the master's down
+WIRE = tracing.counter("wire")
+
+
+def _spec_bits(codec, shape) -> int:
+    """The payload bits of one message of ``shape`` under ``codec``."""
+    return int(codec.payload_spec(tuple(shape)).nbits)
+
+
+def _plan_bits(plan, tree) -> int:
+    """The payload bits of one message of the one-model ``tree`` under
+    ``plan``."""
+    leaves = tree_leaves(tree)
+    if plan.transport == "leafwise":
+        return sum(_spec_bits(plan.codec, a.shape) for a in leaves)
+    return int(flatbuf.payload_spec(plan.codec,
+                                    sum(a.numel() for a in leaves),
+                                    bucket=plan.bucket,
+                                    narrow=plan.narrow).nbits)
+
+
+def _downlink(plan, key, ybar):
+    """C_M of the mean, a ``downlink`` span, its message counted."""
+    with tracing.span("downlink"):
+        WIRE["down_bits"] += _plan_bits(plan, ybar)
+        return plan.apply(key, ybar)
 
 
 def _resolve_uplink(comp, transport=None):
@@ -189,15 +227,22 @@ def compressed_average(key, params_stacked, client_comp, master_comp, *,
                              f"params are stacked for {n}")
         ybar = fleet_mean(up_plan, client_keys, params_stacked, mask)
     elif up_plan.transport in ("flat", "packed"):
-        payload = up_plan.encode(client_keys, params_stacked)
-        ybar = flatbuf.reduce_payload_mean(payload, mask)
+        with tracing.span("encode"):
+            payload = up_plan.encode(client_keys, params_stacked)
+            WIRE["up_bits"] += int(payload.nbits)
+        with tracing.span("reduce"):
+            ybar = flatbuf.reduce_payload_mean(payload, mask)
     else:
         # a leafwise uplink with a flat or packed downlink
-        compressed = up_plan.apply(client_keys, params_stacked)
-        ybar = tree_map(_guarded_mean(stacked_finite_mask(compressed),
-                                      mask), compressed)
+        with tracing.span("uplink"):
+            compressed = up_plan.apply(client_keys, params_stacked)
+            WIRE["up_bits"] += n * _plan_bits(
+                up_plan, tree_map(lambda a: a[0], compressed))
+        with tracing.span("mean"):
+            ybar = tree_map(_guarded_mean(stacked_finite_mask(compressed),
+                                          mask), compressed)
         del compressed
-    return down_plan.apply(k_master, ybar)
+    return _downlink(down_plan, k_master, ybar)
 
 
 def _guarded_mean(fin, mask):
@@ -271,53 +316,66 @@ def _leafwise_average(up_plan, down_plan, client_keys, k_master, params,
     def downlink(j, i, offset, ybar_piece, out):
         d = cut.dims[j]
         d = None if d is None else d - 1
-        y = down.apply(down_keys[j], whole_of(ybar_piece, axis, d), offset)
-        # a piece of a mean leaf: the layer axis is its dim 0
-        if i is None:
-            return block_of(y, axis, d)
-        out.narrow(0, i, 1).copy_(block_of(y, axis, d))
-        return out
+        with tracing.span("downlink"):
+            whole = whole_of(ybar_piece, axis, d)
+            WIRE["down_bits"] += _spec_bits(down, whole.shape)
+            y = down.apply(down_keys[j], whole, offset)
+            # a piece of a mean leaf: the layer axis is its dim 0
+            if i is None:
+                return block_of(y, axis, d)
+            out.narrow(0, i, 1).copy_(block_of(y, axis, d))
+            return out
+
+    def uplink(j, i, offset, compress):
+        whole = whole_of(part(leaves[j], i), axis, cut.dims[j])
+        WIRE["up_bits"] += m * _spec_bits(up, whole.shape[1:])
+        return compress(leaf_keys[:, j], whole, offset)
 
     outs = [None] * len(leaves)
     if clients is None:
         fin = torch.ones((m,), dtype=torch.bool, device=device)
         compressed = []
-        for j, a in enumerate(leaves):
-            c = None if pieces[j][0][0] is None else torch.empty_like(a)
-            for i, offset in pieces[j]:
-                y = up.apply(leaf_keys[:, j], whole_of(
-                    part(a, i), axis, cut.dims[j]), offset)
-                fin &= torch.isfinite(y.to(torch.float32)) \
-                    .reshape(m, math.prod(y.shape[1:])).all(dim=1)
-                c = into(c, i, block_of(y, axis, cut.dims[j]))
-                del y
-            compressed.append(c)
+        with tracing.span("uplink"):
+            for j, a in enumerate(leaves):
+                c = None if pieces[j][0][0] is None else torch.empty_like(a)
+                for i, offset in pieces[j]:
+                    y = uplink(j, i, offset, up.apply)
+                    fin &= torch.isfinite(y.to(torch.float32)) \
+                        .reshape(m, math.prod(y.shape[1:])).all(dim=1)
+                    c = into(c, i, block_of(y, axis, cut.dims[j]))
+                    del y
+                compressed.append(c)
         mean = _guarded_mean(fin.to(torch.float32), mask)
         for j, c in enumerate(compressed):
             out = None if pieces[j][0][0] is None else \
                 torch.empty_like(c[0])
             for i, offset in pieces[j]:
-                out = downlink(j, i, offset, mean(part(c, i)), out)
+                with tracing.span("mean"):
+                    ybar = mean(part(c, i))
+                out = downlink(j, i, offset, ybar, out)
+                del ybar
             compressed[j] = None
             outs[j] = out
         return tree_unflatten(treedef, outs)
     for j, a in enumerate(leaves):
         out = None if pieces[j][0][0] is None else torch.empty_like(a[0])
         for i, offset in pieces[j]:
-            payload = up.encode(leaf_keys[:, j], whole_of(
-                part(a, i), axis, cut.dims[j]), offset)
-            gathered = _gather_payloads(payload, clients, batched=True)
-            del payload
-            blocks = None
-            for k in range(n_clients):
-                one = block_of(up.decode(_wire_map(
-                    lambda t: t[k:k + 1], gathered)), axis, cut.dims[j])
-                if blocks is None:
-                    blocks = one.new_empty((n_clients,) + one.shape[1:])
-                blocks[k:k + 1].copy_(one)
-            del gathered
-            out = downlink(j, i, offset, masked_client_mean(blocks, mask),
-                           out)
+            with tracing.span("uplink"):
+                payload = uplink(j, i, offset, up.encode)
+                gathered = _gather_payloads(payload, clients, batched=True)
+                del payload
+                blocks = None
+                for k in range(n_clients):
+                    one = block_of(up.decode(_wire_map(
+                        lambda t: t[k:k + 1], gathered)), axis, cut.dims[j])
+                    if blocks is None:
+                        blocks = one.new_empty((n_clients,) + one.shape[1:])
+                    blocks[k:k + 1].copy_(one)
+                del gathered
+            with tracing.span("mean"):
+                ybar = masked_client_mean(blocks, mask)
+            out = downlink(j, i, offset, ybar, out)
+            del ybar
         outs[j] = out
     return tree_unflatten(treedef, outs)
 
@@ -454,11 +512,14 @@ def make_client_sharded_average(axis, n_clients: int, client_comp,
             m = tree_leaves(params_local)[0].shape[0]
             k_clients, k_master = prng.split(key)
             local_keys = _local_keys(k_clients, n_clients, m, axis)
-            payload = up_plan.encode(local_keys, params_local)
-            ybar = _gather_reduce(up_plan, payload, axis, batched=True,
-                                  mask=mask)
+            with tracing.span("encode"):
+                payload = up_plan.encode(local_keys, params_local)
+                WIRE["up_bits"] += int(payload.nbits)
+            with tracing.span("reduce"):
+                ybar = _gather_reduce(up_plan, payload, axis, batched=True,
+                                      mask=mask)
             del payload
-            return down_plan.apply(k_master, ybar)
+            return _downlink(down_plan, k_master, ybar)
 
         average_fn.axis = axis
         return average_fn

@@ -58,19 +58,11 @@ import weakref
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
+
 __all__ = ["MeshAxis", "GATHERED", "REDUCED", "reset_gathered",
            "reset_reduced", "whole_of", "gather_blocks", "block_of",
            "copy_to", "reduce_from", "ModelSplit"]
-
-#: "calls" / "bytes": the all_gathers run and their output bytes;
-#: "live" / "peak": the bytes of :func:`whole_of`'s tensors alive now and
-#: at most
-GATHERED: collections.Counter = collections.Counter()
-#: "calls" / "bytes": the model axis's rank-ordered sums and maxima (the
-#: region functions' and the gathered leaves' gradient sums): their
-#: all_gathers and those gathers' output bytes
-REDUCED: collections.Counter = collections.Counter()
-
 
 def reset_gathered() -> None:
     """Zero the counts; the peak restarts from what is alive now."""
@@ -81,6 +73,17 @@ def reset_gathered() -> None:
 
 def reset_reduced() -> None:
     REDUCED.clear()
+
+
+#: "calls" / "bytes": the all_gathers run and their output bytes;
+#: "live" / "peak": the bytes of :func:`whole_of`'s tensors alive now and
+#: at most (the ``gathered`` group of ``repro_torch.tracing``'s counters)
+GATHERED: collections.Counter = tracing.counter("gathered",
+                                                reset=reset_gathered)
+#: "calls" / "bytes": the model axis's rank-ordered sums and maxima (the
+#: region functions' and the gathered leaves' gradient sums): their
+#: all_gathers and those gathers' output bytes (the ``reduced`` group)
+REDUCED: collections.Counter = tracing.counter("reduced")
 
 
 def _release(nbytes: int) -> None:

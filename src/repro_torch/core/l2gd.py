@@ -31,6 +31,12 @@ MeshAxis`) sums the losses over the axis and divides by the GLOBAL n,
 slices the global participation mask to this process's clients, and
 needs an ``average_fn`` whose collective spans the axis
 (:func:`repro_torch.core.aggregation.make_client_sharded_average`).
+
+Each step is a ``repro_torch.tracing`` span named by its branch
+(``step.local``, ``step.fresh``, ``step.cached``) around the spans of
+its parts: ``grad`` (each ``grad_fn`` call), ``update`` (the local or
+aggregation update), ``loss`` (an aggregation step's loss) and
+``average`` (the fresh round's compressed average).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import prng
 from repro_torch.core.aggregation import (_resolve_uplink, client_mean,
                                           compressed_average)
@@ -52,6 +59,7 @@ __all__ = ["L2GDHyper", "L2GDState", "init_state", "make_hyper", "l2gd_step",
            "local_update", "aggregation_update", "draw_xi"]
 
 _F32 = np.float32
+_STEP_SPANS = ("step.local", "step.fresh", "step.cached")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,31 +239,47 @@ def l2gd_step(state: L2GDState, batch, xi_k: int, key, grad_fn: Callable,
             lo = axis_name.index * m
             local_mask = participation_mask[lo:lo + m]
     branch = 0 if int(xi_k) == 0 else (1 if state.xi_prev == 0 else 2)
-    if branch == 0:
-        losses, grads = grad_fn(state.params, batch)
-        new_params = local_update(state.params, grads, hp)
+    with tracing.span(_STEP_SPANS[branch]):
+        if branch == 0:
+            return _local_step(state, batch, grad_fn, hp, local_steps,
+                               reduce)
+        # aggregation: the loss of the pre-update params; without a
+        # loss_fn the gradients of this evaluation are dropped before the
+        # aggregation allocates
+        with tracing.span("loss"):
+            loss = aggregation_loss(state.params, batch, grad_fn, loss_fn,
+                                    reduce)
+        if branch == 1:
+            with tracing.span("average"):
+                if average_fn is None:
+                    target = compressed_average(
+                        key, state.params, _resolve_uplink(client_comp),
+                        as_plan(master_comp), mask=participation_mask)
+                elif participation_mask is None:
+                    target = average_fn(key, state.params)
+                else:
+                    target = average_fn(key, state.params,
+                                        participation_mask)
+        else:
+            target = state.cache
+        with tracing.span("update"):
+            new_params = aggregation_update(state.params, target, hp,
+                                            mask=local_mask)
+        new_state = L2GDState(new_params, target, 1, state.step + 1)
+        return new_state, {"loss": loss, "branch": branch}
+
+
+def _local_step(state: L2GDState, batch, grad_fn: Callable, hp: L2GDHyper,
+                local_steps: int, reduce: Callable):
+    """Branch 0: ``local_steps`` gradient passes on the batch, each a
+    ``grad`` and an ``update`` span."""
+    params, losses = state.params, None
+    for _ in range(local_steps):
+        with tracing.span("grad"):
+            step_losses, grads = grad_fn(params, batch)
+        losses = step_losses if losses is None else losses
+        with tracing.span("update"):
+            params = local_update(params, grads, hp)
         del grads
-        for _ in range(local_steps - 1):
-            _, grads = grad_fn(new_params, batch)
-            new_params = local_update(new_params, grads, hp)
-            del grads
-        new_state = L2GDState(new_params, state.cache, 0, state.step + 1)
-        return new_state, {"loss": reduce(losses), "branch": 0}
-    # aggregation: the loss of the pre-update params; without a loss_fn
-    # the gradients of this evaluation are dropped before the aggregation
-    # allocates
-    loss = aggregation_loss(state.params, batch, grad_fn, loss_fn, reduce)
-    if branch == 1 and average_fn is not None:
-        target = average_fn(key, state.params) if participation_mask is None \
-            else average_fn(key, state.params, participation_mask)
-    elif branch == 1:
-        target = compressed_average(key, state.params,
-                                    _resolve_uplink(client_comp),
-                                    as_plan(master_comp),
-                                    mask=participation_mask)
-    else:
-        target = state.cache
-    new_params = aggregation_update(state.params, target, hp,
-                                    mask=local_mask)
-    new_state = L2GDState(new_params, target, 1, state.step + 1)
-    return new_state, {"loss": loss, "branch": branch}
+    new_state = L2GDState(params, state.cache, 0, state.step + 1)
+    return new_state, {"loss": reduce(losses), "branch": 0}

@@ -35,7 +35,8 @@ They hold uint32 words in int64 tensors masked to 32 bits (torch's CPU
 ``uint32`` lacks ``+`` and ``>>``), one code path for CPU and CUDA, and
 run over the counter range in chunks of :data:`DRAW_CHUNK`, so that a
 draw the size of a model's largest leaf needs no int64 temporary of that
-size.
+size.  Each array draw is one ``draw`` span of ``repro_torch.tracing``
+and adds the counters it hashes to ``draw.elements``.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch import tracing
 
 __all__ = ["PRNGKey", "threefry2x32", "split", "fold_in", "random_bits",
            "uniform", "bernoulli", "randint", "normal", "NORMAL_ULPS",
@@ -264,7 +267,11 @@ def _threefry_tensor(k1, k2, x1, x2):
 #: card waiting on the launches of its ~150 passes a chunk (PERF.md)
 DRAW_CHUNK = 1 << 22
 
+#: "elements": the counters the array draws hashed
+DRAWN = tracing.counter("draw")
 
+
+@tracing.traced("draw")
 def _draw(key, shape, device, finish, dtype, offset=0) -> torch.Tensor:
     """``finish(bits)`` of :func:`random_bits` on ``device``, computed
     DRAW_CHUNK counters at a time into one output of ``dtype``.  In
@@ -280,6 +287,7 @@ def _draw(key, shape, device, finish, dtype, offset=0) -> torch.Tensor:
     words = torch.from_numpy(keys.astype(np.int64)).to(device) \
         .reshape(batch + (1, 2))
     out = torch.empty(batch + (total,), dtype=dtype, device=device)
+    DRAWN["elements"] += math.prod(batch) * total
     for start in range(0, total, DRAW_CHUNK):
         stop = min(start + DRAW_CHUNK, total)
         count = torch.arange(offset + start, offset + stop,

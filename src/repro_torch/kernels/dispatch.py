@@ -13,6 +13,8 @@ fallback from the backend (``on_tpu``) and sized tiles to VMEM
 Every wrapper counts its launches in :data:`LAUNCHES` at the point where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``chip_smoke.py`` resets and reads them).
+:data:`LAUNCHES` is the ``launches`` group of ``repro_torch.tracing``'s
+counters.
 """
 from __future__ import annotations
 
@@ -21,13 +23,14 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 
 __all__ = ["LAUNCHES", "reset_launches", "use_kernel", "resolve_device",
            "launch"]
 
 #: kernel name -> number of launches since the last reset
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = tracing.counter("launches")
 
 
 def reset_launches() -> None:

@@ -45,6 +45,13 @@ of every product that splits on whole heads, experts or channels):
   PYTHONPATH=src python -m repro_torch.launch.train --engine mesh2d \
       --model-shards 2 --clients 1 --cpu-ranks 2 --steps 4
 
+``--trace-out FILE`` records the run's spans and counters
+(``repro_torch.tracing``) and writes them at its end as one Chrome-trace
+JSON file (the lead process's, on several):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 20 \
+      --trace-out runs/trace.json
+
 Runs on the GPU; ``main(argv, device="cpu")`` runs the plain PyTorch
 versions on the CPU.
 """
@@ -58,7 +65,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import checkpoint
+from repro_torch import checkpoint, tracing
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import L2GDHyper, make_compressor, prng
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
@@ -290,6 +297,9 @@ def main(argv=None, device=None):
     ap.add_argument("--attn-impl", choices=("dense", "flash"), default=None,
                     help="train-path attention (the flash kernel has no "
                          "backward: training needs dense)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the run's spans and counters to this "
+                         "Chrome-trace JSON file")
     args = ap.parse_args(argv)
     if (args.ckpt_every or args.resume) and not args.ckpt:
         ap.error("--ckpt-every/--resume need --ckpt (the manager root)")
@@ -305,7 +315,19 @@ def main(argv=None, device=None):
         rest = argv[:i] + argv[i + 2:]
         return run_cpu_ranks(_mesh2d_rank, args.cpu_ranks, rest)
     device = resolve_device("cpu" if args.cpu_ranks else device)
+    if not args.trace_out:
+        return _train(args, ap, device)
+    tracing.reset()
+    with tracing.recording():
+        run = _train(args, ap, device)
+    if _is_lead():
+        tracing.write(args.trace_out)
+        print(f"trace -> {args.trace_out}")
+    return run
 
+
+def _train(args, ap, device):
+    """The run ``main`` parsed: the driver or the mesh2d engine."""
     base = get_config(args.arch) if args.full \
         else get_config(args.arch).reduced()
     cfg = build(base, {"n_layers": args.layers, "d_model": args.d_model,

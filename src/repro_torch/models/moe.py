@@ -41,6 +41,10 @@ outputs; the combine weights enter through *f* (the router's gradient
 reaches them only through this process's experts), and the shared
 experts split d_ff as the MLP does.  The partial outputs are summed over
 the axis once (*g*).
+
+The router, the expert products, the gather dispatch and its backward
+gathers are ``repro_torch.tracing`` spans (``moe.router``,
+``moe.experts``, ``moe.dispatch``, ``moe.gather_bwd``).
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from repro_torch import tracing
 from repro_torch.models.blocks import dense_init
 
 __all__ = ["init_moe", "moe_ffn", "moe_capacity", "experts_split",
@@ -81,6 +86,7 @@ def moe_capacity(tokens_per_group: int, n_experts: int, k: int,
     return max(c, k)
 
 
+@tracing.traced("moe.router")
 def _route(x, router, k: int):
     """x: (G, S, d) -> (gates (G, S, E) float32, topv (G, S, k), topi
     (G, S, k)).  ``jax.lax.top_k`` picks the lower index among equal
@@ -106,6 +112,7 @@ def _aux_loss(gates, topi, n_experts: int) -> torch.Tensor:
     return torch.mean(torch.sum(f * P, dim=-1)) * n_experts
 
 
+@tracing.traced("moe.experts")
 def _experts_apply(params, expert_in):
     """expert_in: (E, N, d), expert e's N buffer rows -> (E, N, d) through
     the gated-MLP experts (float32 batched products)."""
@@ -174,6 +181,7 @@ class _RowGather(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @tracing.traced("moe.gather_bwd")
     def backward(ctx, grad):
         (inverse,) = ctx.saved_tensors
         pad = torch.cat([grad, grad.new_zeros((1,) + grad.shape[1:])])
@@ -194,6 +202,7 @@ def shared_split(dims: dict) -> bool:
     return dims.get("shared_gate") is not None
 
 
+@tracing.traced("moe.dispatch")
 def _moe_gather(params, x, *, n_experts: int, k: int, capacity: int,
                 with_aux: bool = True, split=None, h=None):
     """Capacity-bounded gather dispatch.  x: (G, S, d).  With ``split``
