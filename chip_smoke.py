@@ -19,7 +19,8 @@ these phases and fails (non-zero exit, no result line) on any error:
            compressors of the paper pinned to the leafwise transport both
            ways, GPU against CPU: qsgd and natural launch their
            explicit-noise kernel twice a fresh round, the other five
-           nothing;
+           nothing, and every codec launches the threefry draw kernel
+           once for each draw its CPU run makes;
   width    the trainer on the parameter tree of stablelm-1.6b at full
            width and 4 of its 24 layers (d = 411,060,224 per client,
            8 clients, a quadratic objective), once with the flat and once
@@ -82,14 +83,25 @@ these phases and fails (non-zero exit, no result line) on any error:
            2 clients x one 4096-token sequence of the token stream:
            build_train_step with leafwise natural, then leafwise QSGD,
            both ways, forced xi [0, 1, 1, 0, 1]: exactly 44 launches of
-           the codec's kernel (2 fresh rounds x 11 leaves x 2 links) and
-           no other, finite losses, peak memory <= 70 GB, the bits
-           ledger; torch.profiler breakdowns of one local and one fresh
-           aggregation step (the QSGD run: the local step only);
+           the codec's kernel (2 fresh rounds x 11 leaves x 2 links), as
+           many of the threefry draw kernel (one a leaf draw; no draw
+           reaches the plain int64 version) and no other, finite losses,
+           peak memory <= 70 GB, the bits ledger; torch.profiler
+           breakdowns of one local and one fresh aggregation step (the
+           QSGD run: the local step only), the fresh step's threefry
+           kernels one for each draw span;
   train width  each codec's kernel on that run's largest leaf (2 x
            276,824,064 elements) against its plain version and its
-           bound, and the threefry draw that feeds it (again after each
-           MoE train run below, on its expert stack);
+           bound, and the threefry draw that feeds it timed (again after
+           each MoE train run below, on its expert stack);
+  threefry width  the threefry draw kernel at that leaf's draw (2 keys
+           x 276,824,064 counters) against its plain version (the int64
+           passes) on the card, bit for bit in each finish (bits,
+           uniform, bernoulli) at offset 0 and at an offset past 2^32
+           whose counters cross into the next high word; timed in each
+           finish beside its integer-throughput bound and the plain
+           version; one draw's profile: the kernel and the keys' copy,
+           no int64 elementwise operation;
   train (Mamba)  hymba-1.5b at full width and 16 of its 32 hybrid
            layers (leafwise natural) and falcon-mamba-7b at full width and
            4 of its 64 layers (leafwise QSGD), as the train phase: the scan
@@ -264,6 +276,21 @@ FLASH_PASSES = 3               # split-TF32 passes of each f32 product
 # int32 instructions: 64 INT32 lanes per SM and clock (half the FP32
 # lanes, Hopper white paper) x 132 SMs x 1.98 GHz boost
 PEAK_I32_OPS_PER_S = 132 * 64 * 1.98e9
+# the threefry array draws' kernel (one launch a draw): its library's
+# entry point, the INT32-pipe operations a counter in its block (20
+# rotations and 21 xors; its 32 adds go to the FMA pipe as IMAD), the
+# profiler's marks of an int64 elementwise pass, and
+# the width check: stablelm-1.6b's w_gate stack a client (2 keys x
+# 276,824,064 counters) at offset 0 and past 2^32, where the draw's
+# counters cross into the next high word after 2^27 of them
+DRAW_KERNEL = "threefry_draw"
+THREEFRY_SOURCE = "src/repro_torch/kernels/threefry/csrc/threefry.cu"
+THREEFRY_OPS = 41
+INT64_NAMES = ("<long", "long>", "int64")
+THREEFRY_SHAPE = (24, 2048, 5632)
+THREEFRY_OFFSETS = (0, 3 * 2 ** 32 - 2 ** 27)
+THREEFRY_P = 0.3
+THREEFRY_PROFILED = 8
 NORM_ULPS = 4                  # bucket-norm bound of tests/test_torch_qsgd.py
 WINDOW = 4096                  # buckets per window the plain version checks
 CUDA_SOURCE = "src/repro_torch/kernels/qsgd/csrc/qsgd.cu"
@@ -779,6 +806,7 @@ def phase_leafwise(dev):
     per leaf and link of a fresh round); the other five codecs are plain
     PyTorch (the reference has no kernel for them) and launch nothing."""
     import torch
+    from repro_torch import tracing
     from repro_torch.core import make_compressor, make_plan
     from repro_torch.kernels.dispatch import LAUNCHES, reset_launches
 
@@ -792,11 +820,16 @@ def phase_leafwise(dev):
         reset_launches()
         gpu, gpu_loss, _ = paper_run(dev, comp, plans, LEAFWISE_STEPS)
         launches = dict(LAUNCHES)
-        cpu, cpu_loss, _ = paper_run("cpu", comp, plans, LEAFWISE_STEPS)
+        with Recorded() as spans, tracing.recording():
+            cpu, cpu_loss, _ = paper_run("cpu", comp, plans, LEAFWISE_STEPS)
         same_protocol(gpu, cpu, f"leafwise {name}")
-        # one leaf, two links: two launches a fresh round
+        # one leaf, two links: two launches a fresh round; one launch of
+        # the threefry kernel for each draw the same run makes on the CPU
         want = {} if name not in LEAFWISE_KERNELS else \
             {LEAFWISE_KERNELS[name]: 2 * gpu.n_agg_comm}
+        draws = sum(1 for sp in spans.spans if sp.name == "draw")
+        if draws:
+            want[DRAW_KERNEL] = draws
         check(launches == want, f"leafwise {name} launched {launches}")
         if np.isfinite(cpu_loss):
             check(abs(gpu_loss - cpu_loss) <= PAPER_LOSS_RTOL * abs(cpu_loss),
@@ -2318,32 +2351,33 @@ def phase_dequantize_small(dev):
 def train_profile(fn):
     """Run ``fn`` once under torch.profiler: (wall ms, {"gemm" |
     "attention" | "draw" | "kernel" | "scan" | "scan_bwd" |
-    "elementwise": device ms}, kernel count).  "gemm" is every matrix
-    product (the attention's included), "attention" its softmax, "kernel"
-    the codecs' hand-written kernels, "scan" and "scan_bwd" the selective
-    scan's forward and backward kernels; "draw" is the threefry draws'
-    device time, the program's ``draw`` spans (:class:`Recorded`), and
-    comes out of the elementwise kernels, which are the rest.  The device
-    ms do not overlap."""
+    "elementwise": device ms}, kernel count, threefry kernels).  "gemm"
+    is every matrix product (the attention's included), "attention" its
+    softmax, "kernel" the codecs' hand-written kernels, "scan" and
+    "scan_bwd" the selective scan's forward and backward kernels, "draw"
+    the threefry draw kernel (every array draw's one launch); the
+    elementwise kernels are the rest.  The device ms do not overlap."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with Recorded() as spans, profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kind = {"gemm": 0.0, "attention": 0.0, "draw": 0.0, "kernel": 0.0,
                "scan": 0.0, "scan_bwd": 0.0, "elementwise": 0.0}
-    count = 0
+    count = draws = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.key.lower()
-        kind = "kernel" if ("qsgd_dequantized" in name
-                            or "natural_noise" in name) else \
+        if "threefry_kernel" in name:
+            draws += e.count
+        kind = "draw" if "threefry_kernel" in name else \
+            "kernel" if ("qsgd_dequantized" in name
+                         or "natural_noise" in name) else \
             "scan_bwd" if ("scan_bwd_" in name
                            or "sum_middle" in name) else \
             "scan" if "scan_kernel<" in name else \
@@ -2351,9 +2385,14 @@ def train_profile(fn):
             "attention" if "softmax" in name else "elementwise"
         by_kind[kind] += e.self_device_time_total / 1e3
         count += e.count
-    by_kind["draw"] = min(spans.ms("draw"), by_kind["elementwise"])
-    by_kind["elementwise"] -= by_kind["draw"]
-    return wall_ms, by_kind, count
+    return wall_ms, by_kind, count, draws
+
+
+def no_plain_draw(*args, **kwargs):
+    """Stands in for ``prng._draw_plain`` while a run on the card must draw
+    through the threefry kernel alone."""
+    raise AssertionError("a draw on the card reached the plain int64 "
+                         "version")
 
 
 def train_line(what, wall_ms, by_kind, count):
@@ -2426,21 +2465,26 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
     state = init_state(params)
     del params
     ledger = BitsLedger(n)
+    plain_draw = prng._draw_plain
+    prng._draw_plain = no_plain_draw    # a draw on the card never gets there
     reset_launches()            # the train main path starts here
     times, losses, branches = [], [], []
-    for k, xi in enumerate(TRAIN_XI):
-        (state, metrics), seconds = timed(
-            lambda: step(state, batches[k], xi, keys[k]))
-        times.append(seconds)
-        losses.append(float(metrics["loss"]))
-        branches.append(metrics["branch"])
-        if metrics["branch"] == 1:
-            ledger.record_round(bits, bits, step=k)
+    try:
+        for k, xi in enumerate(TRAIN_XI):
+            (state, metrics), seconds = timed(
+                lambda: step(state, batches[k], xi, keys[k]))
+            times.append(seconds)
+            losses.append(float(metrics["loss"]))
+            branches.append(metrics["branch"])
+            if metrics["branch"] == 1:
+                ledger.record_round(bits, bits, step=k)
+    finally:
+        prng._draw_plain = plain_draw
     launches = dict(LAUNCHES)   # and ends here
     peak = torch.cuda.max_memory_allocated(dev)
     kernel = LEAFWISE_KERNELS[name]
     check(branches == [0, 1, 2, 0, 1], f"branches {branches}")
-    want = {kernel: 2 * 2 * leaves}
+    want = {kernel: 2 * 2 * leaves, DRAW_KERNEL: 2 * 2 * leaves}
     if cfg.mixer in ("mamba", "hybrid"):    # a scan in every layer
         local = branches.count(0)
         want["selective_scan"] = n * cfg.n_layers * (len(TRAIN_XI) + local)
@@ -2479,9 +2523,14 @@ def phase_train(dev, name, arch="stablelm-1.6b", layers=None, profile=True):
             break
         out = []
         with Recorded() as spans:
-            wall, by_kind, count = train_profile(
+            wall, by_kind, count, draws = train_profile(
                 lambda: out.append(step(state, batches[k], xis[k], keys[k])))
+        spans_drawn = sum(1 for sp in spans.spans if sp.name == "draw")
+        check(draws == spans_drawn == (2 * leaves if k == 6 else 0),
+              f"train {arch} ({name}) {what}: {draws} threefry kernels for "
+              f"{spans_drawn} draws")
         log(train_line(f"train {arch} ({name}) {what}", wall, by_kind, count)
+            + (f"; {draws} threefry kernels, one a draw" if draws else "")
             + (f"; {spans.moe_shares(wall)}" if moe else ""))
         state = out[0][0]
     return state.params, launches
@@ -2516,7 +2565,7 @@ def phase_train_width(dev, arch, params, launches, name, norm_ulps):
     1.6b: 2 x 276,824,064 elements; granite-moe-1b-a400m's expert stack:
     2 x 402,653,184; deepseek-v2-lite-16b's at 3 layers: 2 x
     369,098,752), against its plain version and its bound, with the draw
-    that feeds it timed at two chunk sizes."""
+    that feeds it (one threefry kernel launch) timed."""
     import torch
     from repro_torch.core import flatbuf, prng
     from repro_torch.kernels.natural.kernel import natural_compress_2d
@@ -2529,15 +2578,7 @@ def phase_train_width(dev, arch, params, launches, name, norm_ulps):
     keys = prng.split(prng.PRNGKey(9), x.shape[0])
     shape = x.shape[1:] if name == "natural" else \
         (x[0].numel() // 2048, 2048)
-    draw_ms, chunk = {}, prng.DRAW_CHUNK
-    try:
-        for c in (chunk // 4, chunk):
-            prng.DRAW_CHUNK = c
-            draw_ms[c] = time_ms(lambda: prng.tensor_uniform(keys, shape,
-                                                             dev),
-                                 reps=2, warmup=1)
-    finally:
-        prng.DRAW_CHUNK = chunk
+    draw_ms = time_ms(lambda: prng.tensor_uniform(keys, shape, dev), reps=5)
     noise = prng.tensor_uniform(keys, shape, dev)
     kernel = LEAFWISE_KERNELS[name]
     if name == "natural":
@@ -2581,8 +2622,7 @@ def phase_train_width(dev, arch, params, launches, name, norm_ulps):
         f"run of {arch}): {ms:.3f} ms (bound {max(bytes_ms, ops_ms):.3f} ms, "
         f"{nbytes / 1e9:.3f} GB; {bytes_ms / ms:.0%} of the memory "
         f"roofline); plain version {plain_ms:.1f} ms; its threefry noise "
-        f"draw " + ", ".join(f"{v:.1f} ms (chunk {c})"
-                             for c, v in draw_ms.items()) +
+        f"draw {draw_ms:.3f} ms" +
         (f"; norms within {norm_ulps:g} ulps; max |kernel - plain| "
          f"{err:.3g}" if name == "qsgd" else "; bit-exact"))
     return {"name": kernel, "route": "cuda",
@@ -2592,6 +2632,95 @@ def phase_train_width(dev, arch, params, launches, name, norm_ulps):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def phase_threefry_width(dev, launches):
+    """The threefry draw kernel at stablelm-1.6b's w_gate draw (2 keys x
+    276,824,064 counters) against its plain version, the int64 passes of
+    ``prng._draw_plain``, on the card: bit for bit in each finish at each
+    of THREEFRY_OFFSETS, one launch a draw; then each finish timed (CUDA
+    events, median of 10 draws) beside its bound, the larger of
+    THREEFRY_OPS INT32-pipe operations a counter at PEAK_I32_OPS_PER_S and
+    its output's bytes at PEAK_BYTES_PER_S, and the plain version timed
+    in the uniform finish; THREEFRY_PROFILED uniform draws under the
+    profiler: their device operations are threefry kernels and the keys'
+    copies, none of them int64 elementwise.  ``launches``: the
+    train run's.  Returns the kernel's row."""
+    import collections
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import prng
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.kernels.threefry.kernel import FINISHES
+
+    keys = prng.split(prng.PRNGKey(9), TRAIN_CLIENTS)
+    total = math.prod(THREEFRY_SHAPE)
+    counters = TRAIN_CLIENTS * total
+    p = float(np.float32(THREEFRY_P))
+    for offset in THREEFRY_OFFSETS:
+        for finish, (_, dtype) in FINISHES.items():
+            before = LAUNCHES[DRAW_KERNEL]
+            got = prng._draw(keys, THREEFRY_SHAPE, dev, finish, offset, p)
+            check(LAUNCHES[DRAW_KERNEL] == before + 1,
+                  f"threefry {finish}: {LAUNCHES[DRAW_KERNEL] - before} "
+                  "launches for one draw")
+            want = torch.empty((TRAIN_CLIENTS, total), dtype=dtype,
+                               device=dev)
+            prng._draw_plain(keys, want, offset, finish, p)
+            check(torch.equal(got.reshape(want.shape), want),
+                  f"threefry {finish} at offset {offset}: kernel and plain "
+                  "version differ")
+            del got, want
+    torch.cuda.empty_cache()
+    ms, bound = {}, {}
+    for finish, (_, dtype) in FINISHES.items():
+        ms[finish] = time_ms(lambda: prng._draw(
+            keys, THREEFRY_SHAPE, dev, finish, 0, p), reps=10)
+        nbytes = counters * torch.empty((), dtype=dtype).element_size()
+        bound[finish] = max(
+            THREEFRY_OPS * counters / PEAK_I32_OPS_PER_S,
+            nbytes / PEAK_BYTES_PER_S) * 1e3
+        torch.cuda.empty_cache()
+    out = torch.empty((TRAIN_CLIENTS, total), device=dev)
+    plain_ms = time_ms(lambda: prng._draw_plain(keys, out, 0, "uniform"),
+                       reps=1, warmup=1)
+    del out
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(THREEFRY_PROFILED):
+            prng.tensor_uniform(keys, THREEFRY_SHAPE, dev)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler can drop the events of the first draw it sees: the
+    # launches are counted above; here, what a draw runs on the card
+    check(any("threefry_kernel" in o for o in ops)
+          and all("threefry_kernel" in o or "Memcpy" in o for o in ops)
+          and not any(m in o for o in ops for m in INT64_NAMES),
+          f"{THREEFRY_PROFILED} draws' device operations: "
+          f"{collections.Counter(ops)}")
+    torch.cuda.empty_cache()
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"phase threefry width: {TRAIN_CLIENTS} keys x {total:,} counters "
+        f"(stablelm-1.6b's w_gate stack a client), bits / uniform / "
+        f"bernoulli bit-exact to the plain int64 version at offsets "
+        f"{THREEFRY_OFFSETS}, one launch a draw; " +
+        "; ".join(f"{f} {ms[f]:.3f} ms (bound {bound[f]:.3f} ms, "
+                  f"{bound[f] / ms[f]:.0%})" for f in FINISHES) +
+        f"; plain version (uniform) {plain_ms:.1f} ms; "
+        f"{counters / ms['uniform'] / 1e6:.3g}e9 counters a second; "
+        f"{THREEFRY_PROFILED} draws' device operations "
+        f"{dict(collections.Counter(ops))}; SM clock now / max {clocks}")
+    return {"name": DRAW_KERNEL, "route": "cuda", "source": THREEFRY_SOURCE,
+            "replaces": None, "launches": launches.get(DRAW_KERNEL, 0),
+            "max_abs_err": 0.0, "ms": ms["uniform"], "plain_ms": plain_ms,
+            "bound_ms": bound["uniform"], "bound_by": "operations",
             "library_ms": None}
 
 
@@ -2900,7 +3029,9 @@ def phase_fedavg_lm(dev):
     avg, avg_s = fed(run_fedavg, FEDAVG_ROUNDS, compressor=plan)
     launches = dict(LAUNCHES)   # and ends here
     avg_peak = torch.cuda.max_memory_allocated(dev)
-    want = {"qsgd_dequantized": FEDAVG_ROUNDS * n * STABLELM_LEAVES}
+    # a leaf's QSGD: one draw (one threefry launch) and one kernel
+    want = {"qsgd_dequantized": FEDAVG_ROUNDS * n * STABLELM_LEAVES,
+            DRAW_KERNEL: FEDAVG_ROUNDS * n * STABLELM_LEAVES}
     check(launches == want, f"fedavg lm launches {launches}, the path "
           f"implies {want}")
     check(avg.ledger.rounds == FEDAVG_ROUNDS
@@ -4614,7 +4745,8 @@ def phase_mesh2d_train(dev):
     (ref, ref_losses), (got, got_losses) = results.values()
     check(torch.equal(ref_losses, got_losses), "mesh2d losses differ")
     check(got == ref, "mesh2d params / cache differ from build_rollout_fn's")
-    want = {"natural_compress_2d": 2 * 11}   # one fresh round, 11 leaves
+    # one fresh round, 11 leaves, two links: a draw and a kernel each
+    want = {"natural_compress_2d": 2 * 11, DRAW_KERNEL: 2 * 11}
     for what, got_launches in launches.items():
         check(got_launches == want, f"{what}: launches {got_launches}")
     torch.cuda.empty_cache()
@@ -5127,7 +5259,9 @@ def main():
                                       launches, name, norm_ulps))
         del params
         torch.cuda.empty_cache()
-    lap("dequantize, train, train width")
+        if name == "natural":
+            rows.append(phase_threefry_width(dev, launches))
+    lap("dequantize, train, train width, threefry width")
     train_launches = {}
     for arch, layers, name in MAMBA_TRAIN:
         params, train_launches[arch] = phase_train(dev, name, arch, layers)

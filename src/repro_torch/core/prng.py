@@ -31,12 +31,14 @@ device of the tensor they perturb, from the same keys:
   * ``jax.random.normal`` (f32)    -> :func:`tensor_normal`
   * ``jax.random.permutation(key, d)`` -> :func:`permutation`
 
-They hold uint32 words in int64 tensors masked to 32 bits (torch's CPU
-``uint32`` lacks ``+`` and ``>>``), one code path for CPU and CUDA, and
-run over the counter range in chunks of :data:`DRAW_CHUNK`, so that a
-draw the size of a model's largest leaf needs no int64 temporary of that
-size.  Each array draw is one ``draw`` span of ``repro_torch.tracing``
-and adds the counters it hashes to ``draw.elements``.
+On a CUDA device each draw is one launch of the ``threefry_draw``
+kernel (``kernels/threefry``), which hashes every counter in registers
+and writes the finished draw; on the CPU it is the kernel's plain
+version, :func:`_draw_plain`: uint32 words in int64 tensors masked to 32
+bits (torch's CPU ``uint32`` lacks ``+`` and ``>>``), over the counter
+range in chunks of :data:`DRAW_CHUNK`.  Each array draw is one ``draw``
+span of ``repro_torch.tracing`` and adds the counters it hashes to
+``draw.elements``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch import tracing
+from repro_torch.kernels.threefry import kernel as threefry
+from repro_torch.kernels.dispatch import use_kernel
 
 __all__ = ["PRNGKey", "threefry2x32", "split", "fold_in", "random_bits",
            "uniform", "bernoulli", "randint", "normal", "NORMAL_ULPS",
@@ -260,11 +264,8 @@ def _threefry_tensor(k1, k2, x1, x2):
     return x[0], x[1]
 
 
-#: counters per chunk of an array draw: every int64 temporary of the
-#: threefry rounds holds batch x DRAW_CHUNK words, not the whole array.
-#: On an H100, 2^19 to 2^24 drew two clients' largest stablelm-1.6b leaf
-#: alone within 13% of each other, but inside a train step 2^20 left the
-#: card waiting on the launches of its ~150 passes a chunk (PERF.md)
+#: counters per chunk of the plain version: every int64 temporary of the
+#: threefry rounds holds batch x DRAW_CHUNK words, not the whole array
 DRAW_CHUNK = 1 << 22
 
 #: "elements": the counters the array draws hashed
@@ -272,30 +273,59 @@ DRAWN = tracing.counter("draw")
 
 
 @tracing.traced("draw")
-def _draw(key, shape, device, finish, dtype, offset=0) -> torch.Tensor:
-    """``finish(bits)`` of :func:`random_bits` on ``device``, computed
-    DRAW_CHUNK counters at a time into one output of ``dtype``.  In
-    partitionable threefry element i depends only on its counter i, so
-    slicing the counter range changes no bit, and ``offset`` draws the
-    counters from ``offset`` on: the elements ``offset`` onward of a
-    larger draw with the same key."""
+def _draw(key, shape, device, finish, offset=0, p=0.0) -> torch.Tensor:
+    """``finish`` ("bits", "uniform" or "bernoulli" against the float32
+    ``p``) of :func:`random_bits` on ``device``, of shape ``batch +
+    shape``.  A CUDA device runs the ``threefry_draw`` kernel, one launch;
+    the CPU runs the plain version, :func:`_draw_plain`; any other device
+    raises.  In partitionable threefry element i depends only on its
+    counter i, so ``offset`` draws the counters from ``offset`` on: the
+    elements ``offset`` onward of a larger draw with the same key."""
     keys = np.asarray(key, _U32)
     _words(keys)
     batch = keys.shape[:-1]
     shape = tuple(int(s) for s in shape)
     total = math.prod(shape)
-    words = torch.from_numpy(keys.astype(np.int64)).to(device) \
-        .reshape(batch + (1, 2))
-    out = torch.empty(batch + (total,), dtype=dtype, device=device)
-    DRAWN["elements"] += math.prod(batch) * total
+    offset = int(offset)
+    if not 0 <= offset <= 2 ** 64 - total:
+        raise ValueError(f"counters {offset} .. {offset} + {total} leave "
+                         "the 64-bit range")
+    out = torch.empty((math.prod(batch), total),
+                      dtype=threefry.FINISHES[finish][1], device=device)
+    rows = keys.reshape(-1, 2)
+    if use_kernel(out):
+        threefry.threefry_draw(rows, out, offset, finish, p)
+    else:
+        _draw_plain(rows, out, offset, finish, p)
+    DRAWN["elements"] += out.numel()
+    return out.reshape(batch + shape)
+
+
+def _draw_plain(keys, out: torch.Tensor, offset: int, finish: str,
+                p: float = 0.0) -> None:
+    """The plain version of the ``threefry_draw`` kernel on any device:
+    fill ``out`` (batch, total) with the draw of ``keys`` (batch, 2) as
+    int64 tensors of uint32 words masked to 32 bits (torch's CPU
+    ``uint32`` lacks ``+`` and ``>>``), DRAW_CHUNK counters at a time."""
+    words = torch.from_numpy(np.asarray(keys, np.int64)).to(out.device) \
+        .reshape(-1, 1, 2)
+    total = out.shape[-1]
     for start in range(0, total, DRAW_CHUNK):
         stop = min(start + DRAW_CHUNK, total)
-        count = torch.arange(offset + start, offset + stop,
-                             dtype=torch.int64, device=device)
-        y1, y2 = _threefry_tensor(words[..., 0], words[..., 1], count >> 32,
-                                  count & _MASK)
-        out[..., start:stop] = finish(y1 ^ y2)
-    return out.reshape(batch + shape)
+        base = offset + start
+        # counted from the chunk's first low word (the sum stays under
+        # 2^33), so no int64 overflows for counters past 2^63
+        low = torch.arange(base & _MASK, (base & _MASK) + stop - start,
+                           dtype=torch.int64, device=out.device)
+        y1, y2 = _threefry_tensor(words[..., 0], words[..., 1],
+                                  ((base >> 32) + (low >> 32)) & _MASK,
+                                  low & _MASK)
+        bits = y1 ^ y2
+        if finish != "bits":
+            bits = _to_uniform(bits)
+            if finish == "bernoulli":
+                bits = bits < p
+        out[:, start:stop] = bits
 
 
 def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -307,32 +337,29 @@ def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
 def tensor_bits(key, shape, device=None) -> torch.Tensor:
     """:func:`random_bits` computed on ``device``: uint32 values (int64
     tensor) of shape ``batch + shape`` for keys (..., 2)."""
-    return _draw(key, shape, device, lambda bits: bits, torch.int64)
+    return _draw(key, shape, device, "bits")
 
 
 def tensor_uniform(key, shape, device=None, offset=0) -> torch.Tensor:
     """:func:`uniform` on ``device`` (float32); ``offset``: the draw's
     counters start there (see ``_draw``)."""
-    return _draw(key, shape, device, _to_uniform, torch.float32, offset)
+    return _draw(key, shape, device, "uniform", offset)
 
 
 def tensor_bernoulli(key, p, shape, device=None, offset=0) -> torch.Tensor:
     """:func:`bernoulli` on ``device`` (``p`` compared in float32);
     ``offset`` as :func:`tensor_uniform`'s."""
-    p32 = float(np.float32(p))
-    return _draw(key, shape, device, lambda bits: _to_uniform(bits) < p32,
-                 torch.bool, offset)
-
-
-def _to_normal(bits: torch.Tensor) -> torch.Tensor:
-    u = torch.clamp(_to_uniform(bits) * 2.0 + _NORMAL_LO, min=_NORMAL_LO)
-    return _SQRT2 * _erfinv32(u, torch, torch.Tensor.double,
-                              torch.Tensor.float)
+    return _draw(key, shape, device, "bernoulli", offset,
+                 float(np.float32(p)))
 
 
 def tensor_normal(key, shape, device=None) -> torch.Tensor:
-    """:func:`normal` on ``device`` (float32)."""
-    return _draw(key, shape, device, _to_normal, torch.float32)
+    """:func:`normal` on ``device`` (float32): the erfinv finish in
+    PyTorch on :func:`tensor_uniform`'s draw."""
+    u = torch.clamp(tensor_uniform(key, shape, device) * 2.0 + _NORMAL_LO,
+                    min=_NORMAL_LO)
+    return _SQRT2 * _erfinv32(u, torch, torch.Tensor.double,
+                              torch.Tensor.float)
 
 
 def permutation(key, d: int, device=None) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The port's kernels: counter RNG, device dispatch, build; QSGD, natural,
-flash attention and the selective scan.
+flash attention, the selective scan and the threefry array draws.
 
 The public wrappers below are the reference's ``repro.kernels`` exports
 (its TPU-only ``on_tpu``, ``autotune_rows`` and ``default_interpret``

@@ -28,7 +28,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build"
 SOURCES = {"qsgd": "qsgd/csrc/qsgd.cu",
            "natural": "natural/csrc/natural.cu",
            "flash_attention": "flash_attention/csrc/flash_attention.cu",
-           "selective_scan": "selective_scan/csrc/selective_scan.cu"}
+           "selective_scan": "selective_scan/csrc/selective_scan.cu",
+           "threefry": "threefry/csrc/threefry.cu"}
 
 # --fmad=false: the kernels' parity contract forbids contracting a
 # multiply and an add into one FMA (DESIGN.md §6 rounding order)
