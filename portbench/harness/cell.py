@@ -19,7 +19,9 @@ synchronize around it) and profiles one more cycle after that.
 The reference then follows the whole run, prologue and window, from the
 same weights, tokens, xi and keys: each step's loss, the first step's
 gradient as the update applied it, every leaf's change after the
-prologue and after the window, and the cached target.
+prologue and after the window, and the cached target.  Its model is the
+one the configuration file names (``spec.reference``): the leaves, the
+loss, the weights' scales, and the config fields the program is held to.
 """
 from __future__ import annotations
 
@@ -36,15 +38,7 @@ from portbench.harness import compare, inputs, spec, trace
 from portbench.reference import codecs as ref_codecs
 from portbench.reference import draws as ref_draws
 from portbench.reference import l2gd as ref_l2gd
-from portbench.reference import model as ref_model
 
-#: the program's config fields a configuration file states
-MODEL_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab_size", "mixer", "ffn", "n_experts",
-              "n_shared_experts", "experts_per_token", "moe_d_ff",
-              "capacity_factor", "aux_loss_weight", "rope_theta", "norm_eps",
-              "param_dtype", "compute_dtype", "attn_impl", "moe_impl",
-              "remat")
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 PROLOGUE = 3
 BRANCHES = ("local", "fresh", "cached")
@@ -79,17 +73,19 @@ class Run:
         return self.branches.count(branch)
 
 
-def program_config(cfg: dict, shrink: dict = None):
-    """The program's config of a configuration file, held to the file key
-    by key, with the ``shrink`` overrides applied."""
+def program_config(cfg: dict, shrink: dict = None, references=None):
+    """The program's config of a configuration file, held to the file on
+    each of its plain model's ``MODEL_KEYS``, with the ``shrink``
+    overrides of those keys applied."""
     from repro_torch.configs import get_config
+    keys = spec.reference(cfg, references).MODEL_KEYS
     prog = get_config(cfg["arch"])
-    for k in MODEL_KEYS:
+    for k in keys:
         if k in cfg and getattr(prog, k) != cfg[k]:
             raise ValueError(f"{cfg['arch']}: {k} {getattr(prog, k)!r} != "
                              f"{cfg[k]!r}")
     return dataclasses.replace(prog, **{k: v for k, v in (shrink or {}).items()
-                                        if k in MODEL_KEYS})
+                                        if k in keys})
 
 
 def prologue_xis(cycle: list) -> list:
@@ -121,13 +117,17 @@ def card(chips: int) -> torch.device:
 
 class CellRun:
     """A cell's program and inputs for one seed on one device.  ``shrink``
-    overrides configuration sizes and ``cell`` the cell's file (the CPU
-    tests')."""
+    overrides configuration sizes, ``cell`` the cell's file, and
+    ``configs`` and ``references`` the directories of the configuration
+    files and plain models (the CPU tests')."""
 
     def __init__(self, name: str, seed: int, device, *, shrink=None,
-                 cell=None, say=lambda msg: None):
+                 cell=None, configs=None, references=None,
+                 say=lambda msg: None):
         self.cell = cell or spec.workload(name)
-        base = spec.config(self.cell["config"])
+        base = spec.config(self.cell["config"], configs)
+        self.ref = spec.reference(base, references)
+        self.std = inputs.weight_rule(self.ref)
         self.cfg = {**base, **(shrink or {})}
         self.seed, self.device = int(seed), torch.device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -136,8 +136,8 @@ class CellRun:
             from repro_torch.kernels import build
             build.build_all([self.cell["codec"]["name"]])
             say("kernels built")
-        self.prog_cfg = program_config(base, shrink)
-        self.shapes = ref_model.param_shapes(self.cfg)
+        self.prog_cfg = program_config(base, shrink, references)
+        self.shapes = self.ref.param_shapes(self.cfg)
         # the plans' shapes; a leaf the program's model does not take, or
         # lacks, fails its first step ("a parameter leaf got no gradient")
         self.meta = inputs.nested({k: torch.empty(s, device="meta")
@@ -173,7 +173,7 @@ class CellRun:
         self.step = build_train_step(self.prog_cfg, self.hp,
                                      plans=(self.plan, self.plan))
         x0 = inputs.stacked_weights(self.shapes, self.seed, self.n,
-                                    self.device)
+                                    self.device, self.std)
         self.state = init_state(inputs.nested(x0))
         self.k = 0
 
@@ -222,7 +222,7 @@ class CellRun:
         out = np.zeros((self.n, len(self.shapes)))
         for i in range(self.n):
             one = inputs.client_weights(self.shapes, self.seed, i,
-                                        self.device)
+                                        self.device, self.std)
             for j, leaf in enumerate(self.shapes):
                 out[i, j] = float(torch.linalg.vector_norm(
                     (now[leaf][i] - one[leaf]).reshape(-1),
@@ -268,9 +268,9 @@ class CellRun:
         torch.backends.cuda.matmul.allow_tf32 = matmul == "tf32"
         try:
             x0 = inputs.stacked_weights(self.shapes, self.seed, self.n,
-                                        self.device)
+                                        self.device, self.std)
             steps = self.compared
-            out = ref_l2gd.follow(cfg, self.cell, x0,
+            out = ref_l2gd.follow(self.ref.loss, cfg, self.cell, x0,
                                   [self.batch_of(k)["tokens"]
                                    for k in range(steps)],
                                   self.xis[:steps],
@@ -291,9 +291,11 @@ class CellRun:
 
 
 def run(name: str, seed: int, seconds: float, traced: bool, *, start: float,
-        device=None, shrink: dict = None, cell: dict = None):
+        device=None, shrink: dict = None, cell: dict = None, configs=None,
+        references=None):
     """One run of cell ``name``: (Run, checks, attempted, failed).
-    ``device`` None means the card (raises NoDevice without one)."""
+    ``device`` None means the card (raises NoDevice without one); the
+    rest as ``CellRun`` takes them."""
     if device is None:
         device = card(spec.cell_entry(spec.benchmark(), name)["chips"])
     on_card = torch.device(device).type == "cuda"
@@ -302,6 +304,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, *, start: float,
     log(start, f"{device} ready")
     from repro_torch.fl.ledger import BitsLedger
     c = CellRun(name, seed, device, shrink=shrink, cell=cell,
+                configs=configs, references=references,
                 say=lambda msg: log(start, msg))
     log(start, "tokens made")
     c.build()

@@ -3,7 +3,9 @@ on the device and the clients' token streams.
 
 Weights: client i's random leaves come from one ``torch.randn`` on the
 device, a generator seeded from (seed, i), cut into the leaves in name
-order and scaled: the table by 0.02, every matrix by its fan-in ** -0.5
+order and scaled by the plain model's ``weight_std(name, shape)``, a
+leaf whose scale is 0 made of ones.  A model without that rule takes
+this module's: the table by 0.02, every matrix by its fan-in ** -0.5
 (the second-to-last axis); norm scales are ones.
 
 Tokens: client i follows its own affine law ``t_{j+1} = (a_i t_j + b_i +
@@ -27,31 +29,37 @@ def _std(name: str, shape) -> float:
     return shape[-2] ** -0.5
 
 
-def client_weights(shapes: dict, seed: int, i: int, device) -> dict:
-    """Client i's leaves ({name: tensor}), views of one buffer."""
-    random = [k for k in shapes if _std(k, shapes[k])]
+def weight_rule(ref):
+    """The scale of each leaf of the plain model ``ref``."""
+    return getattr(ref, "weight_std", _std)
+
+
+def client_weights(shapes: dict, seed: int, i: int, device, std) -> dict:
+    """Client i's leaves ({name: tensor}), views of one buffer, scaled by
+    ``std(name, shape)``."""
+    random = [k for k in shapes if std(k, shapes[k])]
     total = sum(math.prod(shapes[k]) for k in random)
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed) * 0x9E3779B1 + i + 1) % (1 << 63))
     buf = torch.randn((total,), generator=gen, device=device)
     out, lo = {}, 0
     for name, shape in shapes.items():
-        std = _std(name, shape)
-        if not std:
+        scale = std(name, shape)
+        if not scale:
             out[name] = torch.ones(shape, device=device)
             continue
         size = math.prod(shape)
-        out[name] = buf[lo:lo + size].view(shape).mul_(std)
+        out[name] = buf[lo:lo + size].view(shape).mul_(scale)
         lo += size
     return out
 
 
-def stacked_weights(shapes: dict, seed: int, n: int, device) -> dict:
+def stacked_weights(shapes: dict, seed: int, n: int, device, std) -> dict:
     """{name: (n, *shape)} for n clients."""
     out = {k: torch.empty((n,) + tuple(s), device=device)
            for k, s in shapes.items()}
     for i in range(n):
-        one = client_weights(shapes, seed, i, device)
+        one = client_weights(shapes, seed, i, device, std)
         for k in shapes:
             out[k][i].copy_(one[k])
         del one

@@ -2,14 +2,18 @@
 
   BENCHMARK.json              the cells, the metrics and which cells each
                               metric is read in
-  configs/<config>.json       a configuration's sizes as run
+  configs/<config>.json       a configuration's sizes as run, and under
+                              ``reference`` the name of its plain model
+  reference/<reference>.py    a plain model: its leaves, loss and FLOPs
+                              (the contract heads ``reference/model.py``)
   workloads/<cell>.json       a cell's traffic: codec, transport, xi cycle,
                               step sizes and the limits of ``correct``
   metrics/<metric>.py         one reader a metric: ``read(run)`` returns
                               the number, or None where it finds nothing
 
-A new cell, configuration or metric is a new file here and an entry in
-``BENCHMARK.json``; no code names one.
+A new cell, configuration, plain model or metric is a new file here and
+an entry in ``BENCHMARK.json``; no code names one.  Each lookup takes a
+``directory`` in place of its own (the tests').
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ def benchmark(root: Path = REPO) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def config(name: str) -> dict:
-    return json.loads((HERE / "configs" / f"{name}.json").read_text())
+def config(name: str, directory: Path = None) -> dict:
+    return json.loads(((directory or HERE / "configs") / f"{name}.json")
+                      .read_text())
 
 
 def workload(name: str, directory: Path = None) -> dict:
@@ -41,14 +46,28 @@ def workload(name: str, directory: Path = None) -> dict:
     return cell
 
 
-def reader(metric: str):
-    """The ``read`` function of ``metrics/<metric>.py``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}",
-                                                  path)
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str):
+    """The ``read`` function of ``metrics/<metric>.py``."""
+    return _load(f"portbench_metric_{metric}",
+                 HERE / "metrics" / f"{metric}.py").read
+
+
+def reference(cfg: dict, directory: Path = None):
+    """The plain model ``reference/<cfg["reference"]>.py`` of a
+    configuration, as a module."""
+    if "reference" not in cfg:
+        raise KeyError(f"{cfg.get('name', 'a configuration')} names no "
+                       "reference model")
+    name = cfg["reference"]
+    return _load(f"portbench_reference_{name}",
+                 (directory or HERE / "reference") / f"{name}.py")
 
 
 def cell_metrics(bench: dict, cell: str, trace: bool) -> list:

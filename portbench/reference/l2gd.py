@@ -8,15 +8,17 @@ from the same weights, tokens, branch draws and keys.
   cached (xi = 1 after 1):    the same pull toward the cached t
 
 The scalings are float32 numbers formed in float32; a step's loss is the
-mean of the clients' losses at the parameters it starts from.  The
-cache starts as the exact mean of the initial models (xi_{-1} = 1).
+mean of the clients' losses at the parameters it starts from, each by
+the configuration's plain model (its ``loss``, which the caller hands
+in).  The cache starts as the exact mean of the initial models
+(xi_{-1} = 1).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from portbench.reference import codecs, model
+from portbench.reference import codecs
 
 _F32 = np.float32
 
@@ -49,9 +51,10 @@ def pair_norms(a: dict, b: dict, scale: float = 1.0) -> np.ndarray:
     return out / scale
 
 
-def follow(cfg: dict, cell: dict, x0: dict, batches: list, xis: list,
+def follow(loss, cfg: dict, cell: dict, x0: dict, batches: list, xis: list,
            keys, prologue: int, fault: str = None) -> dict:
-    """Run ``len(xis)`` steps from the stacked weights ``x0`` (left
+    """Run ``len(xis)`` steps of the model whose loss is ``loss(cfg,
+    params, tokens, half_batch)`` from the stacked weights ``x0`` (left
     unchanged) on step batches of tokens (n, B, S): the ``prologue``
     steps and then the window's.  Returns every step's loss, the first
     step's gradient norms (n, leaves) worked out from the parameters
@@ -76,7 +79,7 @@ def follow(cfg: dict, cell: dict, x0: dict, batches: list, xis: list,
             for i in range(n):
                 own = {k: v[i].detach().requires_grad_() for k, v in x.items()}
                 with torch.enable_grad():
-                    value = model.loss(cfg, own, tokens[i], half_batch=half)
+                    value = loss(cfg, own, tokens[i], half_batch=half)
                     grads = torch.autograd.grad(value, [own[k] for k in names])
                 vals.append(value.detach())
                 del own
@@ -87,7 +90,7 @@ def follow(cfg: dict, cell: dict, x0: dict, batches: list, xis: list,
                 del grads
         else:
             with torch.no_grad():
-                vals = [model.loss(cfg, {k: v[i] for k, v in x.items()},
+                vals = [loss(cfg, {k: v[i] for k, v in x.items()},
                                    tokens[i], half_batch=half)
                         for i in range(n)]
                 if xi_prev == 0:

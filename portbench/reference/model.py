@@ -1,9 +1,37 @@
 """The plain decoder the cells train, written from the configuration file.
 
-A layer is ``x + attn(rmsnorm(x))`` then ``x + ffn(rmsnorm(x))``:
-grouped-query attention with rotary positions (the two halves of each
-head rotated), a causal softmax in float32; the FFN is a SwiGLU MLP or
-a token-choice mixture of experts.  The table is tied: the logits are
+A configuration file names its plain model under ``"reference"``: the
+module ``portbench/reference/<reference>.py``, which ``harness.spec.
+reference`` loads.  Such a module gives
+
+  MODEL_KEYS          the program's config fields that its model reads;
+                      the harness holds the program's config to the file
+                      on each of them, and applies a test's size cuts
+                      to them alone
+  param_shapes(cfg)   one model's leaves, {dotted name: shape}, the
+                      names the program's (``a.b.c`` for its nested
+                      ``a``/``b``/``c``)
+  loss(cfg, params, tokens, half_batch=False)
+                      one client's loss on its (B, S) tokens, ``params``
+                      one client's leaves by those names; it honours
+                      ``cfg["matmul"] == "tf32_emulated"`` (the control:
+                      every product's operands rounded to TF32, as
+                      ``_mm`` does here) and ``half_batch`` (a planted
+                      fault: the mean over the first half of the
+                      positions)
+  train_flops(cfg, shapes)
+                      the analytic FLOPs of one local step of all
+                      clients; recomputed forwards are not counted
+  weight_std(name, shape)   optional: a leaf's scale, 0 for ones; where
+                      it is absent, ``harness.inputs``' rule applies
+
+and imports neither JAX nor anything of the program.
+
+This module's model, ``"reference": "model"``: a layer is ``x +
+attn(rmsnorm(x))`` then ``x + ffn(rmsnorm(x))``: grouped-query
+attention with rotary positions (the two halves of each head rotated),
+a causal softmax in float32; the FFN is a SwiGLU MLP or a token-choice
+mixture of experts.  The table is tied: the logits are
 the final norm's output times the table's transpose, and the loss is the
 mean next-token cross-entropy, plus ``aux_loss_weight`` times the
 experts' load-balance loss summed over the layers.
@@ -19,6 +47,13 @@ adds nothing.  The load-balance loss is ``E * sum_e f_e P_e`` with
 Parameters are client-stacked dicts keyed as ``param_shapes`` gives;
 each layer's body is checkpointed, so a backward at 4096 tokens holds
 one layer's activations at a time.
+
+FLOPs of one client's training step on B x S tokens (the analytic count
+of the repository's ``launch.roofline``, frozen here): 6 N_active a
+token for the products (forward 2, backward 4), plus 3 x 4 B S^2 H hd /
+2 a layer for the causal attention's score and value products.  N_active
+counts the table once (the tied unembedding's product) and k of E
+experts a layer.
 """
 from __future__ import annotations
 
@@ -27,6 +62,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+MODEL_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+              "d_ff", "vocab_size", "mixer", "ffn", "n_experts",
+              "n_shared_experts", "experts_per_token", "moe_d_ff",
+              "capacity_factor", "aux_loss_weight", "rope_theta", "norm_eps",
+              "param_dtype", "compute_dtype", "attn_impl", "moe_impl",
+              "remat")
 
 
 def param_shapes(cfg: dict) -> dict:
@@ -180,3 +222,24 @@ def loss(cfg: dict, params: dict, tokens: torch.Tensor,
         logits, targets = logits[:, :half], targets[:, :half]
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
     return ce + cfg["aux_loss_weight"] * aux
+
+
+def active_params(cfg: dict, shapes: dict) -> float:
+    total = 0.0
+    for name, shape in shapes.items():
+        size = math.prod(shape)
+        if cfg["ffn"] == "moe" and name in ("layers.ffn.w_gate",
+                                            "layers.ffn.w_up",
+                                            "layers.ffn.w_down"):
+            size = size * cfg["experts_per_token"] / cfg["n_experts"]
+        total += size
+    return total
+
+
+def train_flops(cfg: dict, shapes: dict) -> float:
+    """FLOPs of one local step of all clients."""
+    B, S = cfg["batch_per_client"], cfg["seq_len"]
+    attention = cfg["n_layers"] * 4.0 * B * S * S * cfg["n_heads"] \
+        * cfg["head_dim"] * 0.5
+    per_client = 6.0 * active_params(cfg, shapes) * B * S + 3.0 * attention
+    return cfg["clients"] * per_client

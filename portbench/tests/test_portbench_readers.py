@@ -5,12 +5,11 @@ import pytest
 from portbench.harness import roofline, spec
 from portbench.harness.cell import Run
 from portbench.harness.trace import Trace
-from portbench.reference import model
 from portbench.tests.tiny import one_thread  # noqa: F401
 
-CFG = {"n_layers": 1, "d_model": 8, "n_heads": 2, "n_kv_heads": 2,
-       "head_dim": 4, "d_ff": 16, "vocab_size": 10, "ffn": "dense",
-       "clients": 2, "batch_per_client": 1, "seq_len": 4}
+CFG = {"reference": "model", "n_layers": 1, "d_model": 8, "n_heads": 2,
+       "n_kv_heads": 2, "head_dim": 4, "d_ff": 16, "vocab_size": 10,
+       "ffn": "dense", "clients": 2, "batch_per_client": 1, "seq_len": 4}
 
 
 def _trace():
@@ -39,32 +38,28 @@ def test_trace_reduction():
 
 
 def test_readers():
-    shapes = model.param_shapes(CFG)
+    ref = spec.reference(CFG)
+    shapes = ref.param_shapes(CFG)
     run = Run(cell={"transport": "leafwise"}, config=CFG, shapes=shapes, setup_s=12.5,
               window_s=2.0, branches=[0, 0, 1, 2], step_seconds=[
                   (0, 0.5), (0, 0.75), (1, 0.25), (2, 0.5)],
               peak_bytes=3 * 10 ** 9, trace=_trace(), trace_fresh_rounds=1)
     read = {m: spec.reader(m)(run) for m in (
         "train_tokens_per_s", "peak_mem_gb", "setup_s", "local_step_s",
-        "fresh_step_s", "draw_s", "mfu", "codec_roofline", "idle_share")}
+        "fresh_step_s", "mfu", "codec_roofline", "idle_share")}
     assert read["train_tokens_per_s"] == 2 * 1 * 4 * 2 / 2.0
     assert read["peak_mem_gb"] == 3.0
     assert read["setup_s"] == 12.5
     assert read["local_step_s"] == 0.625
     assert read["fresh_step_s"] == 0.25
-    assert read["draw_s"] == 1.0
     assert read["mfu"] == pytest.approx(
-        100 * 2 * roofline.train_flops(CFG, shapes) / (2.0 * 67e12))
+        100 * 2 * ref.train_flops(CFG, shapes) / (2.0 * 67e12))
     assert read["codec_roofline"] == pytest.approx(
         100 * roofline.codec_bytes(CFG, shapes) / 3.35e12 / 0.5)
     assert read["idle_share"] == pytest.approx(100 * (1 - 2.5 / 4.0))
     quiet = Run(cell={}, config=CFG, shapes=shapes, setup_s=1.0,
                 window_s=1.0, branches=[1, 2], step_seconds=[],
                 peak_bytes=0)
-    for metric in ("local_step_s", "fresh_step_s", "draw_s", "mfu",
+    for metric in ("local_step_s", "fresh_step_s", "mfu",
                    "codec_roofline", "idle_share", "peak_mem_gb"):
         assert spec.reader(metric)(quiet) is None, metric
-    flat = Run(cell={"transport": "flat"}, config=CFG, shapes=shapes,
-               setup_s=1.0, window_s=1.0, branches=[1], step_seconds=[],
-               peak_bytes=0, trace=_trace(), trace_fresh_rounds=1)
-    assert spec.reader("draw_s")(flat) is None

@@ -9,7 +9,7 @@ import torch
 
 from portbench.harness import cell as cell_run
 from portbench.harness import compare, inputs, spec
-from portbench.reference import codecs, draws, model
+from portbench.reference import codecs, draws
 from portbench.tests.tiny import (CELLS, MOE, SHRINK, one_thread,  # noqa: F401
                                   shrink)
 
@@ -53,8 +53,9 @@ def test_step_keys_are_the_programs():
 @pytest.mark.parametrize("config", ["stablelm-1.6b", "granite-moe-1b-a400m"])
 def test_round_bits_at_full_size(config, codec, transport):
     from repro_torch.launch.steps import param_shapes
-    prog = cell_run.program_config(spec.config(config))
-    shapes = model.param_shapes(spec.config(config))
+    cfg = spec.config(config)
+    prog = cell_run.program_config(cfg)
+    shapes = spec.reference(cfg).param_shapes(cfg)
     assert codecs.round_bits(codec, transport, list(shapes.values())) == \
         _plan(codec, transport, param_shapes(prog)).round_bits()
 
